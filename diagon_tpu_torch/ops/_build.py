@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source compiles with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The library lands in
-``build/kernels/`` at the root of the checkout, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing is fetched or prebuilt: the first kernel launch builds.
+Every ``csrc/*.cu`` source compiles with its own ``nvcc`` into a shared
+library with a plain C interface, loaded with ``ctypes``; the compilers of
+all sources start together, so the build takes as long as the slowest
+source. Each library lands in ``build/kernels/`` at the root of the
+checkout, named by the source and a hash of it, the shared headers and the
+flags, so an edited source rebuilds and an unchanged one is reused. Nothing
+is fetched or prebuilt: the first kernel launch builds.
 
 ``--fmad=false`` keeps every device multiply from fusing into an add on
 the score path (the exactness contract, docs/DESIGN.md).
@@ -19,6 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -33,10 +36,16 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_APPROX = [_P] * 13 + [_I, _I, _I64, _P]
 # launcher name -> argtypes (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "diagon_row_sum": [_P, _P, _P, _P, _P, _I, _I, _I64, _P],
     "diagon_row_boolean": [_P, _P, _P, _P, _P, _P, _I, _I, _I64, _P],
+    "diagon_approx_select": _APPROX,
+    "diagon_approx_select_bool": _APPROX,
+    "diagon_approx_select_bool2": _APPROX,
+    "diagon_gather_rescore": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "diagon_union_rescore": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -64,45 +73,75 @@ def _sources():
     return srcs
 
 
-def library_path() -> Path:
+def library_path(src: Path) -> Path:
+    """The shared library built from one source."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in [src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libdiagon_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def library_paths():
+    return [library_path(s) for s in _sources()]
 
 
 def build_log() -> str:
     """The compiler's output (``-Xptxas -v``: registers, spills) from the
-    build of the current sources, or '' when none is on disk."""
-    log = library_path().with_suffix(".log")
-    return log.read_text() if log.exists() else ""
+    builds of the current sources that are on disk."""
+    logs = [p.with_suffix(".log") for p in library_paths()]
+    return "".join(p.read_text() for p in logs if p.exists())
 
 
-def library() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    global _lib, build_seconds
+def _build_missing():
+    """Start one nvcc per source whose library is missing, all at once,
+    and wait for every one; raise with the output of any that failed."""
+    global build_seconds
+    todo = [(s, library_path(s)) for s in _sources()
+            if not library_path(s).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for src, so in todo:
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((so, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    failed = []
+    for so, tmp, cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+            continue
+        so.with_suffix(".log").write_text(out)
+        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    build_seconds = time.perf_counter() - t0
+
+
+def library() -> SimpleNamespace:
+    """Every launcher of ``_SIGNATURES`` as an attribute, built on first
+    use."""
+    global _lib
     if _lib is not None:
         return _lib
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}"
-            )
-        build_seconds = time.perf_counter() - t0
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    _build_missing()
+    fns = {}
+    libs = [ctypes.CDLL(str(so)) for so in library_paths()]
+    for lib in libs:
+        for name, argtypes in _SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+    missing = sorted(set(_SIGNATURES) - set(fns))
+    if missing:
+        raise RuntimeError(f"kernel libraries lack launchers {missing}")
+    _lib = SimpleNamespace(**fns, libraries=libs)
+    return _lib

@@ -1,0 +1,233 @@
+"""Phase-1 approximate select kernels (B3, B4, B5) and their plain versions.
+
+``approx_select``, ``approx_select_bool`` and ``approx_select_bool2`` are
+the port's counterparts of ``diagon_tpu/ops/pallas/approx_pass.py``'s
+``pallas_approx_select``, ``pallas_approx_select_bool`` and
+``pallas_approx_select_bool2``: the same arguments in the same order, the
+same results, (tile max f32 [Q, D/128], hits i32 [Q]). On CUDA tensors
+they launch the hand-written kernels of ``csrc/approx_pass.cu``; on CPU
+tensors they run the plain versions beside them, which are also what the
+kernels are held against on the card. There is no fallback: a CUDA call
+launches or raises.
+
+The bank is the batch-compact bf16 copy [U8, D] of the batch's clause
+rows; each indicator matrix [U8, Q] (bf16) counts how often query q uses
+row u in one role. Hits, the per-doc counts and so the feasibility of a
+tile (-1 or not) are exact in every version: they are sums of small
+integers. The tile maxima are an approximation and differ between
+versions by the order of the f32 adds (and, for B3, by one bf16 rounding
+of the result).
+
+Why ``_APPROX_RELEPS`` = 2^-7 still bounds the error of this arithmetic
+(``row_engine._APPROX_RELEPS``; the caller inflates every tile max by
+``1 + _APPROX_RELEPS`` and needs it to dominate the exact f32 score of
+every doc of the tile). Let a doc's clause contributions be c_t >= 0
+(with multiplicity, at most T <= U8 terms) and S their exact real sum;
+u = 2^-24 is the f32 unit roundoff.
+
+- The oracle's score is an f32 sum of the c_t: s <= S (1 + (T-1) u).
+- The bank holds bf16(c_t) >= c_t (1 - 2^-9) (round to nearest even,
+  8 significant bits). Each product with an integer indicator value is
+  exact in f32, and the kernels add the nonnegative products in f32, so
+  the product p >= S (1 - 2^-9) (1 - (T-1) u).
+- B3 rounds its tile max once more to bf16: tmax >= p (1 - 2^-9) for the
+  doc of the tile with the largest score; B4/B5 keep the f32 max.
+
+So s / tmax <= (1 + (T-1) u) / ((1 - 2^-9)^2 (1 - (T-1) u)), which for
+T <= 896 is below 1 + 2^-8 + 2^-12 < 1 + 2^-7: the bound holds with a
+margin of almost 2x, whatever order the f32 adds take (the plain
+versions use ``torch.matmul``, the kernels add in ascending row order).
+Tensor-core MMA, which may truncate, would need the derivation again.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from diagon_tpu_torch.ops import _build
+
+LANE = 128  # docs per tile
+MAX_ROWS = 896  # the kernels stage a [U8, 128] bf16 tile in shared memory
+# [Q, chunk] f32 temporaries of the plain versions stay under this many
+# elements (the card holds them next to the banks at 1M docs)
+_PLAIN_CHUNK_ELEMS = 1 << 26
+
+
+def _check(mats: dict, bank, live, params=None):
+    """Raise on anything the kernels do not take; returns (U8, Q, D)."""
+    dev = bank.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"approx select runs on cpu or cuda tensors, not {dev}")
+    tensors = dict(mats, bank=bank, live=live)
+    if params is not None:
+        tensors["params_t"] = params
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, bank on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        want = torch.float32 if name in ("live", "params_t") else torch.bfloat16
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+    if bank.dim() != 2 or live.dim() != 1:
+        raise ValueError("bank must be [U8, D] and live [D]")
+    U8, D = bank.shape
+    if D == 0 or D % LANE or live.shape[0] != D:
+        raise ValueError(f"D ({D}) must be a positive multiple of {LANE} "
+                         f"and live must have D entries, has {live.shape[0]}")
+    if U8 < 8 or U8 % 8 or U8 > MAX_ROWS:
+        raise ValueError(f"U8 ({U8}) must be a multiple of 8 in [8, {MAX_ROWS}]")
+    Q = None
+    for name, t in mats.items():
+        if t.dim() != 2 or t.shape[0] != U8:
+            raise ValueError(f"{name} shape {tuple(t.shape)} is not [U8={U8}, Q]")
+        if Q is None:
+            Q = t.shape[1]
+        elif t.shape[1] != Q:
+            raise ValueError(f"{name} has {t.shape[1]} queries, not {Q}")
+    if Q < 1:
+        raise ValueError("need at least one query")
+    if params is not None and tuple(params.shape) != (8, Q):
+        raise ValueError(f"params_t shape {tuple(params.shape)} != {(8, Q)}")
+    if dev.type == "cuda" and (bank.data_ptr() % 16 or live.data_ptr() % 16):
+        raise ValueError("bank and live must be 16-byte aligned")
+    return U8, Q, D
+
+
+def _chunks(Q: int, D: int):
+    step = max(LANE, (_PLAIN_CHUNK_ELEMS // Q) // LANE * LANE)
+    return [(d0, min(D, d0 + step)) for d0 in range(0, D, step)]
+
+
+def _dot(a_t, rows):
+    """[U8, Q] indicator x [U8, C] rows -> [Q, C] f32 products."""
+    return a_t.float().T @ rows
+
+
+def _select(mats, bank, live, params, match_of):
+    """Plain phase 1 over doc chunks: ``match_of(products, presence)`` ->
+    (score product, match mask), both [Q, C]. Tile max over every doc of
+    the tile, gated to -1 where no doc matches (boolean forms)."""
+    U8, Q, D = _check(mats, bank, live, params)
+    tmax = torch.empty((Q, D // LANE), dtype=torch.float32, device=bank.device)
+    hits = torch.zeros(Q, dtype=torch.int64, device=bank.device)
+    for d0, d1 in _chunks(Q, D):
+        rows = bank[:, d0:d1].float()
+        ap, m = match_of(rows, live[d0:d1] > 0)
+        g = ap.reshape(Q, -1, LANE).amax(dim=-1)
+        if params is not None:
+            g = torch.where(m.reshape(Q, -1, LANE).any(dim=-1), g, -1.0)
+        tmax[:, d0 // LANE : d1 // LANE] = g
+        hits += m.sum(dim=1)
+    return tmax, hits.int()
+
+
+def approx_select_reference(a_t, bank, live):
+    """Plain PyTorch B3: (tile max rounded once to bf16, hits)."""
+
+    def match_of(rows, alive):
+        ap = _dot(a_t, rows)
+        return ap, (ap > 0) & alive
+
+    tmax, hits = _select({"a_t": a_t}, bank, live, None, match_of)
+    return tmax.to(torch.bfloat16).float(), hits
+
+
+def approx_select_bool_reference(a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank,
+                                 params_t, live):
+    """Plain PyTorch B4: four products, presence = bank > 0."""
+    nreq, msm = params_t[0][:, None], params_t[1][:, None]
+
+    def match_of(rows, alive):
+        pres = (rows > 0).float()
+        rc, oc, nc = (_dot(a, pres) for a in (a_rq_t, a_sh_t, a_ng_t))
+        m = (rc == nreq) & (oc >= msm) & (nc == 0) & ((rc + oc) > 0) & alive
+        return _dot(a_sc_t, rows), m
+
+    mats = {"a_sc_t": a_sc_t, "a_rq_t": a_rq_t, "a_sh_t": a_sh_t,
+            "a_ng_t": a_ng_t}
+    return _select(mats, bank, live, params_t, match_of)
+
+
+def approx_select_bool2_reference(a_sc_t, a_cb_t, bank, params_t, live):
+    """Plain PyTorch B5: the score product and one combined count product
+    cc = rq*256 + sh, decoded with floor(cc * (1/256))."""
+    nreq, msm = params_t[0][:, None], params_t[1][:, None]
+
+    def match_of(rows, alive):
+        cc = _dot(a_cb_t, (rows > 0).float())
+        rc = torch.floor(cc * (1.0 / 256.0))
+        oc = cc - rc * 256.0
+        m = (rc == nreq) & (oc >= msm) & (cc > 0) & alive
+        return _dot(a_sc_t, rows), m
+
+    return _select({"a_sc_t": a_sc_t, "a_cb_t": a_cb_t}, bank, live,
+                   params_t, match_of)
+
+
+def _launch(name, mats, bank, params, live, U8, Q, D):
+    dev = bank.device
+    R, S = len(mats), D // LANE
+    idx = torch.empty((R, Q, U8), dtype=torch.int32, device=dev)
+    val = torch.empty((R, Q, U8), dtype=torch.float32, device=dev)
+    cnt = torch.empty((R, Q), dtype=torch.int32, device=dev)
+    tmax = torch.empty((Q, S), dtype=torch.float32, device=dev)
+    tcnt = torch.empty((Q, S), dtype=torch.int32, device=dev)
+    hits = torch.empty(Q, dtype=torch.int32, device=dev)
+    ptrs = [m.data_ptr() for m in mats] + [None] * (4 - R)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = getattr(_build.library(), name)(
+        *ptrs, bank.data_ptr(), None if params is None else params.data_ptr(),
+        live.data_ptr(), idx.data_ptr(), val.data_ptr(), cnt.data_ptr(),
+        tmax.data_ptr(), tcnt.data_ptr(), hits.data_ptr(), U8, Q, D, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    return tmax, hits
+
+
+def approx_select(a_t, bank, live):
+    """B3, pure-OR phase 1: (tile max f32 [Q, D/128] rounded once to bf16,
+    hits i32 [Q]); a doc matches iff its product is positive and live."""
+    U8, Q, D = _check({"a_t": a_t}, bank, live)
+    if bank.device.type == "cpu":
+        return approx_select_reference(a_t, bank, live)
+    out = _launch("diagon_approx_select", [a_t], bank, None, live, U8, Q, D)
+    approx_select.launches += 1
+    return out
+
+
+def approx_select_bool(a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank, params_t,
+                       live):
+    """B4, general boolean phase 1: (feasibility-gated tile max f32
+    [Q, D/128], exact hits i32 [Q])."""
+    mats = {"a_sc_t": a_sc_t, "a_rq_t": a_rq_t, "a_sh_t": a_sh_t,
+            "a_ng_t": a_ng_t}
+    U8, Q, D = _check(mats, bank, live, params_t)
+    if bank.device.type == "cpu":
+        return approx_select_bool_reference(
+            a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank, params_t, live)
+    out = _launch("diagon_approx_select_bool", list(mats.values()), bank,
+                  params_t, live, U8, Q, D)
+    approx_select_bool.launches += 1
+    return out
+
+
+def approx_select_bool2(a_sc_t, a_cb_t, bank, params_t, live):
+    """B5, no-MUST_NOT boolean phase 1 in two products: as B4."""
+    mats = {"a_sc_t": a_sc_t, "a_cb_t": a_cb_t}
+    U8, Q, D = _check(mats, bank, live, params_t)
+    if bank.device.type == "cpu":
+        return approx_select_bool2_reference(a_sc_t, a_cb_t, bank, params_t,
+                                             live)
+    out = _launch("diagon_approx_select_bool2", [a_sc_t, a_cb_t], bank,
+                  params_t, live, U8, Q, D)
+    approx_select_bool2.launches += 1
+    return out
+
+
+# kernel launches since process start (or since a caller reset them); the
+# CPU path never counts
+approx_select.launches = 0
+approx_select_bool.launches = 0
+approx_select_bool2.launches = 0

@@ -1,0 +1,180 @@
+"""Phase-2 rescore kernels (B6, B7) and their plain versions.
+
+``gather_rescore`` and ``union_rescore`` are the port's counterparts of
+``diagon_tpu/ops/pallas/gather_rescore.py``'s ``pallas_gather_rescore``
+and ``pallas_union_rescore``: the same arguments in the same order, the
+same results. On CUDA tensors each launches its hand-written kernel of
+``csrc/gather_rescore.cu``; on CPU tensors it runs the plain version beside
+it, which is also what the kernel is held against on the card. There is no
+fallback: a CUDA call launches or raises.
+
+For query q and its b-th selected tile g = tsel[q, b], the scores are the
+sum over clauses t of the compact bank's lane row
+``compact_t[g, cidx[q, t], :]``, as f32 adds from 0.0 in clause order, so
+every version is bit-identical to the JAX kernel and the oracle. With
+``flags`` (bit0 scoring, bit1 required, bit2 should, bit3 must_not) only
+scoring rows add to the score, and the presence (row > 0) of the other
+roles is counted into three more lanes.
+
+The two share that contract. B7 walks the (query, tile) pairs sorted by
+tile (a stable sort of the flattened ``tsel``), so the pairs of one tile
+are rescored together and the rows they share are read once; the row
+engine routes to it where the JAX package routes to its union kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from diagon_tpu_torch.ops import _build
+
+LANE = 128
+# the JAX package's union-kernel limits (its SMEM scalar-prefetch budget and
+# a 2048-query pair word), kept so both packages route the same batches
+UNION_MAX_PAIRS = 64 << 10
+UNION_MAX_Q = 2048
+
+
+def _check(compact_t, cidx, tsel, flags):
+    """Raise on anything the kernel does not take; returns (G, U8, Q, Tq, B)."""
+    dev = compact_t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"gather rescore runs on cpu or cuda tensors, not {dev}")
+    tensors = {"compact_t": compact_t, "cidx": cidx, "tsel": tsel}
+    if flags is not None:
+        tensors["flags"] = flags
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, compact_t on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        want = torch.float32 if name == "compact_t" else torch.int32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+    if compact_t.dim() != 3 or compact_t.shape[2] != LANE:
+        raise ValueError(f"compact_t must be [G, U8, {LANE}], "
+                         f"got {tuple(compact_t.shape)}")
+    G, U8, _ = compact_t.shape
+    if cidx.dim() != 2 or tsel.dim() != 2 or tsel.shape[0] != cidx.shape[0]:
+        raise ValueError(f"cidx {tuple(cidx.shape)} and tsel "
+                         f"{tuple(tsel.shape)} must be [Q, Tq] and [Q, B]")
+    Q, Tq = cidx.shape
+    B = tsel.shape[1]
+    if flags is not None and tuple(flags.shape) != (Q, Tq):
+        raise ValueError(f"flags shape {tuple(flags.shape)} != {(Q, Tq)}")
+    if min(G, U8, Q, Tq, B) < 1:
+        raise ValueError(f"empty operand: G, U8, Q, Tq, B = {(G, U8, Q, Tq, B)}")
+    return G, U8, Q, Tq, B
+
+
+def gather_rescore_reference(compact_t, cidx, tsel, flags=None):
+    """Plain PyTorch B6: scores f32 [Q, B, 128], plus the required /
+    should / must_not count lanes with ``flags``."""
+    G, U8, Q, Tq, B = _check(compact_t, cidx, tsel, flags)
+    rows_of = compact_t.reshape(G * U8, LANE)
+    base = tsel.long() * U8  # [Q, B]
+    zero = torch.zeros((Q, B, LANE), dtype=torch.float32,
+                       device=compact_t.device)
+    acc = [zero] * (1 if flags is None else 4)
+    for t in range(Tq):
+        row = rows_of[base + cidx[:, t : t + 1].long()]  # [Q, B, 128]
+        if flags is None:
+            acc[0] = acc[0] + row
+            continue
+        fl = flags[:, t][:, None, None]
+        present = torch.where(row > 0, 1.0, 0.0)
+        acc[0] = acc[0] + torch.where((fl & 1) != 0, row, 0.0)
+        acc[1] = acc[1] + torch.where((fl & 2) != 0, present, 0.0)
+        acc[2] = acc[2] + torch.where((fl & 4) != 0, present, 0.0)
+        acc[3] = acc[3] + torch.where((fl & 8) != 0, present, 0.0)
+    return acc[0] if flags is None else tuple(acc)
+
+
+def gather_rescore(compact_t, cidx, tsel, flags=None):
+    """B6: scores f32 [Q, B, 128]; with ``flags`` a tuple of four lanes
+    (score, required, should, must_not count)."""
+    G, U8, Q, Tq, B = _check(compact_t, cidx, tsel, flags)
+    if compact_t.device.type == "cpu":
+        return gather_rescore_reference(compact_t, cidx, tsel, flags)
+    n = 1 if flags is None else 4
+    out = torch.empty((n, Q, B, LANE), dtype=torch.float32,
+                      device=compact_t.device)
+    stream = torch.cuda.current_stream(compact_t.device).cuda_stream
+    rc = _build.library().diagon_gather_rescore(
+        compact_t.data_ptr(), cidx.data_ptr(), tsel.data_ptr(),
+        None if flags is None else flags.data_ptr(), out.data_ptr(),
+        U8, Q, Tq, B, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"diagon_gather_rescore launch failed: cudaError {rc}")
+    gather_rescore.launches += 1
+    return out[0] if flags is None else out.unbind(0)
+
+
+def union_rescore_supported(Q: int, B: int) -> bool:
+    """Whether the JAX package's union kernel serves a [Q, B] selection. Its
+    third condition, 8 | Q * B, always holds there (its batches are padded
+    to a multiple of 8 above 8 queries) and the port's kernel needs none."""
+    return Q * B <= UNION_MAX_PAIRS and Q <= UNION_MAX_Q
+
+
+def _pair_order(tsel):
+    """i64 [Q * B]: the pairs' flat indices sorted by tile, stably."""
+    return torch.sort(tsel.reshape(-1), stable=True).indices
+
+
+def union_rescore_reference(compact_t, cidx, tsel, flags=None):
+    """Plain PyTorch B7: B6's results, computed over the pairs sorted by
+    tile and written back to their own positions."""
+    G, U8, Q, Tq, B = _check(compact_t, cidx, tsel, flags)
+    order = _pair_order(tsel)
+    q = order // B
+    base = tsel.reshape(-1)[order].long() * U8  # [P] sorted tiles
+    rows_of = compact_t.reshape(G * U8, LANE)
+    zero = torch.zeros((Q * B, LANE), dtype=torch.float32,
+                       device=compact_t.device)
+    acc = [zero] * (1 if flags is None else 4)
+    for t in range(Tq):
+        row = rows_of[base + cidx[q, t].long()]  # [P, 128]
+        if flags is None:
+            acc[0] = acc[0] + row
+            continue
+        fl = flags[q, t][:, None]
+        present = torch.where(row > 0, 1.0, 0.0)
+        acc[0] = acc[0] + torch.where((fl & 1) != 0, row, 0.0)
+        acc[1] = acc[1] + torch.where((fl & 2) != 0, present, 0.0)
+        acc[2] = acc[2] + torch.where((fl & 4) != 0, present, 0.0)
+        acc[3] = acc[3] + torch.where((fl & 8) != 0, present, 0.0)
+    outs = []
+    for a in acc:
+        o = torch.empty_like(a)
+        o[order] = a
+        outs.append(o.reshape(Q, B, LANE))
+    return outs[0] if flags is None else tuple(outs)
+
+
+def union_rescore(compact_t, cidx, tsel, flags=None):
+    """B7: ``gather_rescore``'s results from the pairs sorted by tile."""
+    G, U8, Q, Tq, B = _check(compact_t, cidx, tsel, flags)
+    if compact_t.device.type == "cpu":
+        return union_rescore_reference(compact_t, cidx, tsel, flags)
+    order = _pair_order(tsel).int()
+    n = 1 if flags is None else 4
+    out = torch.empty((n, Q, B, LANE), dtype=torch.float32,
+                      device=compact_t.device)
+    stream = torch.cuda.current_stream(compact_t.device).cuda_stream
+    rc = _build.library().diagon_union_rescore(
+        compact_t.data_ptr(), cidx.data_ptr(), tsel.data_ptr(),
+        None if flags is None else flags.data_ptr(), order.data_ptr(),
+        out.data_ptr(), U8, Q, Tq, B, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"diagon_union_rescore launch failed: cudaError {rc}")
+    union_rescore.launches += 1
+    return out[0] if flags is None else out.unbind(0)
+
+
+# kernel launches since process start (or since a caller reset them); the
+# CPU path never counts
+gather_rescore.launches = 0
+union_rescore.launches = 0

@@ -1,9 +1,8 @@
-"""Row-bank scoring engine, exhaustive route (PyTorch).
+"""Row-bank scoring engine (PyTorch): the exhaustive and the pruned route.
 
-Counterpart of the exhaustive half of ``diagon_tpu/search/row_engine.py``.
-The index view for scoring is one dense f32 score row per term over the
-padded doc axis (the exact BM25 contribution of that term to every doc,
-idf folded in):
+Counterpart of ``diagon_tpu/search/row_engine.py``. The index view for
+scoring is one dense f32 score row per term over the padded doc axis (the
+exact BM25 contribution of that term to every doc, idf folded in):
 
 - heavy terms (df >= num_docs_pad / HEAVY_FRACTION) live in a device bank
   ``[H, D]`` built once per searcher, decoded on the device from the
@@ -11,15 +10,23 @@ idf folded in):
 - light terms, boosted clauses and host rows (ranges, nested booleans)
   form a small per-batch light bank whose row 0 is all zero.
 
-A query is a walk over its clauses in oracle order, one row read and one
-f32 add per clause (kernels B1/B2, ``diagon_tpu_torch.ops.row_sum``), then
-the match mask and an exact top-k with ties toward the lower docid. No
-device multiply feeds an add, so results are bit-identical to the oracle.
+Exhaustive route: a query is a walk over its clauses in oracle order, one
+row read and one f32 add per clause (kernels B1/B2,
+``diagon_tpu_torch.ops.row_sum``), then the match mask and an exact top-k
+with ties toward the lower docid. No device multiply feeds an add, so
+results are bit-identical to the oracle.
 
-The pruned route (phase-1 approx select, tile selection, phase-2 rescore,
-certificates) is the next slice; until then every batch is scored
-exhaustively, which is the JAX package's own configuration below
-``PRUNE_MIN_DOCS`` and its escalation target above it.
+Pruned route, for query batches on segments of at least
+``PRUNE_MIN_DOCS`` docs (``row_score_topk_pruned_batch``): the batch's
+clause rows are compacted into one small bank (``_assemble_compact``);
+phase 1 (B3/B4/B5, ``ops.approx_pass``) bounds every (query, 128-doc
+tile) from one product of the clause indicators with its bf16 copy and
+counts the exact hits; ``_select_tiles`` keeps the best tiles; phase 2
+(B6 or B7, ``ops.gather_rescore``) rescores them exactly, and the
+certificates of ``_pruned_batch_finish`` prove the top-k exact or send
+the query back to the exhaustive route in ``RowExecutor.finalize``.
+Results stay bit-identical to the exhaustive route, the JAX searcher and
+the oracle.
 """
 
 from __future__ import annotations
@@ -32,6 +39,16 @@ import numpy as np
 import torch
 
 from diagon_tpu.observability.metrics import registry
+from diagon_tpu_torch.ops.approx_pass import (
+    approx_select,
+    approx_select_bool,
+    approx_select_bool2,
+)
+from diagon_tpu_torch.ops.gather_rescore import (
+    gather_rescore,
+    union_rescore,
+    union_rescore_supported,
+)
 from diagon_tpu_torch.ops.row_sum import (
     row_boolean,
     row_boolean_reference,
@@ -43,6 +60,17 @@ from diagon_tpu_torch.search.engine import unfuse_topk
 LANE = 128  # docs per tile of the two-stage top-k
 HEAVY_FRACTION = 16  # heavy iff df >= num_docs_pad / HEAVY_FRACTION
 HEAVY_MIN_DF = 256
+
+# Block-max pruned scoring engages once a segment has this many padded
+# docs, and starts from PRUNE_B0 candidate tiles per query (the JAX
+# package's values, kept for parity; ROADMAP: retune on the H100)
+PRUNE_MIN_DOCS = 1 << 14
+PRUNE_B0 = 24
+
+# Relative error bound of the phase-1 tile maxima: true tile max <=
+# tmax * (1 + _APPROX_RELEPS). Derived for the port's kernels and plain
+# versions in ``diagon_tpu_torch/ops/approx_pass.py``.
+_APPROX_RELEPS = np.float32(2.0 ** -7)
 
 # Segments at least this large hold no resident heavy bank in the JAX
 # package (on-demand mode); the port does not serve them yet.
@@ -170,6 +198,250 @@ def row_count(heavy, light, live, hidx, lidx, scoring, req, sho, neg,
     )
     mask = _boolean_mask(req_c, sho_c, neg_c, live, bool_params)
     return mask.sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Pruned batch route
+# ---------------------------------------------------------------------------
+
+
+def _pad_rows8(bank: torch.Tensor) -> torch.Tensor:
+    """Pad a bank's row count to a multiple of 8 with zero rows (zero rows
+    add nothing to a product)."""
+    n = bank.shape[0]
+    n8 = -(-n // 8) * 8
+    if n8 == n:
+        return bank
+    return torch.cat([bank, bank.new_zeros((n8 - n, bank.shape[1]))])
+
+
+def _tile_major(bank: torch.Tensor) -> torch.Tensor:
+    """[N, D] row bank -> [G, N8, LANE] tile-major copy, rows padded to a
+    multiple of 8: one selected tile is one contiguous [N8, LANE] slab.
+    (The JAX module defines ``_tile_major`` twice; this is its second,
+    padding definition, the one in effect.)"""
+    b8 = _pad_rows8(bank)
+    N8, D = b8.shape
+    return b8.reshape(N8, D // LANE, LANE).permute(1, 0, 2).contiguous()
+
+
+def _assemble_compact(heavy_bank, used: np.ndarray, light_bank,
+                      n_light: int) -> torch.Tensor:
+    """The batch-compact bank f32 [U8, D]: row 0 zero, then the heavy rows
+    ``used`` (ascending), then light rows 1..n_light, zero rows up to a
+    multiple of 8. The JAX package buckets the gather to 32 rows to spare
+    XLA recompiles; eager PyTorch assembles at the exact size."""
+    D = heavy_bank.shape[1]
+    n_used = len(used)
+    n_rows = 1 + n_used + n_light
+    rows = heavy_bank.new_zeros((-(-n_rows // 8) * 8, D))
+    if n_used:
+        sel = torch.from_numpy(np.asarray(used, np.int64)).to(heavy_bank.device)
+        rows[1 : 1 + n_used] = heavy_bank[sel]
+    if n_light:
+        rows[1 + n_used : n_rows] = light_bank[1 : 1 + n_light]
+    return rows
+
+
+def _select_tiles(tile_upper: torch.Tensor, Bk: int, G: int):
+    """Batch tile selection: (tsel i32 [Q, Bk] ascending, u_next f32 [Q],
+    min_unsel_feas i32 [Q]), the semantics of the JAX package's
+    ``_select_tiles_flat`` at every G.
+
+    The Bk tiles with the largest upper bounds, ties toward the lower tile
+    index (``lax.top_k``'s rule, in its total order): the Bk-th largest is the
+    threshold, every tile above it is selected, and the lowest-index tiles
+    equal to it fill the rest. ``u_next`` is the exact maximum over the
+    unselected tiles (-inf when every tile is selected);
+    ``min_unsel_feas`` the smallest unselected tile index whose bound is
+    >= 0 (G when none), which on the boolean path bounds the lowest docid
+    of any unselected match. No device-to-host sync: the selected indices
+    are scattered to their ranks."""
+    Q = tile_upper.shape[0]
+    dev = tile_upper.device
+    if Bk >= G:
+        tsel = torch.arange(G, dtype=torch.int32, device=dev).expand(Q, G)
+        return (
+            tsel.contiguous(),
+            torch.full((Q,), -float("inf"), dtype=torch.float32, device=dev),
+            torch.full((Q,), G, dtype=torch.int32, device=dev),
+        )
+    # rank by the IEEE total order, as lax.top_k does (-0.0 below +0.0):
+    # the int32 key flips the magnitude bits of negative values
+    bits = tile_upper.contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    kth = torch.topk(key, Bk, dim=1).values[:, -1:]
+    above = key > kth
+    tied = key == kth
+    room = Bk - above.sum(dim=1, keepdim=True)
+    sel = above | (tied & (torch.cumsum(tied, dim=1) <= room))
+    rank = torch.where(sel, torch.cumsum(sel, dim=1) - 1, Bk)  # Bk = dump
+    gidx = torch.arange(G, dtype=torch.int32, device=dev)
+    tsel = torch.zeros((Q, Bk + 1), dtype=torch.int32, device=dev)
+    tsel.scatter_(1, rank, gidx.expand(Q, G).contiguous())
+    masked = tile_upper.masked_fill(sel, -float("inf"))
+    u_next = masked.amax(dim=1)
+    min_unsel = torch.where(masked >= 0, gidx, G).amin(dim=1)
+    return tsel[:, :Bk].contiguous(), u_next, min_unsel.int()
+
+
+def _topk_in_tiles_final(final: torch.Tensor, tsel: torch.Tensor, k: int):
+    """(score desc, docid asc) top-k of masked per-tile lanes
+    ``final`` [Q, B, LANE] (-1 = no match); REQUIRES ascending ``tsel``.
+
+    The top-k tiles by max score (stable sort: ties toward the lower tile,
+    the lower docids), then one lexicographic sort of their k*128 lanes:
+    by docid, then a stable descending sort by score, the order of the JAX
+    package's two-key ``lax.sort``. Exact: each of k selected tiles holds
+    a doc that outranks any doc of an excluded tile."""
+    Q, B, _ = final.shape
+    kt = min(k, B)
+    lane = torch.arange(LANE, device=final.device)
+    dgrid = tsel.long()[..., None] * LANE + lane  # [Q, B, LANE]
+    _, top = torch.sort(final.amax(dim=-1), dim=1, descending=True,
+                        stable=True)
+    pick = top[:, :kt, None].expand(Q, kt, LANE)
+    cand = torch.gather(final, 1, pick).reshape(Q, kt * LANE)
+    cand_docs = torch.gather(dgrid, 1, pick).reshape(Q, kt * LANE)
+    cand_docs, by_doc = torch.sort(cand_docs, dim=1)
+    cand = torch.gather(cand, 1, by_doc)
+    vals, order = torch.sort(cand, dim=1, descending=True, stable=True)
+    return vals[:, :k], torch.gather(cand_docs, 1, order[:, :k])
+
+
+def _pruned_batch_finish(scores, rc, oc, nc, bool_params, tsel, u_next,
+                         min_unsel, hits, live_tiles, *, k: int,
+                         boolean: bool):
+    """Mask, rank and certify the rescored tiles: [Q, 2k+2] rows of k
+    scores | k docids as f32 | hits | safe (1.0 = proven exact, 0.0 = the
+    executor must escalate the query).
+
+    Pure-OR certificate: safe iff theta > u_next (every unselected doc
+    scores at most u_next < theta) or u_next <= 0 (no unselected doc
+    matches: contributions are nonnegative).
+
+    Boolean certificate. A boolean match may score 0 (FILTER-only
+    clauses), so u_next <= 0 proves nothing. Safe iff (a) theta > u_next;
+    (b) u_next < 0: every unselected tile is infeasible (bound -1*(1+eps));
+    or (c) theta == 0, u_next == 0 and the k-th candidate's tile precedes
+    every unselected feasible tile: unselected matches then score exactly
+    0 with higher docids than the k-th candidate. (c) relies on ascending
+    ``tsel`` and on the selection of the lower index among tied tiles."""
+    lv = live_tiles[tsel.long()]
+    if boolean:
+        nreq = bool_params[:, 0, None, None]
+        msm = bool_params[:, 1, None, None]
+        mask = ((rc == nreq) & (oc >= msm) & (nc == 0) & ((rc + oc) > 0)
+                & (lv > 0))
+    else:
+        mask = (scores > 0) & (lv > 0)
+    final = torch.where(mask, scores, -1.0)
+    top_scores, top_docs = _topk_in_tiles_final(final, tsel, k)
+    theta = top_scores[:, k - 1]
+    if boolean:
+        tile_k = top_docs[:, k - 1] // LANE
+        safe = ((theta > u_next) | (u_next < 0)
+                | ((theta == 0) & (u_next == 0) & (tile_k < min_unsel)))
+    else:
+        safe = (theta > u_next) | (u_next <= 0)
+    return torch.cat([
+        top_scores, top_docs.float(), hits.float()[:, None],
+        safe.float()[:, None],
+    ], dim=1)
+
+
+def _pruned_batch_phase1(compact_bf16, a_sc_t, a_rq_t, a_sh_t, a_ng_t,
+                         params_t, live, *, Bk: int, boolean: bool,
+                         a_cb_t=None):
+    """Phase 1 and tile selection: (tsel, u_next, min_unsel, hits). B5
+    when the batch has the combined indicator, else B4 for booleans and B3
+    for pure-OR batches."""
+    G = compact_bf16.shape[1] // LANE
+    if boolean and a_cb_t is not None:
+        tmax, hits = approx_select_bool2(a_sc_t, a_cb_t, compact_bf16,
+                                         params_t, live)
+    elif boolean:
+        tmax, hits = approx_select_bool(a_sc_t, a_rq_t, a_sh_t, a_ng_t,
+                                        compact_bf16, params_t, live)
+    else:
+        tmax, hits = approx_select(a_sc_t, compact_bf16, live)
+    tile_upper = tmax * float(np.float32(1.0) + _APPROX_RELEPS)
+    tsel, u_next, min_unsel = _select_tiles(tile_upper, Bk, G)
+    return tsel, u_next, min_unsel, hits
+
+
+def _use_union(Q: int, Tq: int, B: int) -> bool:
+    """The JAX package's phase-2 kernel choice: the union rescore (B7) for
+    batches of 64+ queries with at most 8 clauses, where tiles repeat across
+    queries and the per-pair work is small; B6 otherwise. Q is the unpadded
+    batch here, the Q-bucket there (the two differ only for 57-63 queries,
+    and both kernels give the same results)."""
+    return Q >= 64 and Tq <= 8 and union_rescore_supported(Q, B)
+
+
+def _pruned_batch_phase2(compact_t, cidx, cflags, live, tsel, u_next,
+                         min_unsel, hits, bool_params, *, k: int,
+                         boolean: bool):
+    """Phase 2 (B7 or B6, ``_use_union``) and the certificates."""
+    G = compact_t.shape[0]
+    live_tiles = live.reshape(G, LANE)
+    rescore = (union_rescore if _use_union(*cidx.shape, tsel.shape[1])
+               else gather_rescore)
+    if boolean:
+        scores, rc, oc, nc = rescore(compact_t, cidx, tsel, cflags)
+    else:
+        scores = rescore(compact_t, cidx, tsel)
+        rc = oc = nc = None
+    return _pruned_batch_finish(
+        scores, rc, oc, nc, bool_params, tsel, u_next, min_unsel, hits,
+        live_tiles, k=k, boolean=boolean,
+    )
+
+
+def row_score_topk_pruned_batch(
+    compact_t,  # f32 [G, U8, LANE] batch-compact tile-major bank (exact)
+    compact_bf16,  # bf16 [U8, D] approx copy (phase 1)
+    cidx,  # i32 [Q, Tq] compact row per clause (0 = zero row)
+    cflags,  # i32 [Q, Tq] bit0 scoring / 1 req / 2 sho / 3 neg
+    live,  # f32 [D]
+    a_sc_t,  # bf16 [U8, Q] scoring-clause indicator (transposed)
+    a_rq_t,  # bf16 [U8, Q]
+    a_sh_t,  # bf16 [U8, Q]
+    a_ng_t,  # bf16 [U8, Q]
+    params_t,  # f32 [8, Q] rows 0 = num_required, 1 = min_should
+    bool_params,  # f32 [Q, 2]
+    *,
+    k: int,
+    B: int,
+    boolean: bool,
+    a_cb_t=None,
+):
+    """Pruned scoring of a query batch against its compact bank: phase 1,
+    tile selection, phase 2 and the certificates, one eager pipeline (the
+    JAX package's staged/fused program split is an XLA temp-plan measure).
+    Returns [Q, 2k+2] rows (see ``_pruned_batch_finish``)."""
+    G = compact_t.shape[0]
+    tsel, u_next, min_unsel, hits = _pruned_batch_phase1(
+        compact_bf16, a_sc_t, a_rq_t, a_sh_t, a_ng_t, params_t, live,
+        Bk=min(B, G), boolean=boolean, a_cb_t=a_cb_t,
+    )
+    return _pruned_batch_phase2(
+        compact_t, cidx, cflags, live, tsel, u_next, min_unsel, hits,
+        bool_params, k=k, boolean=boolean,
+    )
+
+
+def _widen(fused: torch.Tensor, k: int) -> torch.Tensor:
+    """An exhaustive layout [Q, 2k+1] widened with a safe = 1 column (exact
+    by construction), so it concatenates with pruned rows."""
+    if fused.shape[-1] != 2 * k + 1:
+        return fused
+    return torch.cat([fused, fused.new_ones((fused.shape[0], 1))], dim=1)
+
+
+def _merge_split(f1, f2, inv, k: int):
+    """Reassemble a purity-split batch in its original query order."""
+    return torch.cat([_widen(f1, k), _widen(f2, k)])[inv]
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +597,8 @@ class RowFieldIndex:
         else:
             live[: len(live_docs)] = live_docs.astype(np.float32)
         self.live = torch.from_numpy(live).to(self.device)
+        # pruning needs the padded doc axis divisible into 128-doc tiles
+        self.prunable = num_docs_pad % LANE == 0
 
         # filled by build_heavy_bank (idf needs collection stats)
         self.heavy_row_of_term: Optional[np.ndarray] = None
@@ -421,6 +695,44 @@ class RowPlan:
     pure_or: bool = False  # SHOULD-only, minShouldMatch <= 1
 
 
+@dataclass
+class CompactBatch:
+    """Batch-compact clause-row bank and remapped plan arrays, built once
+    per cached batch entry and read by ``row_score_topk_pruned_batch``.
+    Phase-1 fields only: the JAX class's phase-0 fields and its phase-1
+    replay cache belong to the scale modes (ROADMAP queue A item 7)."""
+
+    compact_t: torch.Tensor  # f32 [G, U8, LANE] tile-major (exact rescore)
+    compact_bf16: torch.Tensor  # bf16 [U8, D] (phase 1)
+    cidx: torch.Tensor  # i32 [Q, Tq]
+    cflags: torch.Tensor  # i32 [Q, Tq]
+    a_sc_t: torch.Tensor  # bf16 [U8, Q]
+    a_rq_t: torch.Tensor
+    a_sh_t: torch.Tensor
+    a_ng_t: torch.Tensor
+    # combined rq*256 + sh indicator for B5; None when the batch has
+    # MUST_NOT clauses, a (row, query) pair serves both roles, or rq >= 256
+    # (mixed digits are not bf16-exact)
+    a_cb_t: Optional[torch.Tensor]
+    params_t: torch.Tensor  # f32 [8, Q]
+    nbytes: int
+
+
+@dataclass
+class _BatchEntry:
+    """One cached batch: its plans (pinned, so their ids stay unique while
+    the entry is cached), the device arguments of exhaustive scoring, the
+    host arrays a compact bank is built from, and that bank once the pruned
+    route has asked for it (``RowExecutor._compact``)."""
+
+    plans: list
+    args: tuple  # hidx, lidx, scoring, req, sho, neg, bool_params, light bank
+    host: tuple  # hidx, lidx, sc, rq, sh, ng (numpy [Q, Tq]), light rows used
+    nbytes: int
+    compact: Optional[CompactBatch] = None
+    compact_built: bool = False
+
+
 def _plan_row_keys(p: RowPlan) -> set:
     keys = {int(h) for h in p.hidx if h >= 0}
     for e in p.light_entries:
@@ -438,20 +750,65 @@ class RowExecutor:
     # device bytes the batch-entry LRU may hold; the JAX package's value,
     # kept for parity (ROADMAP: retune from torch.cuda.mem_get_info)
     BATCH_CACHE_BUDGET = 5 << 30
-    # query-chunk bound of exhaustive scoring: the [Q, D] f32 accumulators
-    # (x4 for booleans) of one launch stay under this many bytes
+    # query-chunk bound of exhaustive scoring and of escalation: the
+    # [Q, D] f32 accumulators (x4 for booleans) of one launch stay under
+    # this many bytes
     EXHAUSTIVE_CHUNK_BYTES = 512 << 20
+    # compact banks beyond this many rows are not built; larger batches
+    # are partitioned into query groups under the cap (_partition_plans).
+    # A TPU VMEM limit in the JAX package, kept for parity
+    COMPACT_MAX_ROWS = 512
+    # device bytes one group's banks may occupy (~10 bytes/doc/row)
+    COMPACT_GROUP_BYTES = 2 << 30
+
+    # pruning knobs at the JAX package's values (instance-overridable;
+    # tests force small ones)
+    prune_min_docs: int = PRUNE_MIN_DOCS
+    prune_B0: int = PRUNE_B0
+    # batches at least this large prune through the phase-1 product
+    approx_min_q: int = 8
+    # below this segment size, batches smaller than approx_min_q stay
+    # exhaustive
+    prune_solo_min_docs: int = 1 << 18
+    # transient: a deduped homogeneous burst routes through the batch
+    # route even at sub-batch sizes (set around the dispatch recursion)
+    _force_batch: bool = False
 
     def __init__(self, index: RowFieldIndex):
         self.index = index
         # LRU keyed by plan identity, bounded by device bytes
         self._batch_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._batch_bytes = 0
+        # batch-shape decisions cached by plan identity
         self._dedup_cache: dict = {}
+        self._split_cache: dict = {}
+        self._part_cache: dict = {}
+        # the JAX package's counters, under its registry names (one
+        # process-wide object per name, shared with the JAX package)
         self.metrics = {
+            "pruned": registry.counter(
+                "search.pruned_dispatches",
+                "query batches scored via the pruned (block-max) path",
+            ),
             "exhaustive": registry.counter(
                 "search.exhaustive_dispatches",
                 "query batches scored exhaustively",
+            ),
+            "escalations": registry.counter(
+                "search.escalations",
+                "queries re-run exhaustively after a certificate failure",
+            ),
+            "compact_fallbacks": registry.counter(
+                "search.compact_fallbacks",
+                "batches that could not build a compact bank",
+            ),
+            "partitions": registry.counter(
+                "search.compact_partitions",
+                "batches partitioned into vocabulary groups",
+            ),
+            "tiles": registry.counter(
+                "search.tiles_rescored",
+                "(query, tile) pairs rescored by the pruned phase 2",
             ),
         }
 
@@ -524,7 +881,9 @@ class RowExecutor:
             bank[r].copy_(torch.from_numpy(arr))
         return bank
 
-    def _stack(self, plans: Sequence[RowPlan]):
+    def _stack(self, plans: Sequence[RowPlan]) -> _BatchEntry:
+        """A new batch entry: the padded plan arrays and the batch's deduped
+        light bank (its compact bank comes later, from ``_compact``)."""
         tq = _bucket_tq(max(len(p.hidx) for p in plans))
 
         def pad(get, dtype, fill=0):
@@ -557,6 +916,11 @@ class RowExecutor:
                 remap[j + 1] = r
             lidx[qi] = remap[lidx[qi]]
         light_bank = self._build_light_bank(len(row_of), specs, host_rows)
+        hidx = pad(lambda p: p.hidx, np.int32, fill=-1)
+        sc = pad(lambda p: p.scoring, bool)
+        rq = pad(lambda p: p.req, np.float32)
+        sh = pad(lambda p: p.sho, np.float32)
+        ng = pad(lambda p: p.neg, np.float32)
         dev = self.index.device
 
         def t(a):
@@ -565,54 +929,253 @@ class RowExecutor:
         params = np.asarray(
             [[p.num_required, p.min_should] for p in plans], np.float32
         )
-        return (
-            t(pad(lambda p: p.hidx, np.int32, fill=-1)),
-            t(lidx),
-            t(pad(lambda p: p.scoring, bool)),
-            t(pad(lambda p: p.req, np.float32)),
-            t(pad(lambda p: p.sho, np.float32)),
-            t(pad(lambda p: p.neg, np.float32)),
-            t(params),
-            light_bank,
+        return _BatchEntry(
+            list(plans),
+            (t(hidx), t(lidx), t(sc), t(rq), t(sh), t(ng), t(params),
+             light_bank),
+            (hidx, lidx, sc, rq, sh, ng, len(row_of)),
+            light_bank.numel() * light_bank.element_size(),
         )
 
-    def _entry(self, plans: Sequence[RowPlan]):
+    def _build_compact(self, entry: _BatchEntry):
+        """CompactBatch (resident mode): the batch's clause rows compacted
+        into one small bank, f32 tile-major for the exact rescore and bf16
+        row-major for phase 1, with per-clause indices remapped, so both
+        pruned phases scale with the batch's vocabulary. Row 0 is the zero
+        row; padding clauses keep cidx 0. None when the bank would exceed
+        COMPACT_MAX_ROWS rows."""
+        hidx_arr, lidx, sc_arr, rq_arr, sh_arr, ng_arr, n_light = entry.host
+        plans, light_bank = entry.plans, entry.args[7]
+        used = np.unique(hidx_arr[hidx_arr >= 0])
+        n_rows = 1 + len(used) + n_light
+        if n_rows > self.COMPACT_MAX_ROWS:
+            return None
+        hpos = np.zeros(int(used.max()) + 1 if len(used) else 1, np.int32)
+        hpos[used] = 1 + np.arange(len(used), dtype=np.int32)
+        cidx = np.where(
+            hidx_arr >= 0,
+            hpos[np.maximum(hidx_arr, 0)],
+            np.where(lidx > 0, 1 + len(used) + (lidx - 1), 0),
+        ).astype(np.int32)
+        cflags = (
+            sc_arr.astype(np.int32)
+            + 2 * (rq_arr > 0).astype(np.int32)
+            + 4 * (sh_arr > 0).astype(np.int32)
+            + 8 * (ng_arr > 0).astype(np.int32)
+        )
+        compact_f32 = _assemble_compact(
+            self.index.heavy_bank, used, light_bank, n_light
+        )
+        U8, D = compact_f32.shape
+        compact_t = _tile_major(compact_f32)
+        compact_bf16 = compact_f32.to(torch.bfloat16)
+        del compact_f32
+
+        # transposed per-role clause-indicator matrices for phase 1
+        nq = cidx.shape[0]
+        a = {r: np.zeros((U8, nq), np.float32) for r in ("sc", "rq", "sh", "ng")}
+        qgrid = np.broadcast_to(np.arange(nq)[:, None], cidx.shape)
+        for r, marr in (("sc", sc_arr), ("rq", rq_arr > 0),
+                        ("sh", sh_arr > 0), ("ng", ng_arr > 0)):
+            m = marr.astype(bool) & (cidx > 0)
+            np.add.at(a[r], (cidx[m], qgrid[m]), 1.0)
+        params = np.zeros((8, nq), np.float32)
+        params[0] = [p.num_required for p in plans]
+        params[1] = [p.min_should for p in plans]
+        dev = self.index.device
+
+        def bf16(x):
+            return torch.from_numpy(x).to(dev).to(torch.bfloat16)
+
+        a_cb = None
+        if (not all(p.pure_or for p in plans) and not a["ng"].any()
+                and not ((a["rq"] > 0) & (a["sh"] > 0)).any()
+                and a["rq"].max(initial=0) < 256):
+            a_cb = bf16(a["rq"] * np.float32(256.0) + a["sh"])
+        return CompactBatch(
+            compact_t, compact_bf16,
+            torch.from_numpy(cidx).to(dev), torch.from_numpy(cflags).to(dev),
+            bf16(a["sc"]), bf16(a["rq"]), bf16(a["sh"]), bf16(a["ng"]), a_cb,
+            torch.from_numpy(params).to(dev),
+            U8 * D * 6,  # f32 tile-major + bf16
+        )
+
+    def _entry(self, plans: Sequence[RowPlan]) -> _BatchEntry:
         ck = tuple(id(p) for p in plans)
         entry = self._batch_cache.get(ck)
         if entry is not None:
             self._batch_cache.move_to_end(ck)
             return entry
-        # evict before building, by an estimate that overshoots the light
-        # bank's real size: over-eviction costs a rebuild, under-eviction
-        # costs device memory
+        # evict before building, by an estimate that overshoots the real
+        # size (light bank + compact banks): over-eviction costs a
+        # rebuild, under-eviction costs device memory
         vocab = set()
         for p in plans:
             vocab |= _plan_row_keys(p)
         est = 12 * self.index.num_docs_pad * (len(vocab) + 9)
         while self._batch_bytes + est > self.BATCH_CACHE_BUDGET and self._batch_cache:
-            _, (_, _, nb) = self._batch_cache.popitem(last=False)
-            self._batch_bytes -= nb
-        stacked = self._stack(plans)
-        light = stacked[7]
-        nbytes = light.numel() * light.element_size()
-        # the entry pins its plans so their ids stay unique while cached
-        entry = (list(plans), stacked, nbytes)
-        self._batch_bytes += nbytes
+            self._batch_bytes -= self._batch_cache.popitem(last=False)[1].nbytes
+        entry = self._stack(plans)
+        self._batch_bytes += entry.nbytes
         self._batch_cache[ck] = entry
-        while self._batch_bytes > self.BATCH_CACHE_BUDGET and len(self._batch_cache) > 1:
-            _, (_, _, nb) = self._batch_cache.popitem(last=False)
-            self._batch_bytes -= nb
+        self._evict()
         return entry
+
+    def _evict(self):
+        """Drop the least recently used entries until the cache fits its
+        budget, never the newest one."""
+        while self._batch_bytes > self.BATCH_CACHE_BUDGET and len(self._batch_cache) > 1:
+            self._batch_bytes -= self._batch_cache.popitem(last=False)[1].nbytes
+
+    def _compact(self, plans: Sequence[RowPlan]) -> Optional[CompactBatch]:
+        """The batch's compact bank (None when too many rows), built on the
+        pruned route's first request and cached with the batch entry. The
+        JAX package builds it in ``_stack`` for every batch that may prune;
+        the port builds it only where it is read, so exhaustive batches and
+        escalation chunks never pay for one (same results)."""
+        entry = self._entry(plans)
+        if not entry.compact_built:
+            entry.compact = self._build_compact(entry)
+            entry.compact_built = True
+            if entry.compact is not None:
+                entry.nbytes += entry.compact.nbytes
+                self._batch_bytes += entry.compact.nbytes
+                self._evict()
+        return entry.compact
 
     def _args(self, plans: Sequence[RowPlan]):
         hidx, lidx, scoring, req, sho, neg, bool_params, light = (
-            self._entry(plans)[1]
+            self._entry(plans).args
         )
         return (self.index.heavy_bank, light, self.index.live, hidx, lidx,
                 scoring, req, sho, neg, bool_params)
 
+    # -- routing -----------------------------------------------------------
+    def _compact_row_cap(self) -> int:
+        D = self.index.num_docs_pad
+        return min(self.COMPACT_MAX_ROWS,
+                   max(32, self.COMPACT_GROUP_BYTES // (10 * D)))
+
+    def _partition_plans(self, plans: Sequence[RowPlan]):
+        """Contiguous query groups whose deduped clause-row vocabulary each
+        fits the compact cap; None when the whole batch fits. A plan that
+        alone exceeds the cap gets its own group (which then takes the
+        exhaustive fallback)."""
+        cap = self._compact_row_cap()
+        per_plan = [_plan_row_keys(p) for p in plans]
+        # the cap must admit the largest single plan, or a batch of wide
+        # queries would shatter into groups that still cannot build a bank
+        cap = max(cap, max(len(ks) for ks in per_plan) + 1)
+        if len(set().union(*per_plan)) + 1 <= cap:
+            return None
+        groups = []
+        cur: set = set()
+        start = 0
+        for i, keys in enumerate(per_plan):
+            merged = cur | keys
+            if cur and len(merged) + 1 > cap:
+                groups.append((start, i))
+                start = i
+                cur = set(keys)
+            else:
+                cur = merged
+        groups.append((start, len(plans)))
+        return groups
+
+    def _cached_partition(self, plans: Sequence[RowPlan]):
+        """Partition decision for a batch, cached by plan identity."""
+        if len(plans) < 2:
+            return None
+        ck = tuple(id(p) for p in plans)
+        hit = self._part_cache.get(ck)
+        if hit is not None:
+            return hit[1]
+        groups = self._partition_plans(plans)
+        if len(self._part_cache) > 256:
+            self._part_cache.clear()
+        self._part_cache[ck] = (list(plans), groups)  # pin plan ids
+        return groups
+
+    def _use_pruned(self, plans: Sequence[RowPlan]) -> bool:
+        """The JAX package's routing, with two deliberate deviations (no
+        result changes): the gate tests the resident heavy bank where the
+        JAX package tests its tile aux (``heavy_ub``, which exists exactly
+        when the segment is prunable and the bank is built), and pure-OR
+        batches that the JAX package sends to its small-batch tile-UB path
+        (fewer than ``approx_min_q`` plans at >= ``prune_solo_min_docs``
+        docs, not forced into batch mode) stay exhaustive here until that
+        path is ported (ROADMAP queue A item 7)."""
+        idx = self.index
+        if not (idx.prunable and idx.heavy_bank is not None
+                and idx.num_docs_pad >= self.prune_min_docs):
+            return False
+        if (idx.num_docs_pad < self.prune_solo_min_docs
+                and len(plans) < self.approx_min_q):
+            return False
+        if all(p.pure_or for p in plans):
+            return len(plans) >= self.approx_min_q or self._force_batch
+        # general booleans prune only in batch mode
+        return len(plans) >= self.approx_min_q
+
+    def tile_budget(self, Q: int, k: int) -> int:
+        """Candidate tiles per query, B. It grows with the tile count (the
+        bound's inflation leaves more tiles near theta); the cap is the JAX
+        package's SMEM bound on its [B, Q] prefetch, kept for parity."""
+        G = self.index.num_docs_pad // LANE
+        smem_cap = max(32, (512 << 10) // (4 * max(Q, 1)))
+        return min(G, smem_cap,
+                   max(self.prune_B0, -(-k // LANE) + 1, G // 512))
+
+    def _dispatch_pruned(self, plans: Sequence[RowPlan], k: int):
+        """The pruned batch route: [Q, 2k+2] rows, or None when the batch
+        has no compact bank (too many rows), so dispatch() falls back to
+        exhaustive scoring."""
+        c = self._compact(plans)
+        if c is None:
+            return None
+        idx = self.index
+        B = self.tile_budget(len(plans), k)
+        self.metrics["tiles"].increment(len(plans) * B)
+        return row_score_topk_pruned_batch(
+            c.compact_t, c.compact_bf16, c.cidx, c.cflags, idx.live,
+            c.a_sc_t, c.a_rq_t, c.a_sh_t, c.a_ng_t, c.params_t,
+            self._entry(plans).args[6],
+            k=k, B=B, boolean=not all(p.pure_or for p in plans),
+            a_cb_t=c.a_cb_t,
+        )
+
+    def _purity_split(self, plans: Sequence[RowPlan]):
+        """(pure-OR plans, boolean plans, inverse permutation) for a batch
+        that mixes both, cached by plan identity; False otherwise. There
+        is no Q-bucket padding, so the inverse uses the unpadded sizes."""
+        ck = tuple(map(id, plans))
+        sp = self._split_cache.get(ck)
+        if sp is None:
+            po = np.asarray([p.pure_or for p in plans])
+            n_or = int(po.sum())
+            sp = False
+            if 0 < n_or < len(plans):
+                idx_or = np.nonzero(po)[0]
+                idx_bool = np.nonzero(~po)[0]
+                pos = np.empty(len(plans), np.int64)
+                pos[idx_or] = np.arange(n_or)
+                pos[idx_bool] = n_or + np.arange(len(idx_bool))
+                sp = (
+                    [plans[i] for i in idx_or],
+                    [plans[i] for i in idx_bool],
+                    torch.from_numpy(pos).to(self.index.device),
+                )
+            if len(self._split_cache) > 128:
+                self._split_cache.clear()
+            # the key's plan ids stay unique while the searcher's plan
+            # caches pin the plans (as in the JAX package)
+            self._split_cache[ck] = sp
+        return sp
+
     def dispatch(self, plans: Sequence[RowPlan], k: int) -> torch.Tensor:
-        """Fused rows [Q, 2k+1] on the device, not synchronised."""
+        """Fused rows on the device, not synchronised: [Q, 2k+1] from the
+        exhaustive route, [Q, 2k+2] (with the safe flag) when any part of
+        the batch went through the pruned route; finalize() reads both."""
         # identical-plan dedup: a homogeneous burst (one query fanned
         # across a batch) scores each unique plan once and broadcasts
         if len(plans) > 1:
@@ -639,7 +1202,35 @@ class RowExecutor:
                 self._dedup_cache[ck] = hit
             if hit:
                 uniq, take = hit
-                return self.dispatch(uniq, k)[take]
+                # the deduped sub-batch stands for a large batch: route it
+                # as one (the JAX package's _force_batch)
+                prev = self._force_batch
+                self._force_batch = True
+                try:
+                    fused = self.dispatch(uniq, k)
+                finally:
+                    self._force_batch = prev
+                return fused[take]
+        if self._use_pruned(plans):
+            # purity split: the pure-OR majority takes the one-product
+            # phase 1, only the boolean subset the boolean kernels
+            sp = self._purity_split(plans)
+            if sp:
+                p_or, p_bool, inv = sp
+                return _merge_split(self.dispatch(p_or, k),
+                                    self.dispatch(p_bool, k), inv, k)
+            groups = self._cached_partition(plans)
+            if groups is not None:
+                self.metrics["partitions"].increment()
+                return torch.cat([
+                    _widen(self.dispatch(list(plans[a:b]), k), k)
+                    for a, b in groups
+                ])
+            fused = self._dispatch_pruned(plans, k)
+            if fused is not None:
+                self.metrics["pruned"].increment()
+                return fused
+            self.metrics["compact_fallbacks"].increment()
         self.metrics["exhaustive"].increment()
         return self._exhaustive_chunked(plans, k)
 
@@ -666,10 +1257,29 @@ class RowExecutor:
 
     def finalize(self, plans: Sequence[RowPlan], fused, k: int):
         """Decode a dispatch() result (tensor or host array) into
-        (scores f32 [Q, k], docs i32 [Q, k], hits i32 [Q])."""
+        (scores f32 [Q, k], docs i32 [Q, k], hits i32 [Q]); queries whose
+        exactness certificate failed are rescored exhaustively (B1/B2), in
+        query chunks that bound the [Q, D] accumulators."""
         if isinstance(fused, torch.Tensor):
             fused = fused.cpu().numpy()
-        return unfuse_topk(fused, k)
+        if fused.shape[-1] == 2 * k + 1:  # exhaustive layout
+            return unfuse_topk(fused, k)
+        scores, docs, hits = (a.copy() for a in unfuse_topk(fused, k))
+        unsafe = np.nonzero(fused[:, 2 * k + 1] == 0.0)[0]
+        if len(unsafe):
+            self.metrics["escalations"].increment(len(unsafe))
+            chunk = max(1, self.EXHAUSTIVE_CHUNK_BYTES
+                        // (4 * self.index.num_docs_pad))
+            for c0 in range(0, len(unsafe), chunk):
+                grp = unsafe[c0 : c0 + chunk]
+                sub = [plans[int(i)] for i in grp]
+                s2, d2, h2 = unfuse_topk(
+                    self._exhaustive_fused(sub, k).cpu().numpy(), k
+                )
+                scores[grp] = s2
+                docs[grp] = d2
+                hits[grp] = h2
+        return scores, docs, hits
 
     def top_k_batch(self, plans: Sequence[RowPlan], k: int):
         return self.finalize(plans, self.dispatch(plans, k), k)

@@ -1,8 +1,9 @@
 """IndexSearcher on one PyTorch device.
 
 Counterpart of ``diagon_tpu/search/searcher.py`` for term, boolean, range
-and nested queries, all served by the exhaustive row engine
-(``row_engine.py``). Per-segment top-k results merge by (score desc,
+and nested queries, all served by the row engine (``row_engine.py``):
+exhaustively, or through the pruned batch route where the JAX package
+routes a batch there. Per-segment top-k results merge by (score desc,
 global docid asc), the order of the reference's ``TopScoreDocCollector``.
 Queries the row planner rejects (pure MUST_NOT, unsupported types) take
 the host oracle, as in the JAX package. Phrase search is not ported yet

@@ -1,0 +1,235 @@
+"""Phase-1 kernels B3/B4/B5 of diagon_tpu_torch (plain versions on the CPU)
+against the JAX package's Pallas kernels in interpret mode: equal hits,
+equal tile feasibility, tile maxima within 2^-8 relative (the two sum the
+bf16 products in different orders, and B3 rounds its result to bf16)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from diagon_tpu.ops.pallas.approx_pass import (
+    pallas_approx_select,
+    pallas_approx_select_bool,
+    pallas_approx_select_bool2,
+)
+from diagon_tpu_torch.ops import approx_pass as ap
+
+REL = 2.0 ** -8
+MUST, FILTER, SHOULD, MUST_NOT = range(4)
+
+# (Q, U8, D): one query, an odd batch, 130 crosses the JAX kernels' query
+# block of 128; 8 and 40 compact rows
+SHAPES = [(1, 8, 1024), (7, 40, 2048), (130, 8, 1024), (130, 40, 2048)]
+
+
+def _batch(Q, U8, D, seed, negation=True):
+    """Seeded compact bank (row 0 zero, ~70% zeros, dead docs and a dead
+    pad), clause rows and roles per query, as the row engine builds them:
+    query 0 is FILTER-only (score-0 matches), query 1 all SHOULD."""
+    rng = np.random.default_rng(seed + 31 * Q + U8)
+    bank = (rng.random((U8, D), dtype=np.float32) * 12
+            * (rng.random((U8, D)) < 0.3)).astype(np.float32)
+    bank[0] = 0.0
+    live = (rng.random(D) < 0.85).astype(np.float32)
+    live[D - 200:] = 0.0
+    Tq = min(6, U8 - 1)
+    cidx = np.stack([rng.choice(np.arange(1, U8), Tq, replace=False)
+                     for _ in range(Q)]).astype(np.int32)
+    roles = rng.integers(0, 4 if negation else 3, (Q, Tq))
+    roles[0] = FILTER
+    if Q > 1:
+        roles[1] = SHOULD
+    cidx[:, -1][rng.random(Q) < 0.3] = 0  # padding clauses on the zero row
+    a = {r: np.zeros((U8, Q), np.float32) for r in ("sc", "rq", "sh", "ng")}
+    qgrid = np.broadcast_to(np.arange(Q)[:, None], cidx.shape)
+    for r, m in (("sc", (roles == MUST) | (roles == SHOULD)),
+                 ("rq", (roles == MUST) | (roles == FILTER)),
+                 ("sh", roles == SHOULD), ("ng", roles == MUST_NOT)):
+        m = m & (cidx > 0)
+        np.add.at(a[r], (cidx[m], qgrid[m]), 1.0)
+    params = np.zeros((8, Q), np.float32)
+    params[0] = a["rq"].sum(axis=0)
+    params[1] = np.where(params[0] > 0, 0.0,
+                         np.minimum(1 + (np.arange(Q) % 2), a["sh"].sum(axis=0)))
+    a["cb"] = a["rq"] * np.float32(256.0) + a["sh"]
+    return bank, live, a, params
+
+
+def _jx(x, bf16=False):
+    x = jnp.asarray(x)
+    return x.astype(jnp.bfloat16) if bf16 else x
+
+
+def _th(x, bf16=False):
+    x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(torch.bfloat16) if bf16 else x
+
+
+def _assert_close(got, want, gated):
+    (tg, hg), (tw, hw) = got, want
+    tg, tw = tg.numpy(), np.asarray(tw)
+    np.testing.assert_array_equal(hg.numpy(), np.asarray(hw))
+    assert hg.dtype == torch.int32 and tg.shape == tw.shape
+    if gated:  # feasibility: -1 exactly where no doc of the tile matches
+        np.testing.assert_array_equal(tg == -1.0, tw == -1.0)
+    else:
+        assert (tg >= 0).all()
+    scale = np.maximum(np.abs(tg), np.abs(tw))
+    assert (np.abs(tg - tw) <= REL * scale).all(), np.abs(tg - tw).max()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_approx_select_reference_matches_pallas(shape):
+    bank, live, a, _ = _batch(*shape, seed=1)
+    want = pallas_approx_select(_jx(a["sc"], True), _jx(bank, True),
+                                _jx(live), interpret=True)
+    got = ap.approx_select_reference(_th(a["sc"], True), _th(bank, True),
+                                     _th(live))
+    _assert_close(got, want, gated=False)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_approx_select_bool_reference_matches_pallas(shape):
+    bank, live, a, params = _batch(*shape, seed=2)
+    mats = [a[r] for r in ("sc", "rq", "sh", "ng")]
+    want = pallas_approx_select_bool(
+        *[_jx(m, True) for m in mats], _jx(bank, True), _jx(params),
+        _jx(live), interpret=True)
+    got = ap.approx_select_bool_reference(
+        *[_th(m, True) for m in mats], _th(bank, True), _th(params),
+        _th(live))
+    _assert_close(got, want, gated=True)
+    assert (got[1] > 0).any() and (got[0] == -1).any()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_approx_select_bool2_reference_matches_pallas(shape):
+    bank, live, a, params = _batch(*shape, seed=3, negation=False)
+    want = pallas_approx_select_bool2(
+        _jx(a["sc"], True), _jx(a["cb"], True), _jx(bank, True),
+        _jx(params), _jx(live), interpret=True)
+    got = ap.approx_select_bool2_reference(
+        _th(a["sc"], True), _th(a["cb"], True), _th(bank, True),
+        _th(params), _th(live))
+    _assert_close(got, want, gated=True)
+
+
+def test_bool2_equals_bool_without_negation():
+    """The combined count product decodes to the four-product counts."""
+    bank, live, a, params = _batch(130, 40, 2048, seed=4, negation=False)
+    t = lambda r: _th(a[r], True)  # noqa: E731
+    b4 = ap.approx_select_bool_reference(
+        t("sc"), t("rq"), t("sh"), t("ng"), _th(bank, True), _th(params),
+        _th(live))
+    b5 = ap.approx_select_bool2_reference(
+        t("sc"), t("cb"), _th(bank, True), _th(params), _th(live))
+    assert torch.equal(b4[1], b5[1])
+    assert torch.equal(b4[0], b5[0])
+
+
+def test_bf16_casts_agree_with_jax():
+    """torch's and XLA's f32 -> bf16 casts both round to nearest even."""
+    rng = np.random.default_rng(5)
+    x = (rng.random(1 << 16, dtype=np.float32) * 30).astype(np.float32)
+    x[:4] = [0.0, 1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, 3.0e-39]
+    want = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    got = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_tile_bound_is_sound():
+    """tmax * (1 + 2^-7) dominates the exact f32 tile max of the clause
+    sums (summed in clause order, as the oracle does)."""
+    Q, U8, D = 7, 40, 2048
+    bank, live, a, params = _batch(Q, U8, D, seed=6)
+    exact_rows = bank.astype(np.float32)
+    got = ap.approx_select_reference(_th(a["sc"], True),
+                                     _th(bank.astype(np.float32), True),
+                                     _th(live))[0].numpy()
+    for q in range(Q):
+        rows = np.nonzero(a["sc"][:, q])[0]
+        s = np.zeros(D, np.float32)
+        for u in rows:
+            for _ in range(int(a["sc"][u, q])):
+                s = s + exact_rows[u]
+        tile = s.reshape(-1, 128).max(axis=1)
+        assert (got[q] * (np.float32(1) + np.float32(2.0 ** -7)) >= tile).all()
+
+
+def test_cpu_wrappers_use_plain_versions_without_launching():
+    bank, live, a, params = _batch(7, 8, 1024, seed=7)
+    before = (ap.approx_select.launches, ap.approx_select_bool.launches,
+              ap.approx_select_bool2.launches)
+    t = lambda r: _th(a[r], True)  # noqa: E731
+    b, p, lv = _th(bank, True), _th(params), _th(live)
+    pairs = [
+        (ap.approx_select(t("sc"), b, lv),
+         ap.approx_select_reference(t("sc"), b, lv)),
+        (ap.approx_select_bool(t("sc"), t("rq"), t("sh"), t("ng"), b, p, lv),
+         ap.approx_select_bool_reference(t("sc"), t("rq"), t("sh"), t("ng"),
+                                         b, p, lv)),
+        (ap.approx_select_bool2(t("sc"), t("cb"), b, p, lv),
+         ap.approx_select_bool2_reference(t("sc"), t("cb"), b, p, lv)),
+    ]
+    for got, want in pairs:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert before == (ap.approx_select.launches, ap.approx_select_bool.launches,
+                      ap.approx_select_bool2.launches)
+
+
+@pytest.mark.parametrize("case", [
+    "float_bank", "u8_not_8", "u8_too_big", "d_not_128", "q_mismatch",
+    "params_shape", "live_len",
+])
+def test_wrappers_reject_what_the_kernels_do_not_take(case):
+    U8, Q, D = 8, 3, 1024
+    a_t = torch.zeros((U8, Q), dtype=torch.bfloat16)
+    bank = torch.zeros((U8, D), dtype=torch.bfloat16)
+    live = torch.ones(D)
+    params = torch.zeros((8, Q))
+    args = dict(a_t=a_t, bank=bank, live=live)
+    if case == "float_bank":
+        args["bank"] = bank.float()
+    elif case == "u8_not_8":
+        args["a_t"], args["bank"] = a_t[:7].contiguous(), bank[:7].contiguous()
+    elif case == "u8_too_big":
+        n = ap.MAX_ROWS + 8
+        args["a_t"] = torch.zeros((n, Q), dtype=torch.bfloat16)
+        args["bank"] = torch.zeros((n, D), dtype=torch.bfloat16)
+    elif case == "d_not_128":
+        args["bank"] = torch.zeros((U8, D - 64), dtype=torch.bfloat16)
+        args["live"] = torch.ones(D - 64)
+    elif case == "live_len":
+        args["live"] = torch.ones(D - 128)
+    with pytest.raises((ValueError, TypeError)):
+        if case == "q_mismatch":
+            ap.approx_select_bool2(a_t, a_t[:, :2].contiguous(), bank,
+                                   params, live)
+        elif case == "params_shape":
+            ap.approx_select_bool2(a_t, a_t, bank, params[:, :2].contiguous(),
+                                   live)
+        else:
+            ap.approx_select(args["a_t"], args["bank"], args["live"])
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    bank, live, a, params = _batch(130, 40, 2048, seed=8)
+    t = lambda r: _th(a[r], True).to(dev)  # noqa: E731
+    b, p, lv = _th(bank, True).to(dev), _th(params).to(dev), _th(live).to(dev)
+    for fn, ref, args in (
+        (ap.approx_select, ap.approx_select_reference, (t("sc"), b, lv)),
+        (ap.approx_select_bool, ap.approx_select_bool_reference,
+         (t("sc"), t("rq"), t("sh"), t("ng"), b, p, lv)),
+    ):
+        got, want = fn(*args), ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0] == -1, want[0] == -1)
+        scale = torch.maximum(got[0].abs(), want[0].abs())
+        assert ((got[0] - want[0]).abs() <= REL * scale).all()

@@ -1,0 +1,201 @@
+"""Phase-2 kernels B6 and B7 of diagon_tpu_torch (plain versions on the
+CPU) against the JAX package's Pallas gather and union rescores
+(interpret mode), bit for bit, in the pure-OR and boolean forms, and
+against each other: the two share one contract."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from diagon_tpu.ops.pallas.gather_rescore import (
+    pallas_gather_rescore,
+    pallas_union_rescore,
+    union_rescore_supported,
+)
+from diagon_tpu_torch.ops import gather_rescore as gr
+
+# (G, U8, Q, Tq, B): one query, every tile selected, many queries over
+# shared tiles (the union kernel's shape class)
+SHAPES = [(8, 8, 1, 4, 3), (6, 16, 5, 9, 6), (24, 16, 64, 5, 8),
+          (32, 40, 9, 20, 24)]
+# shapes the JAX union kernel takes (8 | Q * B): a wider clause list, the
+# routed class (Q >= 64, Tq <= 8) with every tile repeated across queries,
+# and a sparse selection (SHAPES[2] is held against it below)
+UNION_SHAPES = [(16, 16, 4, 12, 2), (4, 8, 70, 8, 4), (40, 16, 3, 4, 8)]
+
+
+def _inputs(G, U8, Q, Tq, B, seed=3):
+    rng = np.random.default_rng(seed + G * 7 + Q)
+    bank = rng.normal(size=(G, U8, 128)).astype(np.float32)
+    bank[:, 0, :] = 0.0  # row 0 is the zero row
+    bank[bank < 0] = 0.0  # score rows are nonnegative
+    cidx = rng.integers(0, U8, (Q, Tq)).astype(np.int32)
+    tsel = np.sort(np.stack([rng.choice(G, B, replace=False)
+                             for _ in range(Q)]), axis=1).astype(np.int32)
+    flags = rng.integers(0, 16, (Q, Tq)).astype(np.int32)
+    return bank, cidx, tsel, flags
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+def _both(shape, boolean):
+    bank, cidx, tsel, flags = _inputs(*shape)
+    jargs = (jnp.asarray(bank), jnp.asarray(cidx), jnp.asarray(tsel))
+    targs = tuple(torch.from_numpy(a) for a in (bank, cidx, tsel))
+    fl = flags if boolean else None
+    return jargs, targs, fl
+
+
+@pytest.mark.parametrize("boolean", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gather_rescore_reference_matches_pallas(shape, boolean):
+    jargs, targs, fl = _both(shape, boolean)
+    want = pallas_gather_rescore(
+        *jargs, None if fl is None else jnp.asarray(fl), interpret=True)
+    got = gr.gather_rescore_reference(
+        *targs, None if fl is None else torch.from_numpy(fl))
+    if not boolean:
+        want, got = (want,), (got,)
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(_bits(x.numpy()), _bits(y))
+
+
+@pytest.mark.parametrize("boolean", [False, True])
+def test_gather_rescore_reference_matches_union_rescore(boolean):
+    """B6 and the union kernel share one contract: B6's plain version
+    equals the JAX union kernel bit for bit on its routed class."""
+    jargs, targs, fl = _both(SHAPES[2], boolean)
+    want = pallas_union_rescore(
+        *jargs, None if fl is None else jnp.asarray(fl), interpret=True)
+    got = gr.gather_rescore_reference(
+        *targs, None if fl is None else torch.from_numpy(fl))
+    if not boolean:
+        want, got = (want,), (got,)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(_bits(x.numpy()), _bits(y))
+
+
+@pytest.mark.parametrize("boolean", [False, True])
+@pytest.mark.parametrize("shape", UNION_SHAPES)
+def test_union_rescore_reference_matches_pallas(shape, boolean):
+    jargs, targs, fl = _both(shape, boolean)
+    want = pallas_union_rescore(
+        *jargs, None if fl is None else jnp.asarray(fl), interpret=True)
+    got = gr.union_rescore_reference(
+        *targs, None if fl is None else torch.from_numpy(fl))
+    if not boolean:
+        want, got = (want,), (got,)
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(_bits(x.numpy()), _bits(y))
+
+
+@pytest.mark.parametrize("boolean", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_union_rescore_reference_matches_gather_reference(shape, boolean):
+    """B7's plain version equals B6's at every shape, also where the JAX
+    union kernel's grid (8 | Q * B) would not take it."""
+    _, targs, fl = _both(shape, boolean)
+    fl = None if fl is None else torch.from_numpy(fl)
+    got = gr.union_rescore_reference(*targs, fl)
+    want = gr.gather_rescore_reference(*targs, fl)
+    if not boolean:
+        got, want = (got,), (want,)
+    for x, y in zip(got, want):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("Q,B", [(64, 24), (1024, 24), (2048, 32), (2056, 8),
+                                 (4096, 16), (8, 24), (2728, 24), (2000, 40)])
+def test_union_rescore_supported_matches_jax(Q, B):
+    assert gr.union_rescore_supported(Q, B) == union_rescore_supported(Q, B)
+
+
+@pytest.mark.parametrize("boolean", [False, True])
+def test_union_cpu_wrapper_uses_plain_version_without_launching(boolean):
+    _, targs, fl = _both(SHAPES[2], boolean)
+    fl = None if fl is None else torch.from_numpy(fl)
+    before = gr.union_rescore.launches
+    got = gr.union_rescore(*targs, fl)
+    want = gr.union_rescore_reference(*targs, fl)
+    if not boolean:
+        got, want = (got,), (want,)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert gr.union_rescore.launches == before
+
+
+@pytest.mark.parametrize("boolean", [False, True])
+def test_cpu_wrapper_uses_plain_version_without_launching(boolean):
+    _, targs, fl = _both(SHAPES[1], boolean)
+    fl = None if fl is None else torch.from_numpy(fl)
+    before = gr.gather_rescore.launches
+    got = gr.gather_rescore(*targs, fl)
+    want = gr.gather_rescore_reference(*targs, fl)
+    if not boolean:
+        got, want = (got,), (want,)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert gr.gather_rescore.launches == before
+
+
+@pytest.mark.parametrize("case", ["bank_2d", "lane_64", "tsel_rows",
+                                  "flags_shape", "cidx_i64"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    bank = torch.zeros((4, 8, 128))
+    cidx = torch.zeros((3, 4), dtype=torch.int32)
+    tsel = torch.zeros((3, 2), dtype=torch.int32)
+    flags = None
+    if case == "bank_2d":
+        bank = torch.zeros((32, 128))
+    elif case == "lane_64":
+        bank = torch.zeros((4, 8, 64))
+    elif case == "tsel_rows":
+        tsel = torch.zeros((2, 2), dtype=torch.int32)
+    elif case == "flags_shape":
+        flags = torch.zeros((3, 5), dtype=torch.int32)
+    elif case == "cidx_i64":
+        cidx = cidx.long()
+    with pytest.raises((ValueError, TypeError)):
+        gr.gather_rescore(bank, cidx, tsel, flags)
+    with pytest.raises((ValueError, TypeError)):
+        gr.union_rescore(bank, cidx, tsel, flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boolean", [False, True])
+def test_kernel_matches_plain_version_on_the_card(boolean):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    _, targs, fl = _both(SHAPES[3], boolean)
+    dev = torch.device("cuda")
+    targs = tuple(t.to(dev) for t in targs)
+    fl = None if fl is None else torch.from_numpy(fl).to(dev)
+    got = gr.gather_rescore(*targs, fl)
+    want = gr.gather_rescore_reference(*targs, fl)
+    torch.cuda.synchronize()
+    if not boolean:
+        got, want = (got,), (want,)
+    for x, y in zip(got, want):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boolean", [False, True])
+def test_union_kernel_matches_plain_version_on_the_card(boolean):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    _, targs, fl = _both(SHAPES[2], boolean)
+    dev = torch.device("cuda")
+    targs = tuple(t.to(dev) for t in targs)
+    fl = None if fl is None else torch.from_numpy(fl).to(dev)
+    got = gr.union_rescore(*targs, fl)
+    want = gr.gather_rescore_reference(*targs, fl)
+    torch.cuda.synchronize()
+    if not boolean:
+        got, want = (got,), (want,)
+    for x, y in zip(got, want):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
