@@ -5,7 +5,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases (any failure raises and the script exits non-zero):
+It imports nothing of JAX or of the JAX package (``diagon_tpu``): segments
+come from the port's own builder, queries from its own query sets, and the
+reference answers from its own oracle. Phases (any failure raises and the
+script exits non-zero), in the order they run:
 
 1. Device: card name and power limit; build the CUDA kernels from
    ``diagon_tpu_torch/csrc`` (one nvcc per source, all at once) and time
@@ -21,7 +24,10 @@ Phases (any failure raises and the script exits non-zero):
    within 2^-8 relative; and the soundness of the bound: tmax * (1 +
    2^-7) >= the exact tile max of the f32 scores that B1/B2 compute from
    the same compact rows (over matching docs for B4/B5), with B1/B2's
-   hit counts equal to the kernels'.
+   hit counts equal to the kernels'. Then B8 (bits_hits) exactly equal to
+   its plain version at D in {19,456, 10,002,432} x (Q, U8, Tq) in
+   {(1, 40, 20), (820, 40, 20), (200, 40, 4), (1024, 512, 4)}, every mode
+   word, dead queries and queries without a required clause included.
 4. Serving at 19,043 docs (main path, counted): solo searches of the
    Reuters families and search_batch sizes 1-7 (B1/B2), or20 x 1024
    (dedups to one plan, exhaustive on B1), mixed 1024 (pruned: B3 and B6
@@ -34,9 +40,24 @@ Phases (any failure raises and the script exits non-zero):
    B7) and or20 x 1024 (dedups to Q = 1, forced onto the batch route:
    B3 + B6), pruned equal to exhaustive over the whole batch, 4 queries
    oracle-exact, escalation counts printed.
+8. Scale at 10,000,000 docs, bench.py's 10M tier (main path, counted per
+   route): a segment of 4M+ docs holds no resident bank (on-demand mode).
+   or20 x 1024, then mixed 1024 over the 32 most frequent terms, with
+   query_cache off, through dispatch_batch + collect_many on (a) the
+   default route (phase 1 on B3/B5, then B6/B7) and (b) use_phase0 (phase
+   0, B8, then B6/B7): the kernels each route must launch (B8 on (b)
+   only), 3-4 queries oracle-exact, pruned finalize equal to the
+   exhaustive finalize (B1/B2 on the batch's on-demand heavy rows) over
+   each whole batch, escalations, served qps (median of 3 batches),
+   first-batch time (entry builds included), segment build and device
+   load seconds; a query_cache replay returns the same bits and skips
+   phase 1; a torch.profiler pass over each route of the mixed batch.
 6. On the very tensors the main path hands each kernel: B3-B5 checked
    as in phase 3 (hits, feasibility, soundness against B1/B2), B6/B7 bit
-   for bit, and kernel and plain times (CUDA events).
+   for bit, B8 exactly (the 10M phase-0 entry's own bitmaps), and kernel
+   and plain times (CUDA events); each kernel's bound (the least time for
+   its work on the card) and the time of one PyTorch call computing the
+   same function where there is one.
 7. Routes on the same plans: served qps of the mixed cells and 1M or20
    through the pruned and the exhaustive route (pruned, exhaustive,
    exhaustive, pruned; the exhaustive route is the same dispatch with
@@ -44,10 +65,10 @@ Phases (any failure raises and the script exits non-zero):
    pass over each route: device time by kernel and the card's busy
    share.
 
-Launch counters are set to 0 just before each main-path phase (4, 5) and
-read just after it; comparisons with plain versions and with the
-exhaustive route, and phases 6-7, do not count. Each kernel must launch on a path where
-it has to run.
+Launch counters are set to 0 just before each main-path phase (4, 5, and
+each route of 8) and read just after it; comparisons with plain versions
+and with the exhaustive route, and phases 6-7, do not count. Each kernel
+must launch on a path where it has to run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout,
@@ -56,8 +77,10 @@ the script fails before printing either.
 
 import sys
 
-# Neither the port nor this script may use JAX: an import of it fails here.
+# Neither the port nor this script may use JAX or the JAX package: an
+# import of either fails here.
 sys.modules["jax"] = None
+sys.modules["diagon_tpu"] = None
 
 import contextlib  # noqa: E402
 import json  # noqa: E402
@@ -74,6 +97,8 @@ SERVE_DOCS = 19043  # the reference's Reuters corpus size
 SCALE_DOCS = 1_000_000
 KERNEL_D = 19456  # SERVE_DOCS padded to the 1024-doc granule
 SCALE_D = 1003520  # SCALE_DOCS padded to the 4096-doc granule
+SCALE10_DOCS = 10_000_000  # bench.py's 10M tier (benchmarks/scale_bench.py)
+SCALE10_D = 10002432  # SCALE10_DOCS padded to the 4096-doc granule
 K = 10
 B_TILES = 24  # PRUNE_B0: the main path's tile budget at these sizes
 REL_TOL = 2.0 ** -8  # kernel vs plain tile maxima (two f32 add orders)
@@ -81,7 +106,11 @@ DEVICE = torch.device("cuda")
 # the kernels of diagon_tpu_torch/csrc, by function name (profile rows)
 PORT_KERNELS = ("row_sum_kernel", "row_boolean_kernel", "approx_select_kernel",
                 "compact_lists_kernel", "hits_kernel", "gather_rescore_kernel",
-                "union_rescore_kernel")
+                "union_rescore_kernel", "bits_hits_kernel")
+# the card's published peaks (H100 SXM datasheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_F32 = 67e12  # f32 outside the tensor cores; taken for 32-bit int ops too
+PEAK_BF16 = 989e12  # bf16 tensor-core products
 
 
 def log(*a):
@@ -133,7 +162,7 @@ class Oracle:
     """The host oracle with its answers memoised per query object."""
 
     def __init__(self, seg):
-        from diagon_tpu.search.oracle import OracleSearcher
+        from diagon_tpu_torch.search.oracle import OracleSearcher
 
         self.searcher = OracleSearcher([seg])
         self.memo = {}
@@ -420,6 +449,75 @@ def phase_pruned_kernels(rs, ap, gr, counts):
     return err
 
 
+def bits_inputs(rng, gen, Q, U8, Tq, D):
+    """Seeded presence bitmaps i32 [U8, D/32] (row 0 empty, 1 bit in 8
+    set) and Q queries in the row engine's contract for B8: kinds cycle
+    through pure OR, MUST + SHOULD, required + MUST_NOT + SHOULD (min_should
+    1), FILTER-only, no required clause with MUST_NOT, and dead (absent
+    required clause); random scoring bits; a padding clause on row 0."""
+    from diagon_tpu_torch.ops.bits_hits import MODE_DEAD, MODE_REQ, MODE_SHO
+
+    W = D // 32
+    words = [torch.randint(-2**31, 2**31, (U8, W), generator=gen,
+                           dtype=torch.int32, device=DEVICE) for _ in range(3)]
+    bits = words[0] & words[1] & words[2]
+    bits[0] = 0
+    cidx = rng.integers(1, U8, (Q, Tq)).astype(np.int32)
+    cflags = np.zeros((Q, Tq), np.int32)
+    qmode = np.zeros(Q, np.int32)
+    h = max(1, Tq // 4)
+    for q in range(Q):
+        kind = (q + Q) % 6
+        if kind == 0:
+            cflags[q], qmode[q] = 4, MODE_SHO
+        elif kind == 1:
+            cflags[q, 0], cflags[q, 1:], qmode[q] = 2, 4, MODE_REQ
+        elif kind == 2:
+            cflags[q, :h], cflags[q, h], cflags[q, h + 1:] = 2, 8, 4
+            qmode[q] = MODE_REQ | MODE_SHO
+        elif kind == 3:
+            cflags[q], qmode[q] = 2, MODE_REQ
+        elif kind == 4:
+            cflags[q] = np.where(rng.random(Tq) < 0.3, 8, 4)
+            cflags[q, 0], qmode[q] = 4, MODE_SHO
+        else:
+            cflags[q], qmode[q] = 4, MODE_DEAD | MODE_SHO
+        cflags[q] |= (((cflags[q] & 6) != 0)
+                      & (rng.random(Tq) < 0.7)).astype(np.int32)
+    cidx[:, -1] = 0
+    cflags[:, -1] = 0
+    dev = lambda x: torch.from_numpy(x).to(DEVICE)  # noqa: E731
+    return bits, dev(cidx), dev(cflags), dev(qmode)
+
+
+def phase_bits_kernel(bh, counts):
+    """B8 against its plain version, exactly, at the 19k and 10M doc axes
+    and the main path's (Q, U8, Tq) shapes."""
+    log("phase 3b: B8 (bits_hits) vs plain on the card, exact")
+    rng = np.random.default_rng(8)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(8)
+    for D in (KERNEL_D, SCALE10_D):
+        line = []
+        for Q, U8, Tq in ((1, 40, 20), (820, 40, 20), (200, 40, 4),
+                          (1024, 512, 4)):
+            args = bits_inputs(rng, gen, Q, U8, Tq, D)
+            got = counts.uncounted(bh.bits_hits, *args)
+            want = bh.bits_hits_reference(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"bits_hits != plain at D={D} Q={Q} "
+                                     f"U8={U8} Tq={Tq}")
+            ms = cuda_ms(lambda: counts.uncounted(bh.bits_hits, *args), reps=10)
+            pms = cuda_ms(lambda: bh.bits_hits_reference(*args), reps=3,
+                          warmup=1)
+            line.append(f"({Q}, {U8}, {Tq}) {ms:.4f}/{pms:.4f}")
+            del args, got, want
+        log(f"  D={D}: B8 == plain at every shape, every mode word; "
+            f"ms kernel/plain: {'; '.join(line)}")
+    return {"bits_hits": 0.0}
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-5: the main path
 # ---------------------------------------------------------------------------
@@ -428,7 +526,12 @@ def phase_pruned_kernels(rs, ap, gr, counts):
 def must_not_batch(pool, n=1024, seed=43):
     """``n`` distinct queries of a MUST head, a 2-4 term SHOULD tail and one
     MUST_NOT term, drawn from the frequent-term pool."""
-    from diagon_tpu.search.query import BooleanClause, BooleanQuery, Occur, TermQuery
+    from diagon_tpu_torch.search.query import (
+        BooleanClause,
+        BooleanQuery,
+        Occur,
+        TermQuery,
+    )
 
     rng = np.random.Generator(np.random.PCG64(seed))
     out, seen = [], set()
@@ -485,16 +588,18 @@ def serve_batch(searcher, oracle, counts, batch, label, sample, need, smi,
     return plans, dm
 
 
-def pruned_equals_exhaustive(ex, counts, plans, label, pruned):
+def pruned_equals_exhaustive(ex, counts, plans, label, pruned, want=None):
     """finalize of dispatch() (the pruned route, escalation included) equals
-    finalize of the exhaustive route over the whole batch, bit for bit."""
+    finalize of the exhaustive route over the whole batch, bit for bit;
+    returns the exhaustive side (``want``: an earlier one, reused)."""
     def run():
         fused = ex.dispatch(plans, K)
         return fused.shape[-1], ex.finalize(plans, fused, K)
 
     width, got = counts.uncounted(run)
-    want = counts.uncounted(
-        lambda: ex.finalize(plans, ex._exhaustive_chunked(plans, K), K))
+    if want is None:
+        want = counts.uncounted(
+            lambda: ex.finalize(plans, ex._exhaustive_chunked(plans, K), K))
     if pruned and width != 2 * K + 2:
         raise AssertionError(f"{label}: dispatch did not take the pruned route")
     for g, w, what in zip(got, want, ("scores", "docs", "hits")):
@@ -505,34 +610,44 @@ def pruned_equals_exhaustive(ex, counts, plans, label, pruned):
             raise AssertionError(f"{label}: pruned {what} != exhaustive")
     log(f"  {label}: pruned finalize == exhaustive finalize over all "
         f"{len(plans)} queries")
+    return want
 
 
-def load_searcher(n_docs):
-    from diagon_tpu.bench.bulk_build import build_synthetic_segment
+def load_searcher(n_docs, **kw):
+    """A built segment and its searcher on the card; seconds of both."""
+    from diagon_tpu_torch.bench.bulk_build import build_synthetic_segment
     from diagon_tpu_torch.search import IndexSearcher
 
     t0 = time.perf_counter()
     seg = build_synthetic_segment(n_docs)
-    log(f"  segment build {time.perf_counter() - t0:.2f} s")
+    t_build = time.perf_counter() - t0
+    log(f"  segment build {t_build:.2f} s")
     t0 = time.perf_counter()
-    searcher = IndexSearcher([seg], device=DEVICE)
-    bank = searcher._ctx("body").row_executors[0].index.heavy_bank
+    searcher = IndexSearcher([seg], device=DEVICE, **kw)
+    idx = searcher._ctx("body").row_executors[0].index
     torch.cuda.synchronize()
-    log(f"  device load + heavy bank {time.perf_counter() - t0:.2f} s "
-        f"(bank {tuple(bank.shape)}, {bank.numel() * 4 / 2**20:.1f} MiB)")
-    return seg, searcher
+    t_load = time.perf_counter() - t0
+    if idx.heavy_bank is not None:
+        bank = idx.heavy_bank
+        what = (f"bank {tuple(bank.shape)}, "
+                f"{bank.numel() * 4 / 2**20:.1f} MiB")
+    else:
+        what = (f"on demand: {len(idx.heavy_tid_of_row)} heavy terms, "
+                "no resident bank")
+    log(f"  device load + heavy rows {t_load:.2f} s ({what})")
+    return seg, searcher, t_build, t_load
 
 
 def phase_serve(counts, smi):
-    from diagon_tpu.bench.queries import (
+    from diagon_tpu_torch.bench.queries import (
         frequent_terms,
         mixed_query_batch,
         reuters_queries,
     )
-    from diagon_tpu.search.query import PhraseQuery
+    from diagon_tpu_torch.search.query import PhraseQuery
 
     log(f"phase 4: serving at {SERVE_DOCS} docs")
-    seg, searcher = load_searcher(SERVE_DOCS)
+    seg, searcher, _, _ = load_searcher(SERVE_DOCS)
     oracle = Oracle(seg)
     queries = {n: q for n, q in reuters_queries().items()
                if not isinstance(q, PhraseQuery)}
@@ -577,14 +692,14 @@ def phase_serve(counts, smi):
 
 
 def phase_scale(counts, smi):
-    from diagon_tpu.bench.queries import (
+    from diagon_tpu_torch.bench.queries import (
         frequent_terms,
         mixed_query_batch,
         reuters_queries,
     )
 
     log(f"phase 5: scale at {SCALE_DOCS} docs")
-    seg, searcher = load_searcher(SCALE_DOCS)
+    seg, searcher, _, _ = load_searcher(SCALE_DOCS)
     oracle = Oracle(seg)
     mixed = mixed_query_batch(frequent_terms(searcher), 1024, phrase_share=0)
     or20_batch = [reuters_queries()["or20"]] * 1024
@@ -609,6 +724,140 @@ def phase_scale(counts, smi):
     for label, plans in batches.items():
         pruned_equals_exhaustive(ex, counts, plans, label, True)
     return searcher, batches, sent, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: scale at 10,000,000 docs, on-demand banks, phase 1 and phase 0
+# ---------------------------------------------------------------------------
+
+
+def fresh_entries(ex, phase0):
+    """Route ``ex``'s on-demand batches through phase 0 or phase 1. A cached
+    entry keeps the phase it was built for, so the cache is emptied."""
+    ex.use_phase0 = phase0
+    ex._batch_cache.clear()
+    ex._batch_bytes = 0
+    ex._demand_args_cache.clear()
+
+
+def family_samples(batch):
+    """Indices of the first term, AND and MUST + SHOULD queries of a mixed
+    batch (the oracle decodes every posting block of a query's terms in
+    Python, seconds per frequent term at 10M docs)."""
+    from diagon_tpu_torch.search.query import BooleanQuery, Occur, TermQuery
+
+    def family(q):
+        if isinstance(q, TermQuery):
+            return "term"
+        occurs = {c.occur for c in q.clauses} if isinstance(q, BooleanQuery) else set()
+        if occurs == {Occur.MUST}:
+            return "and"
+        if occurs == {Occur.MUST, Occur.SHOULD}:
+            return "bool"
+        return None
+
+    first = {}
+    for i, q in enumerate(batch):
+        first.setdefault(family(q), i)
+    return [first[f] for f in ("term", "and", "bool")]
+
+
+def phase_scale10(counts, smi):
+    """bench.py's 10M tier (benchmarks/scale_bench.py): or20 x 1024, then
+    mixed 1024 over the 32 most frequent terms, query_cache off, through
+    dispatch_batch + collect_many on both on-demand routes: (a) phase 1
+    (B3/B5, then B6/B7), (b) use_phase0 (phase 0 and B8, then B6/B7).
+    Returns the launches of each route and B8's main-path arguments."""
+    from diagon_tpu_torch.bench.queries import (
+        frequent_terms,
+        mixed_query_batch,
+        reuters_queries,
+    )
+
+    log(f"phase 8: scale at {SCALE10_DOCS} docs, on-demand banks")
+    seg, searcher, t_build, t_load = load_searcher(SCALE10_DOCS,
+                                                   query_cache=False)
+    ex = searcher._ctx("body").row_executors[0]
+    if not ex.index.bank_on_demand or ex.index.heavy_bank is not None:
+        raise AssertionError("10M segment is not in on-demand mode")
+    oracle = Oracle(seg)
+    mixed = mixed_query_batch(frequent_terms(searcher, "body", 32), 1024,
+                              phrase_share=0)
+    or20 = [reuters_queries()["or20"]] * 1024
+    cells = (("10M or20 x 1024", or20, [0]),
+             ("10M mixed 1024", mixed, family_samples(mixed)))
+    need = {
+        "phase1": {"10M or20 x 1024": ["approx_select", "gather_rescore"],
+                   "10M mixed 1024": ["approx_select", "approx_select_bool2",
+                                      "gather_rescore", "union_rescore"]},
+        "phase0": {"10M or20 x 1024": ["bits_hits", "gather_rescore"],
+                   "10M mixed 1024": ["bits_hits", "gather_rescore",
+                                      "union_rescore"]},
+    }
+    launches, plans, exhaustive = {}, {}, {}
+    for route in ("phase1", "phase0"):
+        log(f"  route {route}:")
+        fresh_entries(ex, route == "phase0")
+        counts.reset()
+        for label, batch, sample in cells:
+            plans[label], dm = serve_batch(searcher, oracle, counts, batch,
+                                           f"{label} {route}", sample,
+                                           need[route][label], smi, reps=3)
+            if dm["pruned"] < 1 or dm["phase0_ineligible"]:
+                raise AssertionError(f"{label} {route}: not on the route")
+        launches[route] = counts.read()
+        log(f"  {route} launches {launches[route]}")
+        p1 = ("approx_select", "approx_select_bool", "approx_select_bool2")
+        wrong = (["bits_hits"] if route == "phase1" else list(p1))
+        if any(launches[route][n] for n in wrong):
+            raise AssertionError(f"route {route} launched {wrong}")
+        if route == "phase1":
+            check_replay(ex, counts, plans["10M mixed 1024"])
+        for label, _, _ in cells:
+            exhaustive[label] = pruned_equals_exhaustive(
+                ex, counts, plans[label], f"{label} {route}", True,
+                exhaustive.get(label))
+    # phase 0's own B8 arguments for phase 6: the pure-OR subset's entry
+    split = ex._purity_split(plans["10M mixed 1024"])
+    c = ex._compact(split[0])
+    bits_args = (c.bits, c.cidx, c.cflags, c.qmode)
+    # one profiled batch per route: a phase-0 batch escalates most of its
+    # queries onto B1/B2 and takes seconds
+    for route in ("phase0", "phase1"):
+        fresh_entries(ex, route == "phase0")
+        counts.uncounted(profile_route, ex, plans["10M mixed 1024"],
+                         "10M mixed 1024", route, smi, 1)
+    log(f"  10M set-up: segment build {t_build:.2f} s, device load "
+        f"{t_load:.2f} s [{smi}]")
+    return launches, bits_args
+
+
+def check_replay(ex, counts, plans):
+    """With query_cache on, the second dispatch of an identical batch
+    replays phase 1 (no phase-1 launch) and returns the same bits."""
+    p1 = ("approx_select", "approx_select_bool", "approx_select_bool2")
+
+    def run():
+        a0 = counts.read()
+        f1 = ex.dispatch(plans, K)
+        a1 = counts.read()
+        f2 = ex.dispatch(plans, K)
+        torch.cuda.synchronize()
+        return f1, f2, a0, a1, counts.read()
+
+    ex.query_cache = True
+    try:
+        f1, f2, a0, a1, a2 = counts.uncounted(run)
+    finally:
+        ex.query_cache = False
+    if not bits_equal(f1, f2):
+        raise AssertionError("p1 replay changed the fused rows")
+    if sum(a1[n] - a0[n] for n in p1) < 1 or any(a2[n] != a1[n] for n in p1):
+        raise AssertionError("the replayed dispatch ran phase 1 again")
+    if a2["gather_rescore"] <= a1["gather_rescore"]:
+        raise AssertionError("the replayed dispatch skipped phase 2")
+    log("  query_cache replay: same bits, no phase-1 launch on the second "
+        "dispatch")
 
 
 # ---------------------------------------------------------------------------
@@ -661,6 +910,80 @@ def main_path_args(ex, plans):
     return out, rows
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def kernel_bound(name, args):
+    """(bound_ms, bound_by): the least time the card could take for the
+    work of one call on ``args``, the larger of the bytes it must move
+    (each input row it reads once, each output once) over HBM_BYTES_PER_S
+    and the operations these inputs need over the peak of their type:
+    f32 adds / compares for B1, B2, B6, B7; bf16 multiply-adds of the
+    indicator nonzeros for B3-B5 (the listed rows only); 32-bit integer
+    logic for B8 (one op per role clause and word, two more per word for
+    the mode mask and the popcount, dead queries none), at the f32 rate."""
+    if name in ("row_sum", "row_boolean"):
+        heavy, light, hidx, lidx = args[:4]
+        D = heavy.shape[1]
+        Q, Tq = hidx.shape
+        rows = (torch.unique(hidx[hidx >= 0]).numel()
+                + torch.unique(lidx[hidx < 0]).numel())
+        outs = 1 if name == "row_sum" else 4
+        byts = rows * D * 4 + nbytes(*args[2:]) + outs * Q * D * 4
+        ops = Q * D * ((Tq - 1) if name == "row_sum" else 5 * Tq)
+        peak = PEAK_F32
+    elif name.startswith("approx_select"):
+        bank = args[{"approx_select": 1, "approx_select_bool": 4,
+                     "approx_select_bool2": 2}[name]]
+        inds = [a for a in args if a.dtype == torch.bfloat16 and a is not bank]
+        D = bank.shape[1]
+        Q = inds[0].shape[1]
+        byts = nbytes(*args) + Q * (D // 128) * 4 + Q * 4
+        ops = 2 * D * sum(int((a != 0).sum()) for a in inds)
+        peak = PEAK_BF16
+    elif name in ("gather_rescore", "union_rescore"):
+        ct, cidx, tsel, flags = args
+        U8 = ct.shape[1]
+        Q, Tq = cidx.shape
+        B = tsel.shape[1]
+        lanes = torch.unique(tsel.long()[:, :, None] * U8
+                             + cidx.long()[:, None, :]).numel()
+        outs = 1 if flags is None else 4
+        byts = lanes * 128 * 4 + nbytes(cidx, tsel, flags) + outs * Q * B * 512
+        ops = Q * B * 128 * Tq * (1 if flags is None else 5)
+        peak = PEAK_F32
+    else:  # bits_hits
+        from diagon_tpu_torch.ops.bits_hits import MODE_DEAD
+
+        bits, cidx, cflags, qmode = args
+        W = bits.shape[1]
+        role = (cflags & 14) != 0
+        rows = torch.unique(cidx[role]).numel()
+        byts = rows * W * 4 + nbytes(cidx, cflags, qmode) + qmode.numel() * 4
+        alive = (qmode & MODE_DEAD) == 0
+        ops = W * int(((role.sum(dim=1) + 2) * alive).sum())
+        peak = PEAK_F32
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_ms(name, args):
+    """One PyTorch call computing the same function on the same inputs,
+    timed: B1's row sums are ``embedding_bag(mode="sum")`` over the heavy
+    bank when every clause reads it (in another add order); no single call
+    computes B2-B8's outputs (B3-B5's product alone is a matmul, without
+    the tile maxima or the hits)."""
+    if name == "row_sum":
+        heavy, _, hidx, _ = args
+        if bool((hidx >= 0).all()):
+            idx = hidx.long()
+            return cuda_ms(lambda: torch.nn.functional.embedding_bag(
+                idx, heavy, mode="sum"))
+    return None
+
+
 def time_kernel(counts, name, fn, ref, args, exact):
     got = counts.uncounted(fn, *args)
     want = ref(*args)
@@ -675,19 +998,21 @@ def time_kernel(counts, name, fn, ref, args, exact):
     return ms, plain, max_abs_err(got, want), got, want
 
 
-def phase_main_path_kernels(rs, ap, gr, counts, searcher19, batches19,
-                            ex1m, batches1m):
+def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
+                            ex1m, batches1m, bits_args):
     """Each kernel on the args the main path gives it: B1 at the deduped
     or20 plan and B2 at the mixed batch's exhaustive args (the escalation
     shape) at 19k; B4 at the 19k MUST_NOT batch; B3, B5, B6 and B7 at the
-    1M mixed batch. B3-B5 are checked as in phase 3 (hits, feasibility,
+    1M mixed batch; B8 at the 10M phase-0 entry of the mixed batch's
+    pure-OR subset. B3-B5 are checked as in phase 3 (hits, feasibility,
     maxima within 2^-8, soundness against B1/B2 on the compact rows); B6
-    and B7 bit for bit against their plain versions and each other."""
+    and B7 bit for bit against their plain versions and each other; B8
+    exactly. Returns each kernel's times, error, bound and library time."""
     from diagon_tpu_torch.search.row_engine import _flags
 
     log("phase 6: kernels vs plain on the main path's tensors")
     ex19 = searcher19._ctx("body").row_executors[0]
-    out = {}
+    out, at = {}, {}
     a1 = ex19._args(batches19["or20 x 1024"][:1])
     a2 = ex19._args(batches19["mixed 1024"])
     for name, fn, ref, args in (
@@ -695,8 +1020,10 @@ def phase_main_path_kernels(rs, ap, gr, counts, searcher19, batches19,
          (a1[0], a1[1], a1[3], a1[4])),
         ("row_boolean", rs.row_boolean, rs.row_boolean_reference,
          (a2[0], a2[1], a2[3], a2[4], _flags(*a2[5:9]))),
+        ("bits_hits", bh.bits_hits, bh.bits_hits_reference, bits_args),
     ):
         out[name] = time_kernel(counts, name, fn, ref, args, True)[:3]
+        at[name] = args
     neg_args, neg_rows = main_path_args(ex19, batches19["MUST_NOT 1024"])
     mixed_args, mixed_rows = main_path_args(ex1m, batches1m["1M mixed 1024"])
     for name, args, rows in (
@@ -711,6 +1038,7 @@ def phase_main_path_kernels(rs, ap, gr, counts, searcher19, batches19,
         e = check_select(f"main-path {name}", got, want,
                          exact_tiles(rs, counts, rows[name], boolean), boolean)
         out[name] = (ms, plain, e)
+        at[name] = args[name]
         log("    sound, hits and feasibility == plain and exact")
     for name in ("gather_rescore", "union_rescore"):
         ms, plain, e, got, _ = time_kernel(
@@ -724,7 +1052,16 @@ def phase_main_path_kernels(rs, ap, gr, counts, searcher19, batches19,
         log(f"    bit-equal to {oname} on the same tensors, which takes "
             f"{oms:.4f} ms")
         out[name] = (ms, plain, e)
-    return out
+        at[name] = mixed_args[name]
+    record = {}
+    for name, (ms, plain, e) in out.items():
+        b_ms, b_by = kernel_bound(name, at[name])
+        lib = counts.uncounted(library_ms, name, at[name])
+        record[name] = {"ms": ms, "plain_ms": plain, "max_abs_err": e,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        log(f"  {name}: {ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+            f"library {'none' if lib is None else f'{lib:.4f} ms'}")
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -734,9 +1071,9 @@ def phase_main_path_kernels(rs, ap, gr, counts, searcher19, batches19,
 
 @contextlib.contextmanager
 def on_route(ex, route):
-    """Route ``ex``'s batches as the JAX package does ("pruned"), or with
-    the pruning floor raised past every segment ("exhaustive": the dedup
-    still applies)."""
+    """Route ``ex``'s batches as the JAX package does (any route name but
+    "exhaustive": the executor as set), or with the pruning floor raised
+    past every segment ("exhaustive": the dedup still applies)."""
     floor = ex.prune_min_docs
     if route == "exhaustive":
         ex.prune_min_docs = 1 << 62
@@ -761,8 +1098,8 @@ def served_both_routes(searcher, batch, label, reps, smi):
         f"({len(batch) / med['exhaustive']:.1f} qps) [{smi}]")
 
 
-def profile_route(ex, plans, label, route, smi):
-    """torch.profiler over 5 batches of dispatch + finalize on one route:
+def profile_route(ex, plans, label, route, smi, n=5):
+    """torch.profiler over n batches of dispatch + finalize on one route:
     wall, device time by kernel, and the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -773,13 +1110,13 @@ def profile_route(ex, plans, label, route, smi):
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(5):
+    for _ in range(n):
         run()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / 5
+    wall = (time.perf_counter() - t0) / n
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
+        for _ in range(n):
             run()
         torch.cuda.synchronize()
     # device-side events only: an aten op's row repeats its kernels' time
@@ -787,7 +1124,7 @@ def profile_route(ex, plans, label, route, smi):
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in rows) / 5 / 1e3
+    total = sum(e.self_device_time_total for e in rows) / n / 1e3
     log(f"  {label} {route}: wall {wall * 1e3:.3f} ms/batch (dispatch + "
         f"finalize), device {total:.3f} ms/batch, busy "
         f"{100 * total / (wall * 1e3):.1f}% [{smi}]")
@@ -796,7 +1133,7 @@ def profile_route(ex, plans, label, route, smi):
     for i, e in enumerate(rows):
         if i < 8 or any(f"(anonymous namespace)::{n}" in e.key
                         for n in PORT_KERNELS):
-            ms = e.self_device_time_total / 5 / 1e3
+            ms = e.self_device_time_total / n / 1e3
             log(f"    {ms:8.3f} ms/batch {100 * ms / total:5.1f}%  "
                 f"{e.key[:90]}")
 
@@ -817,6 +1154,7 @@ def main():
     t_start = time.perf_counter()
     smi = phase_device()
     from diagon_tpu_torch.ops import approx_pass as ap
+    from diagon_tpu_torch.ops import bits_hits as bh
     from diagon_tpu_torch.ops import gather_rescore as gr
     from diagon_tpu_torch.ops import row_sum as rs
 
@@ -827,15 +1165,19 @@ def main():
         "approx_select_bool2": ap.approx_select_bool2,
         "gather_rescore": gr.gather_rescore,
         "union_rescore": gr.union_rescore,
+        "bits_hits": bh.bits_hits,
     }
     counts = Counts(kernels)
     err = phase_row_kernels(rs)
     err.update(phase_pruned_kernels(rs, ap, gr, counts))
+    err.update(phase_bits_kernel(bh, counts))
     searcher19, batches19, sent19, launches19 = phase_serve(counts, smi)
     searcher1m, batches1m, sent1m, launches1m = phase_scale(counts, smi)
+    launches10, bits_args = phase_scale10(counts, smi)
     ex1m = searcher1m._ctx("body").row_executors[0]
-    times = phase_main_path_kernels(rs, ap, gr, counts, searcher19, batches19,
-                                    ex1m, batches1m)
+    times = phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19,
+                                    batches19, ex1m, batches1m, bits_args)
+    del bits_args
     phase_routes([
         ("mixed 1024", searcher19, sent19["mixed 1024"],
          batches19["mixed 1024"]),
@@ -844,8 +1186,13 @@ def main():
         ("1M or20 x 1024", searcher1m, sent1m["1M or20 x 1024"],
          batches1m["1M or20 x 1024"]),
     ], counts, smi)
-    launches = {n: launches19[n] + launches1m[n] for n in kernels}
-    log(f"main-path launches at 19k {launches19}; at 1M {launches1m}")
+    runs = (launches19, launches1m, launches10["phase1"], launches10["phase0"])
+    launches = {n: sum(r[n] for r in runs) for n in kernels}
+    log(f"main-path launches at 19k {launches19}; at 1M {launches1m}; at "
+        f"10M phase 1 {launches10['phase1']}, phase 0 {launches10['phase0']}")
+    idle = [n for n, c in launches.items() if c < 1]
+    if idle:
+        raise AssertionError(f"the main path never launched {idle}")
 
     source = {
         "row_sum": "diagon_tpu_torch/csrc/row_sum.cu",
@@ -855,6 +1202,7 @@ def main():
         "approx_select_bool2": "diagon_tpu_torch/csrc/approx_pass.cu",
         "gather_rescore": "diagon_tpu_torch/csrc/gather_rescore.cu",
         "union_rescore": "diagon_tpu_torch/csrc/gather_rescore.cu",
+        "bits_hits": "diagon_tpu_torch/csrc/bits_hits.cu",
     }
     replaces = {
         "row_sum": "diagon_tpu/ops/pallas/row_sum.py:129",
@@ -864,6 +1212,7 @@ def main():
         "approx_select_bool2": "diagon_tpu/ops/pallas/approx_pass.py:248",
         "gather_rescore": "diagon_tpu/ops/pallas/gather_rescore.py:364",
         "union_rescore": "diagon_tpu/ops/pallas/gather_rescore.py:279",
+        "bits_hits": "diagon_tpu/ops/pallas/bits_hits.py:95",
     }
     record = {"kernels": [
         {
@@ -872,9 +1221,12 @@ def main():
             "source": source[name],
             "replaces": replaces[name],
             "launches": launches[name],
-            "max_abs_err": max(err[name], times[name][2]),
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
+            "max_abs_err": max(err[name], times[name]["max_abs_err"]),
+            "ms": times[name]["ms"],
+            "plain_ms": times[name]["plain_ms"],
+            "bound_ms": times[name]["bound_ms"],
+            "bound_by": times[name]["bound_by"],
+            "library_ms": times[name]["library_ms"],
         }
         for name in kernels
     ]}

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "diagon_approx_select_bool2": _APPROX,
     "diagon_gather_rescore": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "diagon_union_rescore": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "diagon_bits_hits": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,7 +1,7 @@
-"""Search on one PyTorch device: the port of ``diagon_tpu.search``'s device
-tier. Query and result types are the shared host tier's own."""
+"""Search on one PyTorch device: the port of ``diagon_tpu.search``. Query
+and result types are the port's own copies of the JAX package's."""
 
-from diagon_tpu.search.query import (  # noqa: F401
+from diagon_tpu_torch.search.query import (  # noqa: F401
     BooleanClause,
     BooleanQuery,
     DoubleRangeQuery,
@@ -13,5 +13,5 @@ from diagon_tpu.search.query import (  # noqa: F401
     Query,
     TermQuery,
 )
-from diagon_tpu.search.topdocs import ScoreDoc, TopDocs  # noqa: F401
 from diagon_tpu_torch.search.searcher import IndexSearcher  # noqa: F401
+from diagon_tpu_torch.search.topdocs import ScoreDoc, TopDocs  # noqa: F401

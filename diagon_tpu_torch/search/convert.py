@@ -1,16 +1,33 @@
-"""Carry a JAX ``RowFieldIndex``'s state into the port.
+"""Carry state from the JAX package into the port.
 
-``row_field_index_from_state`` builds a port :class:`RowFieldIndex` on a
-given device from the numpy state of a ``diagon_tpu`` row index, so that
-both packages score the very same heavy bank. The state is plain numpy,
-which keeps this module free of JAX: the caller converts the JAX arrays.
+- ``segment_from_jax`` and ``query_from_jax`` rebuild a ``diagon_tpu``
+  segment or query as the port's own classes, reading attributes only, so
+  the same data can be searched by both packages (the port's searcher
+  takes nothing else);
+- ``row_field_index_from_state`` builds a port :class:`RowFieldIndex` on a
+  given device from the numpy state of a ``diagon_tpu`` row index, so that
+  both packages score the very same heavy bank.
+
+Nothing here imports the JAX package: the caller passes its objects, and
+converts JAX arrays to numpy.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from diagon_tpu_torch.codecs.postings import PackedPostings
+from diagon_tpu_torch.index.segment import (
+    DocValuesData,
+    DocValuesType,
+    PointsData,
+    SegmentData,
+    SegmentFieldData,
+)
+from diagon_tpu_torch.search import query as Q
 from diagon_tpu_torch.search.row_engine import RowFieldIndex
 
 STATE_KEYS = (
@@ -21,6 +38,65 @@ STATE_KEYS = (
     "live",  # f32 [D]
     "tf_lut_host",  # f32 [128*F]
 )
+
+
+def _postings_from_jax(pp) -> PackedPostings:
+    return PackedPostings(**{
+        f.name: getattr(pp, f.name) for f in dataclasses.fields(PackedPostings)
+    })
+
+
+def segment_from_jax(seg) -> SegmentData:
+    """The port's SegmentData for a ``diagon_tpu`` one. The arrays are
+    shared, not copied, except the live-docs bitmap, which deletes
+    mutate."""
+    return SegmentData(
+        name=seg.name,
+        num_docs=seg.num_docs,
+        fields={
+            name: SegmentFieldData(_postings_from_jax(fd.postings), fd.norms,
+                                   fd.with_positions)
+            for name, fd in seg.fields.items()
+        },
+        doc_values={
+            name: DocValuesData(DocValuesType[dv.dv_type.name], dv.docs,
+                                dv.values, dv.ord_values, dv.value_start)
+            for name, dv in seg.doc_values.items()
+        },
+        points={
+            name: PointsData(pt.values, pt.docs, pt.is_double)
+            for name, pt in seg.points.items()
+        },
+        stored=list(seg.stored),
+        live_docs=None if seg.live_docs is None else np.array(seg.live_docs),
+    )
+
+
+def query_from_jax(q) -> Q.Query:
+    """The port's query for a ``diagon_tpu`` one, by class name, nested
+    clauses included; TypeError for a class the port does not have."""
+    kind = type(q).__name__
+    if kind == "TermQuery":
+        out = Q.TermQuery(q.term.field, q.term.text)
+    elif kind == "BooleanQuery":
+        out = Q.BooleanQuery(
+            [Q.BooleanClause(query_from_jax(c.query), Q.Occur[c.occur.name])
+             for c in q.clauses],
+            q.minimum_number_should_match,
+        )
+    elif kind == "PhraseQuery":
+        out = Q.PhraseQuery(q.field, list(q.terms))
+    elif kind == "MatchAllDocsQuery":
+        out = Q.MatchAllDocsQuery()
+    elif kind in ("NumericRangeQuery", "PointRangeQuery"):
+        out = getattr(Q, kind)(q.field, q.lower, q.upper)
+    elif kind == "DoubleRangeQuery":
+        out = Q.DoubleRangeQuery(q.field, q.lower, q.upper, q.include_lower,
+                                 q.include_upper)
+    else:
+        raise TypeError(f"no port counterpart for query type {kind}")
+    out.boost = q.boost
+    return out
 
 
 def row_field_index_from_state(pp, norms: np.ndarray, state: dict,

@@ -14,8 +14,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from diagon_tpu.index.segment import SegmentData, SegmentFieldData
-from diagon_tpu.search.bm25 import BM25Similarity
+from diagon_tpu_torch.index.segment import SegmentData, SegmentFieldData
+from diagon_tpu_torch.search.bm25 import BM25Similarity
 
 
 def _round_up(x: int, m: int) -> int:

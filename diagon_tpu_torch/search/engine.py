@@ -11,7 +11,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from diagon_tpu.search.bm25 import BM25Similarity
+from diagon_tpu_torch.search.bm25 import BM25Similarity
 
 
 @dataclass

@@ -27,22 +27,41 @@ certificates of ``_pruned_batch_finish`` prove the top-k exact or send
 the query back to the exhaustive route in ``RowExecutor.finalize``.
 Results stay bit-identical to the exhaustive route, the JAX searcher and
 the oracle.
+
+On-demand mode, for segments of ``BANK_ON_DEMAND_MIN_DOCS`` padded docs or
+more: heavy terms are classified but no resident bank is built. Each
+batch's compact bank is scatter-built from the packed postings in row
+groups (``RowFieldIndex.build_rows_grouped``), and exhaustive scoring,
+counts and escalations read a bank of just the batch's heavy rows
+(``RowExecutor._demand_heavy_args``). Every pure-OR batch takes the batch
+route there. Phase 1 may replay from the entry's cache when an identical
+batch is re-issued (``query_cache``). With ``use_phase0`` set (off by
+default, as in the JAX package), batches whose plans all have
+min_should <= 1 take phase 0 instead of phase 1: tile bounds from
+per-row tile maxima (``_pruned_batch_phase0``, full-f32 products) and
+exact hit counts from presence bitmaps (kernel B8, ``ops.bits_hits``).
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from diagon_tpu.observability.metrics import registry
+from diagon_tpu_torch.observability.metrics import registry
 from diagon_tpu_torch.ops.approx_pass import (
     approx_select,
     approx_select_bool,
     approx_select_bool2,
+)
+from diagon_tpu_torch.ops.bits_hits import (
+    MODE_DEAD,
+    MODE_REQ,
+    MODE_SHO,
+    bits_hits,
 )
 from diagon_tpu_torch.ops.gather_rescore import (
     gather_rescore,
@@ -72,9 +91,13 @@ PRUNE_B0 = 24
 # versions in ``diagon_tpu_torch/ops/approx_pass.py``.
 _APPROX_RELEPS = np.float32(2.0 ** -7)
 
-# Segments at least this large hold no resident heavy bank in the JAX
-# package (on-demand mode); the port does not serve them yet.
+# Segments at least this large hold no resident heavy bank (on-demand
+# mode): compact banks are built per batch from the packed postings
 BANK_ON_DEMAND_MIN_DOCS = 4 << 20
+# rows per on-demand row group (build_rows_grouped): one group's [rows+1,
+# D] f32 transient is 2.6 GB at 10M docs (patchable in tests to force
+# several groups)
+_ROW_GROUP_ROWS = 64
 
 # posting blocks per bank-build step: bounds the decode temporaries
 # ([chunk, 128] int64 values, a few of them live at once)
@@ -415,20 +438,95 @@ def row_score_topk_pruned_batch(
     B: int,
     boolean: bool,
     a_cb_t=None,
+    p1_cache: Optional[dict] = None,
 ):
     """Pruned scoring of a query batch against its compact bank: phase 1,
     tile selection, phase 2 and the certificates, one eager pipeline (the
     JAX package's staged/fused program split is an XLA temp-plan measure).
-    Returns [Q, 2k+2] rows (see ``_pruned_batch_finish``)."""
+    Returns [Q, 2k+2] rows (see ``_pruned_batch_finish``).
+
+    ``p1_cache`` ({Bk: (tsel, u_next, min_unsel, hits)}, the entry's): phase
+    1 and the selection are a pure function of the batch's plans, bank,
+    live docs and Bk, so a re-issued identical batch replays them and runs
+    only phase 2 (the JAX package's staged branch; None: no replay)."""
     G = compact_t.shape[0]
-    tsel, u_next, min_unsel, hits = _pruned_batch_phase1(
-        compact_bf16, a_sc_t, a_rq_t, a_sh_t, a_ng_t, params_t, live,
-        Bk=min(B, G), boolean=boolean, a_cb_t=a_cb_t,
-    )
+    Bk = min(B, G)
+    p1 = p1_cache.get(Bk) if p1_cache is not None else None
+    if p1 is None:
+        p1 = _pruned_batch_phase1(
+            compact_bf16, a_sc_t, a_rq_t, a_sh_t, a_ng_t, params_t, live,
+            Bk=Bk, boolean=boolean, a_cb_t=a_cb_t,
+        )
+        if p1_cache is not None:
+            p1_cache[Bk] = p1
+    tsel, u_next, min_unsel, hits = p1
     return _pruned_batch_phase2(
         compact_t, cidx, cflags, live, tsel, u_next, min_unsel, hits,
         bool_params, k=k, boolean=boolean,
     )
+
+
+def _ubank_from_tiles(compact_t: torch.Tensor) -> torch.Tensor:
+    """[G, U8, LANE] tile-major bank -> [U8, G] per-row tile maxima."""
+    return compact_t.amax(dim=2).T.contiguous()
+
+
+def _build_bits_bank(compact_t: torch.Tensor, live: torch.Tensor):
+    """Presence bitmaps i32 [U8, G*4] (u32 bit patterns) of a tile-major
+    bank: bit d % 32 of word d // 32 is set where the row is > 0 and doc d
+    is live (d = g * LANE + l -> word g * 4 + l // 32). Built in tile
+    chunks so the int64 packing temporary stays near 256 MB."""
+    G, U8, _ = compact_t.shape
+    dev = compact_t.device
+    live_tiles = live.reshape(G, LANE) > 0
+    bits = torch.empty((U8, G * 4), dtype=torch.int32, device=dev)
+    step = max(256, (1 << 25) // max(U8 * LANE, 1))
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    for g0 in range(0, G, step):
+        sl = compact_t[g0 : g0 + step]
+        rows = sl.shape[0]
+        m = (sl > 0) & live_tiles[g0 : g0 + rows, None, :]
+        w = (m.reshape(rows, U8, 4, 32).long() << shifts).sum(dim=-1)
+        w = torch.where(w >= 1 << 31, w - (1 << 32), w).int()  # as i32
+        bits[:, g0 * 4 : (g0 + rows) * 4] = (
+            w.permute(1, 0, 2).reshape(U8, rows * 4))
+    return bits
+
+
+def _pruned_batch_phase0(ubank, a_sc_f, a_rq_f, a_sh_f, params_t, *,
+                         Bk: int, boolean: bool):
+    """Tile selection from per-row tile maxima, with no per-doc pass:
+    (tsel, u_next, min_unsel) as ``_select_tiles`` gives them.
+
+    tile_upper[q, g] = (sum over q's scoring clauses of the rows' tile
+    maxima) * (1 + _APPROX_RELEPS), above the true max score in tile g: the
+    true scores are f32 sums of the same row values, and the inflation
+    covers the reassociation of the f32 products' sums and the oracle's
+    summation order. Boolean tiles missing a required row, or with fewer
+    present SHOULD rows than min_should, hold no match and get the phase-1
+    infeasible marker -1 * (1 + eps), so the certificates are unchanged. A
+    loose bound only ever costs an escalation. The products are plain
+    matrix products (the JAX package leaves them to XLA); they must run in
+    full f32, since the inflation was derived for f32 sums, so TF32 must be
+    off on the card."""
+    if ubank.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "phase 0 needs full-f32 products: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False"
+        )
+    G = ubank.shape[1]
+    m = float(np.float32(1.0) + _APPROX_RELEPS)
+    ub0 = a_sc_f.T @ ubank  # [Q, G]
+    if boolean:
+        pres = (ubank > 0).float()
+        rc = a_rq_f.T @ pres
+        oc = a_sh_f.T @ pres
+        feasible = ((rc >= params_t[0][:, None])
+                    & (oc >= params_t[1][:, None]))
+        tile_upper = torch.where(feasible, ub0 * m, -m)
+    else:
+        tile_upper = ub0 * m
+    return _select_tiles(tile_upper, Bk, G)
 
 
 def _widen(fused: torch.Tensor, k: int) -> torch.Tensor:
@@ -574,7 +672,8 @@ def _term_block_meta(pp, specs):
 
 class RowFieldIndex:
     """Host + device state producing one field's dense score rows on one
-    device (resident heavy bank)."""
+    device: a resident heavy bank, or, at ON_DEMAND_MIN_DOCS padded docs
+    and more, heavy rows built per batch (``bank_on_demand``)."""
 
     # device bytes the dense heavy bank may occupy (top-df rows win); the
     # JAX package's value, kept for parity (ROADMAP: retune per card)
@@ -605,6 +704,7 @@ class RowFieldIndex:
         self.heavy_tid_of_row: Optional[np.ndarray] = None
         self.heavy_weight: Optional[np.ndarray] = None
         self.heavy_bank: Optional[torch.Tensor] = None
+        self.bank_on_demand = False
         self._decode_state = None
 
     def device_decode_state(self):
@@ -645,19 +745,19 @@ class RowFieldIndex:
         return bank[:nrows]
 
     def build_heavy_bank(self, idf_of_tid) -> None:
-        """Materialize the device rows of frequent terms.
+        """Classify the frequent terms and materialize their device rows,
+        or, on an on-demand segment, only classify them: batches build the
+        rows they use (``build_rows_grouped``), and no bank budget caps the
+        heavy set.
 
         idf_of_tid: callable tid -> np.float32 collection-level idf."""
-        if self.num_docs_pad >= self.ON_DEMAND_MIN_DOCS:
-            raise NotImplementedError(
-                f"segments of {self.ON_DEMAND_MIN_DOCS} docs or more use "
-                "on-demand row banks, not yet ported (ROADMAP queue A item 7)"
-            )
+        self.bank_on_demand = (self.prunable and
+                               self.num_docs_pad >= self.ON_DEMAND_MIN_DOCS)
         df = self.pp.doc_freq
         threshold = max(HEAVY_MIN_DF, self.num_docs_pad // HEAVY_FRACTION)
         heavy = np.nonzero(df >= threshold)[0]
         max_rows = max(1, int(self.BANK_BUDGET_BYTES // (4 * self.num_docs_pad)))
-        if len(heavy) > max_rows:
+        if not self.bank_on_demand and len(heavy) > max_rows:
             order = np.argsort(df[heavy], kind="stable")[::-1]
             heavy = np.sort(heavy[order[:max_rows]])
         H = len(heavy)
@@ -667,10 +767,29 @@ class RowFieldIndex:
         self.heavy_weight = np.asarray(
             [idf_of_tid(int(t)) for t in heavy], dtype=np.float32
         )
+        if self.bank_on_demand:
+            self.heavy_bank = None
+            return
         self.heavy_bank = self.build_rows(
             [(r, int(t), self.heavy_weight[r]) for r, t in enumerate(heavy)],
             max(1, H),
         )
+
+    def build_rows_grouped(self, tids, weights):
+        """Yield ``(g0, rows)`` for the given term ids in groups of at most
+        ``_ROW_GROUP_ROWS``: ``rows`` is an f32 [n, D] view of a [n+1, D]
+        group built like ``build_rows`` (its trailing dump row dropped),
+        row j the weights[g0+j]-scaled score row of tids[g0+j] (tid < 0:
+        a zero row). The on-demand form of the heavy-bank build: one group
+        is the only transient, so a batch's compact bank is assembled
+        group by group. Bit-equal to ``host_row`` (same LUT, same single
+        IEEE multiply)."""
+        R = len(tids)
+        for g0 in range(0, R, _ROW_GROUP_ROWS):
+            n = min(_ROW_GROUP_ROWS, R - g0)
+            specs = [(j, int(tids[g0 + j]), np.float32(weights[g0 + j]))
+                     for j in range(n) if tids[g0 + j] >= 0]
+            yield g0, self.build_rows(specs, n)
 
 
 # ---------------------------------------------------------------------------
@@ -698,12 +817,13 @@ class RowPlan:
 @dataclass
 class CompactBatch:
     """Batch-compact clause-row bank and remapped plan arrays, built once
-    per cached batch entry and read by ``row_score_topk_pruned_batch``.
-    Phase-1 fields only: the JAX class's phase-0 fields and its phase-1
-    replay cache belong to the scale modes (ROADMAP queue A item 7)."""
+    per cached batch entry and read by the pruned route: phase 1 reads the
+    bf16 bank, phase 0 (on-demand entries of eligible batches) the tile
+    maxima and the presence bitmaps instead, and phase 2 the tile-major
+    f32 bank either way."""
 
     compact_t: torch.Tensor  # f32 [G, U8, LANE] tile-major (exact rescore)
-    compact_bf16: torch.Tensor  # bf16 [U8, D] (phase 1)
+    compact_bf16: Optional[torch.Tensor]  # bf16 [U8, D] (phase 1; None on phase-0 entries)
     cidx: torch.Tensor  # i32 [Q, Tq]
     cflags: torch.Tensor  # i32 [Q, Tq]
     a_sc_t: torch.Tensor  # bf16 [U8, Q]
@@ -716,6 +836,17 @@ class CompactBatch:
     a_cb_t: Optional[torch.Tensor]
     params_t: torch.Tensor  # f32 [8, Q]
     nbytes: int
+    # phase-1 replay cache {Bk: (tsel, u_next, min_unsel, hits)}, the
+    # LRUQueryCache role: filled and read only where the executor allows
+    # it (query_cache, at batch_only_min_docs and more)
+    p1_cache: dict = field(default_factory=dict)
+    # phase-0 state (on-demand entries of min_should <= 1 batches only)
+    ubank: Optional[torch.Tensor] = None  # f32 [U8, G] per-row tile maxima
+    bits: Optional[torch.Tensor] = None  # i32 [U8, G*4] presence bitmaps
+    qmode: Optional[torch.Tensor] = None  # i32 [Q] bits_hits MODE_* words
+    a_sc_f: Optional[torch.Tensor] = None  # f32 [U8, Q] (phase-0 products)
+    a_rq_f: Optional[torch.Tensor] = None
+    a_sh_f: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -760,6 +891,13 @@ class RowExecutor:
     COMPACT_MAX_ROWS = 512
     # device bytes one group's banks may occupy (~10 bytes/doc/row)
     COMPACT_GROUP_BYTES = 2 << 30
+    # on-demand segments: the entry LRU's budget (the compact entries own
+    # the card's memory there; the split mixed entries and the or20 entry
+    # must all stay cached at 10M docs) and the bytes of one group's banks
+    # (5 bytes/doc/row for phase-0 entries, 7 for phase-1 ones). The JAX
+    # package's values, kept for parity (ROADMAP: retune per card)
+    ON_DEMAND_CACHE_BUDGET = 7 << 30
+    ON_DEMAND_GROUP_BYTES = 4 << 30
 
     # pruning knobs at the JAX package's values (instance-overridable;
     # tests force small ones)
@@ -770,6 +908,16 @@ class RowExecutor:
     # below this segment size, batches smaller than approx_min_q stay
     # exhaustive
     prune_solo_min_docs: int = 1 << 18
+    # segments at least this large take the batch route for every pure-OR
+    # batch, and replay phase 1 from the entry's cache
+    batch_only_min_docs: int = 4 << 20
+    # on-demand batches whose plans all have min_should <= 1 take phase 0
+    # (tile maxima + B8) instead of phase 1; off by default, as in the JAX
+    # package
+    use_phase0: bool = False
+    # replay phase 1 when an identical batch is re-issued (at
+    # batch_only_min_docs and more); the searcher sets it
+    query_cache: bool = True
     # transient: a deduped homogeneous burst routes through the batch
     # route even at sub-batch sizes (set around the dispatch recursion)
     _force_batch: bool = False
@@ -783,8 +931,10 @@ class RowExecutor:
         self._dedup_cache: dict = {}
         self._split_cache: dict = {}
         self._part_cache: dict = {}
-        # the JAX package's counters, under its registry names (one
-        # process-wide object per name, shared with the JAX package)
+        # on-demand exhaustive banks by plan identity (4 entries)
+        self._demand_args_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        # the JAX package's counters under its registry names, in the
+        # port's own registry (one process-wide object per name)
         self.metrics = {
             "pruned": registry.counter(
                 "search.pruned_dispatches",
@@ -809,6 +959,11 @@ class RowExecutor:
             "tiles": registry.counter(
                 "search.tiles_rescored",
                 "(query, tile) pairs rescored by the pruned phase 2",
+            ),
+            "phase0_ineligible": registry.counter(
+                "search.phase0_ineligible",
+                "on-demand batches routed to phase 1 with use_phase0 set "
+                "(a plan has min_should >= 2)",
             ),
         }
 
@@ -938,14 +1093,20 @@ class RowExecutor:
         )
 
     def _build_compact(self, entry: _BatchEntry):
-        """CompactBatch (resident mode): the batch's clause rows compacted
-        into one small bank, f32 tile-major for the exact rescore and bf16
-        row-major for phase 1, with per-clause indices remapped, so both
-        pruned phases scale with the batch's vocabulary. Row 0 is the zero
-        row; padding clauses keep cidx 0. None when the bank would exceed
-        COMPACT_MAX_ROWS rows."""
+        """CompactBatch: the batch's clause rows compacted into one small
+        bank, f32 tile-major for the exact rescore and bf16 row-major for
+        phase 1, with per-clause indices remapped, so both pruned phases
+        scale with the batch's vocabulary. Row 0 is the zero row; padding
+        clauses keep cidx 0. None when the bank would exceed
+        COMPACT_MAX_ROWS rows.
+
+        On an on-demand segment the heavy rows are scatter-built from the
+        postings group by group, straight into the banks; a phase-0 entry
+        (``use_phase0`` and every plan's min_should <= 1) holds no bf16
+        bank but the tile maxima and the presence bitmaps."""
         hidx_arr, lidx, sc_arr, rq_arr, sh_arr, ng_arr, n_light = entry.host
         plans, light_bank = entry.plans, entry.args[7]
+        idx = self.index
         used = np.unique(hidx_arr[hidx_arr >= 0])
         n_rows = 1 + len(used) + n_light
         if n_rows > self.COMPACT_MAX_ROWS:
@@ -963,13 +1124,20 @@ class RowExecutor:
             + 4 * (sh_arr > 0).astype(np.int32)
             + 8 * (ng_arr > 0).astype(np.int32)
         )
-        compact_f32 = _assemble_compact(
-            self.index.heavy_bank, used, light_bank, n_light
-        )
-        U8, D = compact_f32.shape
-        compact_t = _tile_major(compact_f32)
-        compact_bf16 = compact_f32.to(torch.bfloat16)
-        del compact_f32
+        phase0 = (self.use_phase0 and idx.bank_on_demand
+                  and all(p.min_should <= 1 for p in plans))
+        if idx.bank_on_demand:
+            compact_t, compact_bf16 = self._build_banks_on_demand(
+                used, light_bank, n_light, -(-n_rows // 8) * 8, phase0)
+        else:
+            compact_f32 = _assemble_compact(
+                idx.heavy_bank, used, light_bank, n_light
+            )
+            compact_t = _tile_major(compact_f32)
+            compact_bf16 = compact_f32.to(torch.bfloat16)
+            del compact_f32
+        G, U8, _ = compact_t.shape
+        D = G * LANE
 
         # transposed per-role clause-indicator matrices for phase 1
         nq = cidx.shape[0]
@@ -982,23 +1150,73 @@ class RowExecutor:
         params = np.zeros((8, nq), np.float32)
         params[0] = [p.num_required for p in plans]
         params[1] = [p.min_should for p in plans]
-        dev = self.index.device
+        dev = idx.device
+
+        def t(x):
+            return torch.from_numpy(x).to(dev)
 
         def bf16(x):
-            return torch.from_numpy(x).to(dev).to(torch.bfloat16)
+            return t(x).to(torch.bfloat16)
 
         a_cb = None
         if (not all(p.pure_or for p in plans) and not a["ng"].any()
                 and not ((a["rq"] > 0) & (a["sh"] > 0)).any()
                 and a["rq"].max(initial=0) < 256):
             a_cb = bf16(a["rq"] * np.float32(256.0) + a["sh"])
-        return CompactBatch(
-            compact_t, compact_bf16,
-            torch.from_numpy(cidx).to(dev), torch.from_numpy(cflags).to(dev),
+        c = CompactBatch(
+            compact_t, compact_bf16, t(cidx), t(cflags),
             bf16(a["sc"]), bf16(a["rq"]), bf16(a["sh"]), bf16(a["ng"]), a_cb,
-            torch.from_numpy(params).to(dev),
+            t(params),
             U8 * D * 6,  # f32 tile-major + bf16
         )
+        if phase0:
+            # tile maxima and live presence bitmaps: two bank reads, once
+            # per cached entry
+            c.ubank = _ubank_from_tiles(compact_t)
+            c.bits = _build_bits_bank(compact_t, idx.live)
+            qmode = np.zeros(nq, np.int32)
+            for qi, p in enumerate(plans):
+                if p.num_required > 0:
+                    qmode[qi] |= MODE_REQ
+                    if int((rq_arr[qi] > 0).sum()) < p.num_required:
+                        qmode[qi] |= MODE_DEAD  # an absent required clause
+                if p.min_should >= 1 or p.num_required == 0:
+                    qmode[qi] |= MODE_SHO
+            c.qmode = t(qmode)
+            c.a_sc_f, c.a_rq_f, c.a_sh_f = t(a["sc"]), t(a["rq"]), t(a["sh"])
+            # f32 tile-major + bitmaps + tile maxima (no bf16 bank)
+            c.nbytes = U8 * D * 4 + U8 * (D // 8) + U8 * (D // LANE) * 4
+        return c
+
+    def _build_banks_on_demand(self, used, light_bank, n_light: int, U8: int,
+                               phase0: bool):
+        """The compact banks of an on-demand entry: row 0 zero, the heavy
+        rows ``used`` scatter-built from the postings one row group at a
+        time and placed straight into the tile-major f32 bank (and the bf16
+        bank, phase-1 entries only), then the light rows. Peak residency:
+        the banks and one row group."""
+        idx = self.index
+        D = idx.num_docs_pad
+        G = D // LANE
+        compact_t = torch.zeros((G, U8, LANE), dtype=torch.float32,
+                                device=idx.device)
+        compact_bf16 = None if phase0 else torch.zeros(
+            (U8, D), dtype=torch.bfloat16, device=idx.device)
+
+        def place(r0, rows):
+            n = rows.shape[0]
+            compact_t[:, r0 : r0 + n].copy_(
+                rows.reshape(n, G, LANE).permute(1, 0, 2))
+            if compact_bf16 is not None:
+                compact_bf16[r0 : r0 + n].copy_(rows)
+
+        if len(used):
+            for g0, rows in idx.build_rows_grouped(
+                    idx.heavy_tid_of_row[used], idx.heavy_weight[used]):
+                place(1 + g0, rows)
+        if n_light:
+            place(1 + len(used), light_bank[1 : 1 + n_light])
+        return compact_t, compact_bf16
 
     def _entry(self, plans: Sequence[RowPlan]) -> _BatchEntry:
         ck = tuple(id(p) for p in plans)
@@ -1012,8 +1230,17 @@ class RowExecutor:
         vocab = set()
         for p in plans:
             vocab |= _plan_row_keys(p)
-        est = 12 * self.index.num_docs_pad * (len(vocab) + 9)
-        while self._batch_bytes + est > self.BATCH_CACHE_BUDGET and self._batch_cache:
+        # bytes per doc and row: on an on-demand segment the estimate
+        # tracks the real entry closely (f32 tile-major + bf16, or the
+        # phase-0 banks), so the cached split entries do not evict each
+        # other; elsewhere it covers the light bank too
+        if self.index.bank_on_demand:
+            per_row = 5 if self.use_phase0 else 7
+        else:
+            per_row = 12
+        est = per_row * self.index.num_docs_pad * (len(vocab) + 9)
+        budget = self._cache_budget()
+        while self._batch_bytes + est > budget and self._batch_cache:
             self._batch_bytes -= self._batch_cache.popitem(last=False)[1].nbytes
         entry = self._stack(plans)
         self._batch_bytes += entry.nbytes
@@ -1021,10 +1248,16 @@ class RowExecutor:
         self._evict()
         return entry
 
+    def _cache_budget(self) -> int:
+        if self.index.bank_on_demand:
+            return self.ON_DEMAND_CACHE_BUDGET
+        return self.BATCH_CACHE_BUDGET
+
     def _evict(self):
         """Drop the least recently used entries until the cache fits its
         budget, never the newest one."""
-        while self._batch_bytes > self.BATCH_CACHE_BUDGET and len(self._batch_cache) > 1:
+        budget = self._cache_budget()
+        while self._batch_bytes > budget and len(self._batch_cache) > 1:
             self._batch_bytes -= self._batch_cache.popitem(last=False)[1].nbytes
 
     def _compact(self, plans: Sequence[RowPlan]) -> Optional[CompactBatch]:
@@ -1044,15 +1277,52 @@ class RowExecutor:
         return entry.compact
 
     def _args(self, plans: Sequence[RowPlan]):
-        hidx, lidx, scoring, req, sho, neg, bool_params, light = (
-            self._entry(plans).args
-        )
-        return (self.index.heavy_bank, light, self.index.live, hidx, lidx,
+        """The exhaustive kernels' arguments for a batch: on an on-demand
+        segment, a bank of just the batch's heavy rows."""
+        entry = self._entry(plans)
+        hidx, lidx, scoring, req, sho, neg, bool_params, light = entry.args
+        heavy = self.index.heavy_bank
+        if self.index.bank_on_demand:
+            heavy, hidx = self._demand_heavy_args(plans, entry.host[0])
+        return (heavy, light, self.index.live, hidx, lidx,
                 scoring, req, sho, neg, bool_params)
+
+    def _demand_heavy_args(self, plans: Sequence[RowPlan], hidx: np.ndarray):
+        """(bank f32 [max(1, H_b), D], hidx i32 [Q, Tq]): the heavy rows the
+        batch uses, scatter-built from the postings in ascending row order,
+        and the plans' heavy indices remapped into that bank. Exhaustive
+        scoring, counts and escalations read it on an on-demand segment;
+        cached by plan identity (4 entries: escalation reruns and repeated
+        counts reuse one)."""
+        ck = tuple(map(id, plans))
+        hit = self._demand_args_cache.get(ck)
+        if hit is not None:
+            self._demand_args_cache.move_to_end(ck)
+            return hit[1]
+        idx = self.index
+        used = np.unique(hidx[hidx >= 0])
+        bank = idx.build_rows(
+            [(r, int(idx.heavy_tid_of_row[u]), idx.heavy_weight[u])
+             for r, u in enumerate(used)],
+            max(1, len(used)),
+        )
+        hpos = np.zeros(int(used.max()) + 1 if len(used) else 1, np.int32)
+        hpos[used] = np.arange(len(used), dtype=np.int32)
+        remapped = np.where(hidx >= 0, hpos[np.maximum(hidx, 0)], -1)
+        out = (bank, torch.from_numpy(remapped.astype(np.int32)).to(idx.device))
+        if len(self._demand_args_cache) >= 4:
+            self._demand_args_cache.popitem(last=False)
+        # the plans are pinned so the key's ids stay unique while cached
+        self._demand_args_cache[ck] = (list(plans), out)
+        return out
 
     # -- routing -----------------------------------------------------------
     def _compact_row_cap(self) -> int:
         D = self.index.num_docs_pad
+        if self.index.bank_on_demand:
+            per_row = 5 * D if self.use_phase0 else 7 * D
+            return min(self.COMPACT_MAX_ROWS,
+                       max(32, self.ON_DEMAND_GROUP_BYTES // per_row))
         return min(self.COMPACT_MAX_ROWS,
                    max(32, self.COMPACT_GROUP_BYTES // (10 * D)))
 
@@ -1096,24 +1366,37 @@ class RowExecutor:
         self._part_cache[ck] = (list(plans), groups)  # pin plan ids
         return groups
 
+    def _batch_mode(self, plans: Sequence[RowPlan]) -> bool:
+        """The JAX package's rule for the compact batch route (in its
+        ``_dispatch_pruned``): batches of approx_min_q plans or more, every
+        boolean batch, every batch on a segment of batch_only_min_docs or
+        more or held on demand, and a deduped burst (``_force_batch``)."""
+        idx = self.index
+        return (len(plans) >= self.approx_min_q
+                or not all(p.pure_or for p in plans)
+                or idx.num_docs_pad >= self.batch_only_min_docs
+                or idx.bank_on_demand
+                or self._force_batch)
+
     def _use_pruned(self, plans: Sequence[RowPlan]) -> bool:
         """The JAX package's routing, with two deliberate deviations (no
-        result changes): the gate tests the resident heavy bank where the
-        JAX package tests its tile aux (``heavy_ub``, which exists exactly
-        when the segment is prunable and the bank is built), and pure-OR
-        batches that the JAX package sends to its small-batch tile-UB path
-        (fewer than ``approx_min_q`` plans at >= ``prune_solo_min_docs``
-        docs, not forced into batch mode) stay exhaustive here until that
-        path is ported (ROADMAP queue A item 7)."""
+        result changes): the gate tests the resident heavy bank (or the
+        on-demand mode) where the JAX package tests its tile aux
+        (``heavy_ub``, which exists exactly when the segment is prunable and
+        the bank is built), and pure-OR batches outside batch mode, which
+        the JAX package sends to its small-batch tile-UB path (below
+        batch_only_min_docs only), stay exhaustive here until that path is
+        ported (ROADMAP queue A)."""
         idx = self.index
-        if not (idx.prunable and idx.heavy_bank is not None
+        if not (idx.prunable
+                and (idx.heavy_bank is not None or idx.bank_on_demand)
                 and idx.num_docs_pad >= self.prune_min_docs):
             return False
         if (idx.num_docs_pad < self.prune_solo_min_docs
                 and len(plans) < self.approx_min_q):
             return False
         if all(p.pure_or for p in plans):
-            return len(plans) >= self.approx_min_q or self._force_batch
+            return self._batch_mode(plans)
         # general booleans prune only in batch mode
         return len(plans) >= self.approx_min_q
 
@@ -1129,19 +1412,37 @@ class RowExecutor:
     def _dispatch_pruned(self, plans: Sequence[RowPlan], k: int):
         """The pruned batch route: [Q, 2k+2] rows, or None when the batch
         has no compact bank (too many rows), so dispatch() falls back to
-        exhaustive scoring."""
+        exhaustive scoring. Phase-0 entries take phase 0 and B8; others
+        phase 1, replayed from the entry's cache where the JAX package
+        stages its pipeline (query_cache, batch_only_min_docs and more)."""
         c = self._compact(plans)
         if c is None:
             return None
         idx = self.index
         B = self.tile_budget(len(plans), k)
         self.metrics["tiles"].increment(len(plans) * B)
+        boolean = not all(p.pure_or for p in plans)
+        bool_params = self._entry(plans).args[6]
+        if c.ubank is not None:
+            # tile_budget caps B at the tile count
+            tsel, u_next, min_unsel = _pruned_batch_phase0(
+                c.ubank, c.a_sc_f, c.a_rq_f, c.a_sh_f, c.params_t,
+                Bk=B, boolean=boolean,
+            )
+            hits = bits_hits(c.bits, c.cidx, c.cflags, c.qmode)
+            return _pruned_batch_phase2(
+                c.compact_t, c.cidx, c.cflags, idx.live, tsel, u_next,
+                min_unsel, hits, bool_params, k=k, boolean=boolean,
+            )
+        if self.use_phase0 and idx.bank_on_demand:
+            self.metrics["phase0_ineligible"].increment()
+        replay = (self.query_cache
+                  and idx.num_docs_pad >= self.batch_only_min_docs)
         return row_score_topk_pruned_batch(
             c.compact_t, c.compact_bf16, c.cidx, c.cflags, idx.live,
-            c.a_sc_t, c.a_rq_t, c.a_sh_t, c.a_ng_t, c.params_t,
-            self._entry(plans).args[6],
-            k=k, B=B, boolean=not all(p.pure_or for p in plans),
-            a_cb_t=c.a_cb_t,
+            c.a_sc_t, c.a_rq_t, c.a_sh_t, c.a_ng_t, c.params_t, bool_params,
+            k=k, B=B, boolean=boolean, a_cb_t=c.a_cb_t,
+            p1_cache=c.p1_cache if replay else None,
         )
 
     def _purity_split(self, plans: Sequence[RowPlan]):

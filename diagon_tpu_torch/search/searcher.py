@@ -7,7 +7,9 @@ routes a batch there. Per-segment top-k results merge by (score desc,
 global docid asc), the order of the reference's ``TopScoreDocCollector``.
 Queries the row planner rejects (pure MUST_NOT, unsupported types) take
 the host oracle, as in the JAX package. Phrase search is not ported yet
-and raises.
+and raises. Queries are the port's own classes (``search/query.py``); a
+JAX package query raises TypeError (``convert.query_from_jax`` carries one
+across).
 """
 
 from __future__ import annotations
@@ -18,15 +20,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from diagon_tpu.index.segment import SegmentData
-from diagon_tpu.search.bm25 import BM25Similarity
-from diagon_tpu.search.oracle import (
+from diagon_tpu_torch.index.segment import SegmentData
+from diagon_tpu_torch.search.bm25 import BM25Similarity
+from diagon_tpu_torch.search.device_index import DeviceSegment, load_segment
+from diagon_tpu_torch.search.engine import TermPlan, make_tf_table
+from diagon_tpu_torch.search.oracle import (
     OracleSearcher,
     double_range_mask,
     numeric_range_mask,
     point_range_mask,
 )
-from diagon_tpu.search.query import (
+from diagon_tpu_torch.search.query import (
     BooleanQuery,
     DoubleRangeQuery,
     MatchAllDocsQuery,
@@ -37,16 +41,22 @@ from diagon_tpu.search.query import (
     Query,
     TermQuery,
 )
-from diagon_tpu.search.topdocs import ScoreDoc, TopDocs, merge_top_docs
-from diagon_tpu_torch.search.device_index import DeviceSegment, load_segment
-from diagon_tpu_torch.search.engine import TermPlan, make_tf_table
 from diagon_tpu_torch.search.row_engine import RowExecutor, RowFieldIndex
+from diagon_tpu_torch.search.topdocs import ScoreDoc, TopDocs, merge_top_docs
 
 _RANGEABLE = (NumericRangeQuery, PointRangeQuery, DoubleRangeQuery,
               MatchAllDocsQuery)
 
 
-def _reject_phrase(query: Query) -> None:
+def _check_query(query: Query) -> None:
+    """Raise on a query (or nested clause) that is not one of the port's
+    classes, and on phrase search, which is not ported yet."""
+    if not isinstance(query, Query):
+        raise TypeError(
+            f"{type(query).__module__}.{type(query).__name__} is not a "
+            "diagon_tpu_torch query (convert.query_from_jax carries a JAX "
+            "package query across)"
+        )
     if isinstance(query, PhraseQuery):
         raise NotImplementedError(
             "phrase search is not ported to the PyTorch searcher yet "
@@ -54,7 +64,7 @@ def _reject_phrase(query: Query) -> None:
         )
     if isinstance(query, BooleanQuery):
         for c in query.clauses:
-            _reject_phrase(c.query)
+            _check_query(c.query)
 
 
 class _FieldContext:
@@ -98,15 +108,21 @@ class _FieldContext:
 
         ridx.build_heavy_bank(idf_of_tid)
         ex = RowExecutor(ridx)
+        ex.query_cache = searcher.enable_query_cache
         ex.idf_of_tid = idf_of_tid
         return ex
 
 
 class IndexSearcher:
     """Searches segments resident on ``device`` (a ``torch.device`` or its
-    name); everything is placed there and nothing picks a device itself."""
+    name; the CUDA card unless the caller names another); everything is
+    placed there and nothing picks a device itself.
 
-    def __init__(self, segments, device):
+    ``query_cache``: replay the phase-1 state of a re-issued identical batch
+    on segments of ``batch_only_min_docs`` or more (the JAX searcher's
+    option and default; benchmarks pass False so each batch is rescored)."""
+
+    def __init__(self, segments, device="cuda", query_cache: bool = True):
         # a DirectoryReader, or its leaves() contexts
         if hasattr(segments, "segments_data"):
             segments = segments.segments_data()
@@ -116,6 +132,7 @@ class IndexSearcher:
             for s in segments
         ]
         self.device = torch.device(device)
+        self.enable_query_cache = query_cache
         self.sim = BM25Similarity()
         self._field_ctx: Dict[str, _FieldContext] = {}
         self._idf_cache: Dict[Tuple[str, str, float], np.float32] = {}
@@ -181,7 +198,7 @@ class IndexSearcher:
         host (score row, match row) pairs. Standalone range / match-all
         queries arrive as single-SHOULD booleans. Returns None when nothing
         is indexed or nothing can match (pure MUST_NOT)."""
-        _reject_phrase(query)
+        _check_query(query)
         if isinstance(query, TermQuery):
             return query.term.field, [(query, Occur.SHOULD)], 1
         if isinstance(query, _RANGEABLE):

@@ -1,6 +1,8 @@
 """Row-bank build of diagon_tpu_torch against the JAX package's, bit for
 bit, on the same segment: heavy bank, row maps, host rows, light banks,
-the padded doc axis, and the state carried across by ``convert.py``."""
+the padded doc axis, and the state carried across by ``convert.py``. The
+segment is built with the JAX package and carried into the port by
+``convert.segment_from_jax``."""
 
 import numpy as np
 import pytest
@@ -11,7 +13,11 @@ from diagon_tpu.index.segment import flush_memory_index
 from diagon_tpu.search.query import BooleanClause, BooleanQuery, Occur, TermQuery
 from diagon_tpu.search.searcher import IndexSearcher as JaxSearcher
 from diagon_tpu_torch.search import IndexSearcher, row_engine as tre
-from diagon_tpu_torch.search.convert import row_field_index_from_state
+from diagon_tpu_torch.search.convert import (
+    query_from_jax,
+    row_field_index_from_state,
+    segment_from_jax,
+)
 
 N_DOCS = 1500
 
@@ -38,7 +44,7 @@ def seg():
 def pair(seg):
     """(JAX row executor, port row executor) for field body."""
     js = JaxSearcher([seg])
-    ts = IndexSearcher([seg], device="cpu")
+    ts = IndexSearcher([segment_from_jax(seg)], device="cpu")
     return js._ctx("body").row_executors[0], ts._ctx("body").row_executors[0]
 
 
@@ -63,7 +69,7 @@ def test_heavy_bank_and_row_maps_equal(pair):
 
 def test_padded_doc_axis_equal(seg):
     js = JaxSearcher([seg])
-    ts = IndexSearcher([seg], device="cpu")
+    ts = IndexSearcher([segment_from_jax(seg)], device="cpu")
     assert ts.device_segments[0].num_docs_pad == js.device_segments[0].num_docs_pad
     jf = js.device_segments[0].fields["body"]
     tf = ts.device_segments[0].fields["body"]
@@ -85,7 +91,7 @@ def test_padded_doc_axis_equal(seg):
 
 
 def test_positions_upload_is_deferred(seg):
-    ts = IndexSearcher([seg], device="cpu")
+    ts = IndexSearcher([segment_from_jax(seg)], device="cpu")
     f = ts.device_segments[0].fields["body"]
     assert f.positions is None
     f.ensure_positions()
@@ -137,18 +143,26 @@ def test_light_bank_equals_jax_and_host_rows(pair, seg, chunk, monkeypatch):
 
 def test_chunked_heavy_bank_build_equal(seg, pair, monkeypatch):
     monkeypatch.setattr(tre, "_BANK_BUILD_CHUNK", 5)
-    ts = IndexSearcher([seg], device="cpu")
+    ts = IndexSearcher([segment_from_jax(seg)], device="cpu")
     bank = ts._ctx("body").row_executors[0].index.heavy_bank
     np.testing.assert_array_equal(
         _bits(bank.numpy()), _bits(pair[1].index.heavy_bank.numpy())
     )
 
 
-def test_on_demand_size_is_not_served(seg, monkeypatch):
+def test_on_demand_size_is_not_served(seg, pair, monkeypatch):
+    """At ON_DEMAND_MIN_DOCS and more no resident heavy bank is served:
+    the heavy terms are classified as in resident mode, and their rows are
+    built per batch (tests/test_torch_on_demand.py)."""
     monkeypatch.setattr(tre.RowFieldIndex, "ON_DEMAND_MIN_DOCS", 1024)
-    ts = IndexSearcher([seg], device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        ts._ctx("body")
+    ts = IndexSearcher([segment_from_jax(seg)], device="cpu")
+    idx = ts._ctx("body").row_executors[0].index
+    assert idx.bank_on_demand and idx.heavy_bank is None
+    resident = pair[1].index
+    np.testing.assert_array_equal(idx.heavy_tid_of_row,
+                                  resident.heavy_tid_of_row)
+    np.testing.assert_array_equal(_bits(idx.heavy_weight),
+                                  _bits(resident.heavy_weight))
 
 
 def _queries():
@@ -181,11 +195,12 @@ def test_convert_scores_identically(pair, seg):
     idx = row_field_index_from_state(fd.postings, fd.norms, state, "cpu")
     ex = tre.RowExecutor(idx)
     js = JaxSearcher([seg])
-    ts = IndexSearcher([seg], device="cpu")
+    ts = IndexSearcher([segment_from_jax(seg)], device="cpu")
     jplans, tplans = [], []
     for q in _queries():
         field, clauses, ms = js._term_clauses(q)
         jplans.append(js._row_plans(field, clauses, ms)[0])
+        field, clauses, ms = ts._term_clauses(query_from_jax(q))
         tps = ts._clause_term_plans(field, clauses)[0]
         tplans.append(ex.build_plan(tps, ms, ts._ctx("body").row_executors[0].idf_of_tid))
     want = js._ctx("body").row_executors[0].top_k_batch(jplans, 10)

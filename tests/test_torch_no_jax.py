@@ -1,6 +1,8 @@
-"""diagon_tpu_torch imports with JAX unavailable, and chip_smoke.py refuses
+"""diagon_tpu_torch imports with JAX and the JAX package unavailable, no
+module of it (nor chip_smoke.py) imports either, and chip_smoke.py refuses
 to run without a CUDA card."""
 
+import ast
 import json
 import os
 import shutil
@@ -19,7 +21,9 @@ MODULES = sorted(
 
 _PROBE = """
 import importlib, json, sys
-sys.modules["jax"] = None  # any import of jax now raises ImportError
+# any import of jax, or of the JAX package, now raises ImportError
+sys.modules["jax"] = None
+sys.modules["diagon_tpu"] = None
 out = {}
 for name in sys.argv[1:]:
     try:
@@ -27,7 +31,8 @@ for name in sys.argv[1:]:
         out[name] = "ok"
     except Exception as e:
         out[name] = f"{type(e).__name__}: {e}"
-jaxlike = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+jaxlike = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "diagon_tpu")
                  if sys.modules[m] is not None)
 print(json.dumps({"imports": out, "jax_modules": jaxlike}))
 """
@@ -46,9 +51,13 @@ def probe():
 
 def test_every_module_is_probed():
     assert "diagon_tpu_torch" in MODULES
-    for name in ("row_sum", "approx_pass", "gather_rescore"):
+    for name in ("row_sum", "approx_pass", "gather_rescore", "bits_hits"):
         assert f"diagon_tpu_torch.ops.{name}" in MODULES
-    assert len(MODULES) >= 12
+    for name in ("search.query", "search.oracle", "index.segment",
+                 "codecs.postings", "observability.metrics", "bench.bulk_build",
+                 "native"):
+        assert f"diagon_tpu_torch.{name}" in MODULES
+    assert len(MODULES) >= 25
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -68,6 +77,35 @@ def test_source_never_imports_jax(path):
         assert words[:2] not in (["import", "jax"], ["from", "jax"]), line
         assert not (words[:1] == ["import"] and "jax." in line), line
         assert "diagon_tpu.ops" not in line and "diagon_tpu.parallel" not in line, line
+
+
+def _imported_modules(path):
+    """Every module an ``import`` or ``from`` statement of the file names,
+    wherever the statement stands (docstrings, which cite JAX paths, are
+    not imports)."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_the_jax_package(path):
+    names = _imported_modules(path)
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "diagon_tpu")]
+    assert not bad, bad
+
+
+def test_import_check_sees_nested_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text('"""from diagon_tpu import x"""\nimport os\n\n\n'
+                 "def g():\n    from diagon_tpu.search import query\n")
+    assert _imported_modules(f) == ["os", "diagon_tpu.search"]
 
 
 def _run_smoke(cwd):

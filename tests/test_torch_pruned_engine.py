@@ -4,8 +4,10 @@ pruning and against the host oracle: same docids, same f32 score bits,
 same hits. Mirrors the ``_force_pruned`` cases of
 ``tests/unit/test_pruned_engine.py``.
 
-The pruning counters are process-wide objects shared with the JAX package,
-so every count here is a delta around the port's own calls."""
+Segments and queries are built with the JAX package and carried into the
+port by ``convert``. The pruning counters live in the port's own registry,
+one process-wide object per name, so every count here is a delta around
+the port's own calls."""
 
 import itertools
 
@@ -21,6 +23,7 @@ from diagon_tpu.search.query import BooleanClause, BooleanQuery, Occur, TermQuer
 from diagon_tpu.search.searcher import IndexSearcher as JaxSearcher
 from diagon_tpu_torch.search import IndexSearcher
 from diagon_tpu_torch.search import row_engine as re
+from diagon_tpu_torch.search.convert import query_from_jax, segment_from_jax
 
 K = 10
 M, S, F, N = Occur.MUST, Occur.SHOULD, Occur.FILTER, Occur.MUST_NOT
@@ -43,6 +46,15 @@ def _corpus(n_docs, seed, vocab=60, delete_every=0):
         for d in range(0, n_docs, delete_every):
             seg.delete_document(d)
     return seg
+
+
+def _port(seg):
+    return IndexSearcher([segment_from_jax(seg)], device="cpu")
+
+
+def _plans(port, queries):
+    """The port's plans (segment 0) for JAX package queries."""
+    return [port._cached_query_plans(query_from_jax(q))[1][0] for q in queries]
 
 
 def _force_pruned(searcher, b0, approx_min_q=1):
@@ -118,15 +130,16 @@ def _run_three(seg, oracle, queries, b0, **knobs):
     """Batch + solo through the port, batch through the JAX searcher, each
     forced onto the pruned route; all equal to the oracle. Returns the
     port's counter deltas."""
-    port = IndexSearcher([seg], device="cpu")
+    port = _port(seg)
     (ex,) = _force_pruned(port, b0)
     for name, v in knobs.items():
         setattr(ex, name, v)
     jax_s = JaxSearcher([seg])
     _force_pruned(jax_s, b0)
     before = _counts(ex)
-    got = port.search_batch(queries, K)
-    solo = [port.search(q, K) for q in queries]
+    pq = [query_from_jax(q) for q in queries]
+    got = port.search_batch(pq, K)
+    solo = [port.search(q, K) for q in pq]
     delta = _delta(before, ex)
     want_jax = jax_s.search_batch(queries, K)
     for i, q in enumerate(queries):
@@ -162,12 +175,11 @@ def test_phase1_kernel_choice(seg):
     """A no-MUST_NOT boolean batch carries the combined indicator (B5); a
     batch with MUST_NOT, or a row in both required and should roles of one
     query, does not (B4); pure-OR batches never do (B3)."""
-    port = IndexSearcher([seg], device="cpu")
+    port = _port(seg)
     (ex,) = _force_pruned(port, 16)
 
     def compact_of(queries):
-        plans = [port._cached_query_plans(q)[1][0] for q in queries]
-        return ex._compact(plans)
+        return ex._compact(_plans(port, queries))
 
     assert compact_of(BOOL_QUERIES).a_cb_t is not None
     assert compact_of(NEG_QUERIES).a_cb_t is None
@@ -179,13 +191,14 @@ def test_phase1_kernel_choice(seg):
 def test_purity_split_keeps_query_order(seg, oracle):
     queries = [q for pair in zip(OR_QUERIES, BOOL_QUERIES + NEG_QUERIES)
                for q in pair]
-    port = IndexSearcher([seg], device="cpu")
+    port = _port(seg)
     (ex,) = _force_pruned(port, 16)
-    plans = [port._cached_query_plans(q)[1][0] for q in queries]
+    plans = _plans(port, queries)
     fused = ex.dispatch(plans, K)
     assert fused.shape == (len(queries), 2 * K + 2)
     assert ex._split_cache[tuple(map(id, plans))]
-    res = port.collect_many([port.dispatch_batch(queries, K)])[0]
+    pq = [query_from_jax(q) for q in queries]
+    res = port.collect_many([port.dispatch_batch(pq, K)])[0]
     for q, r in zip(queries, res):
         _same(r, oracle.search(q, K), q)
 
@@ -205,7 +218,7 @@ def test_routing_matches_jax(seg):
     """Which batches take the pruned route ([Q, 2k+2] rows) at the JAX
     package's knobs, and the one deliberate deviation: small pure-OR
     batches the JAX package sends to its tile-UB path stay exhaustive."""
-    port = IndexSearcher([seg], device="cpu")
+    port = _port(seg)
     jax_s = JaxSearcher([seg])
     pe = port._ctx("body").row_executors[0]
     je = jax_s._ctx("body").row_executors[0]
@@ -213,7 +226,10 @@ def test_routing_matches_jax(seg):
         ex.prune_min_docs = 0
 
     def width(searcher, ex, queries):
-        plans = [searcher._cached_query_plans(q)[1][0] for q in queries]
+        if searcher is port:
+            plans = _plans(port, queries)
+        else:
+            plans = [searcher._cached_query_plans(q)[1][0] for q in queries]
         return ex.dispatch(plans, K).shape[-1]
 
     cases = [
@@ -257,13 +273,13 @@ def test_finalize_escalates_in_chunks(seg, oracle, monkeypatch):
     """Escalation reruns the failed queries exhaustively in chunks of
     EXHAUSTIVE_CHUNK_BYTES / (4 D) queries; the results do not depend on
     the chunk."""
-    port = IndexSearcher([seg], device="cpu")
+    port = _port(seg)
     (ex,) = _force_pruned(port, 2)
     monkeypatch.setattr(ex, "EXHAUSTIVE_CHUNK_BYTES",
                         2 * 4 * ex.index.num_docs_pad)
     queries = OR_QUERIES + BOOL_QUERIES
     before = _counts(ex)
-    res = port.search_batch(queries, K)
+    res = port.search_batch([query_from_jax(q) for q in queries], K)
     assert _delta(before, ex)["escalations"] > 2
     for q, r in zip(queries, res):
         _same(r, oracle.search(q, K), q)
@@ -308,9 +324,9 @@ def test_union_route_parity_with_jax_and_oracle(seg, oracle, family,
 def test_compact_bank_built_only_where_read(seg):
     """An exhaustive batch builds no compact bank; the pruned route builds
     one on its entry; escalation chunks build none."""
-    port = IndexSearcher([seg], device="cpu")
+    port = _port(seg)
     ex = port._ctx("body").row_executors[0]
-    plans = [port._cached_query_plans(q)[1][0] for q in BOOL_QUERIES]
+    plans = _plans(port, BOOL_QUERIES)
     assert ex.dispatch(plans, K).shape[-1] == 2 * K + 1  # below 16,384 docs
     entry = ex._entry(plans)
     assert not entry.compact_built

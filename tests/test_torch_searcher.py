@@ -1,6 +1,8 @@
 """The PyTorch searcher end to end (device cpu) against the JAX searcher
 (Pallas in interpret mode) and the host oracle: same docids, same f32
-score bits, same hits, over deletes and multiple segments."""
+score bits, same hits, over deletes and multiple segments. Segments and
+queries are built with the JAX package and carried into the port by
+``convert``."""
 
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from diagon_tpu.search.query import (
 )
 from diagon_tpu.search.searcher import IndexSearcher as JaxSearcher
 from diagon_tpu_torch.search import IndexSearcher
+from diagon_tpu_torch.search.convert import query_from_jax, segment_from_jax
 
 VOCAB = [f"w{i}" for i in range(40)] + ["oil", "price", "trade"]
 
@@ -58,7 +61,8 @@ def segs():
 
 @pytest.fixture(scope="module")
 def searchers(segs):
-    return (IndexSearcher(segs, device="cpu"), JaxSearcher(segs),
+    return (IndexSearcher([segment_from_jax(s) for s in segs], device="cpu"),
+            JaxSearcher(segs),
             OracleSearcher(segs))
 
 
@@ -103,6 +107,8 @@ QUERIES = {
     "pure_must_not": B((T("oil"), N)),
 }
 BATCHABLE = [n for n in QUERIES if n != "pure_must_not"]
+# the same queries as the port's own objects
+PORT = {n: query_from_jax(q) for n, q in QUERIES.items()}
 
 
 def _assert_same(got, want, what):
@@ -119,7 +125,7 @@ def _assert_same(got, want, what):
 def test_search_matches_jax_and_oracle(searchers, name):
     ts, js, oracle = searchers
     q = QUERIES[name]
-    got = ts.search(q, 10)
+    got = ts.search(PORT[name], 10)
     _assert_same(got, oracle.search(q, 10), f"{name} vs oracle")
     _assert_same(got, js.search(q, 10), f"{name} vs jax")
 
@@ -127,13 +133,13 @@ def test_search_matches_jax_and_oracle(searchers, name):
 @pytest.mark.parametrize("name", list(QUERIES))
 def test_count_matches_oracle(searchers, name):
     ts, _, oracle = searchers
-    assert ts.count(QUERIES[name]) == oracle.count(QUERIES[name]), name
+    assert ts.count(PORT[name]) == oracle.count(QUERIES[name]), name
 
 
 def test_search_batch_matches_jax(searchers):
     ts, js, oracle = searchers
     batch = [QUERIES[n] for n in BATCHABLE]
-    got = ts.search_batch(batch, 7)
+    got = ts.search_batch([PORT[n] for n in BATCHABLE], 7)
     want = js.search_batch(batch, 7)
     for name, q, g, w in zip(BATCHABLE, batch, got, want):
         _assert_same(g, w, f"{name} vs jax")
@@ -146,13 +152,15 @@ def test_dispatch_collect_many_matches_oracle(searchers):
     ts, _, oracle = searchers
     b1 = [QUERIES[n] for n in BATCHABLE]
     b2 = [QUERIES["or"]] * 5 + [QUERIES["and"], QUERIES["or"]]
-    handles = [ts.dispatch_batch(b1, 10), ts.dispatch_batch(b2, 10)]
+    p1 = [PORT[n] for n in BATCHABLE]
+    p2 = [PORT["or"]] * 5 + [PORT["and"], PORT["or"]]
+    handles = [ts.dispatch_batch(p1, 10), ts.dispatch_batch(p2, 10)]
     for batch, res in zip((b1, b2), ts.collect_many(handles)):
         assert len(res) == len(batch)
         for q, r in zip(batch, res):
             _assert_same(r, oracle.search(q, 10), repr(q))
     # collect_batch resolves one handle the same way
-    for q, r in zip(b2, ts.collect_batch(ts.dispatch_batch(b2, 10))):
+    for q, r in zip(b2, ts.collect_batch(ts.dispatch_batch(p2, 10))):
         _assert_same(r, oracle.search(q, 10), repr(q))
 
 
@@ -162,7 +170,8 @@ def test_exhaustive_chunks_equal_one_launch(searchers, monkeypatch):
     ex = ts._ctx("body").row_executors[1]
     monkeypatch.setattr(type(ex), "EXHAUSTIVE_CHUNK_BYTES", 3 * 4 * 4 * 2048)
     batch = [QUERIES[n] for n in BATCHABLE]
-    for q, r in zip(batch, ts.search_batch(batch, 10)):
+    got = ts.search_batch([PORT[n] for n in BATCHABLE], 10)
+    for q, r in zip(batch, got):
         _assert_same(r, oracle.search(q, 10), repr(q))
 
 
@@ -182,7 +191,7 @@ def test_entry_points_match_jax(searchers, name):
     ts = searchers[0]
     pure = name.endswith(("pure_or", "pure_or_pallas"))
     names = ["term", "or", "or_boosted_light", "term_missing"] if pure else BATCHABLE
-    plans = [ts._cached_query_plans(QUERIES[n])[1][1] for n in names]
+    plans = [ts._cached_query_plans(PORT[n])[1][1] for n in names]
     ex = ts._ctx("body").row_executors[1]
     args = ex._args(plans)
     if pure:
@@ -208,6 +217,7 @@ def test_entry_points_match_jax(searchers, name):
 ])
 def test_phrase_is_not_ported(searchers, query):
     ts = searchers[0]
+    query = query_from_jax(query)
     for call in (lambda: ts.search(query, 10), lambda: ts.count(query),
                  lambda: ts.search_batch([query], 10),
                  lambda: ts.dispatch_batch([query], 10)):
@@ -219,5 +229,23 @@ def test_kernel_launch_counters_stay_zero_on_cpu(searchers):
     from diagon_tpu_torch.ops import row_sum as rs
 
     before = (rs.row_sum.launches, rs.row_boolean.launches)
-    searchers[0].search_batch([QUERIES["or"], QUERIES["and"]], 10)
+    searchers[0].search_batch([PORT["or"], PORT["and"]], 10)
     assert (rs.row_sum.launches, rs.row_boolean.launches) == before
+
+
+@pytest.mark.parametrize("name", ["term", "nested_boolean"])
+def test_jax_query_objects_raise(searchers, name):
+    """The searcher takes the port's query classes only: a JAX package
+    query, or one nested in a port boolean, raises TypeError."""
+    from diagon_tpu_torch.search.query import BooleanClause as PBC
+    from diagon_tpu_torch.search.query import BooleanQuery as PBQ
+    from diagon_tpu_torch.search.query import Occur as POccur
+
+    ts = searchers[0]
+    nested = PBQ([PBC(QUERIES[name], POccur.SHOULD)])
+    for q in (QUERIES[name], nested):
+        for call in (lambda: ts.search(q, 10), lambda: ts.count(q),
+                     lambda: ts.search_batch([q], 10),
+                     lambda: ts.dispatch_batch([q], 10)):
+            with pytest.raises(TypeError, match="query_from_jax"):
+                call()
