@@ -12,19 +12,25 @@ script exits non-zero), in the order they run:
 
 1. Device: card name and power limit; build the CUDA kernels from
    ``diagon_tpu_torch/csrc`` (one nvcc per source, all at once) and time
-   the build.
+   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1 or
+   B3.
 2. Kernels B1 (row_sum) and B2 (row_boolean) against their plain PyTorch
    versions on the card, bit for bit (D = 19,456; Q in {1, 7, 1024};
-   Tq in {4, 20, 24, 64}).
+   Tq in {4, 20, 24, 64, 100}; B1 stages 64 clauses per pass).
 3. Kernels B3-B5 (approx_select, _bool, _bool2), B6 (gather_rescore)
    and B7 (union_rescore) against their plain versions at the main
    path's shapes (D in {19,456, 1,003,520}; Q in {1, 8, 820, 1024}; U8 in
    {32, 168, 512}; Tq in {4, 20}; B = 24): B6 and B7 bit for bit, and B7
    bit-equal to B6; B3-B5 equal hits and tile feasibility, tile maxima
-   within 2^-8 relative; and the soundness of the bound: tmax * (1 +
+   within 2^-8 relative (B3: one bf16 step, 2^-7); and the soundness of
+   the bound: tmax * (1 +
    2^-7) >= the exact tile max of the f32 scores that B1/B2 compute from
    the same compact rows (over matching docs for B4/B5), with B1/B2's
-   hit counts equal to the kernels'. Then B8 (bits_hits) exactly equal to
+   hit counts equal to the kernels'. B3 (tensor cores) again at its
+   edges, held the same way against plain and exact: U8 = 896 (MAX_ROWS),
+   Q in {1, 65, 820} (off its 32-query chunk), and banks built against a
+   truncating accumulator (one large value per doc beside rows just under
+   its ulp, indicator values above 1). Then B8 (bits_hits) exactly equal to
    its plain version at D in {19,456, 10,002,432} x (Q, U8, Tq) in
    {(1, 40, 20), (820, 40, 20), (200, 40, 4), (1024, 512, 4)}, every mode
    word, dead queries and queries without a required clause included.
@@ -53,11 +59,16 @@ script exits non-zero), in the order they run:
    load seconds; a query_cache replay returns the same bits and skips
    phase 1; a torch.profiler pass over each route of the mixed batch.
 6. On the very tensors the main path hands each kernel: B3-B5 checked
-   as in phase 3 (hits, feasibility, soundness against B1/B2), B6/B7 bit
-   for bit, B8 exactly (the 10M phase-0 entry's own bitmaps), and kernel
-   and plain times (CUDA events); each kernel's bound (the least time for
-   its work on the card) and the time of one PyTorch call computing the
-   same function where there is one.
+   as in phase 3 (hits, feasibility, soundness against B1/B2; B3 at the
+   1M mixed batch and at the 10M phase-1 entry, whose banks must hold no
+   subnormal value), B6/B7 bit for bit, B8 exactly (the 10M phase-0
+   entry's own bitmaps), and kernel and plain times (CUDA events); each
+   kernel's bound (the least time for its work on the card) and the time
+   of one PyTorch call computing the same function where there is one.
+   B1 and embedding_bag are timed three ways at Q 1, Tq 20 (the main
+   path's args) and Q 1024, Tq 20: events around one call, events around
+   100 back-to-back calls / 100, and kernel-only device time from
+   torch.profiler.
 7. Routes on the same plans: served qps of the mixed cells and 1M or20
    through the pruned and the exhaustive route (pruned, exhaustive,
    exhaustive, pruned; the exhaustive route is the same dispatch with
@@ -102,11 +113,20 @@ SCALE10_D = 10002432  # SCALE10_DOCS padded to the 4096-doc granule
 K = 10
 B_TILES = 24  # PRUNE_B0: the main path's tile budget at these sizes
 REL_TOL = 2.0 ** -8  # kernel vs plain tile maxima (two f32 add orders)
+# B3 rounds each tile max once to bf16 from sums the tensor cores take in
+# another order and precision than the plain matmul: the two roundings may
+# land on neighbouring bf16 values, one step (at most 2^-7 relative) apart.
+# What B3 guarantees is checked against the exact scores (soundness, hits).
+BF16_STEP = 2.0 ** -7
 DEVICE = torch.device("cuda")
 # the kernels of diagon_tpu_torch/csrc, by function name (profile rows)
-PORT_KERNELS = ("row_sum_kernel", "row_boolean_kernel", "approx_select_kernel",
+PORT_KERNELS = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
+                "pack_indicator_kernel", "approx_select_kernel",
                 "compact_lists_kernel", "hits_kernel", "gather_rescore_kernel",
                 "union_rescore_kernel", "bits_hits_kernel")
+# B1's and B3's kernels: ptxas must report no spill for them
+NO_SPILL = ("row_sum_kernel", "approx_or_mma_kernel", "pack_indicator_kernel",
+            "hits_kernel")
 # the card's published peaks (H100 SXM datasheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F32 = 67e12  # f32 outside the tensor cores; taken for 32-bit int ops too
@@ -115,6 +135,20 @@ PEAK_BF16 = 989e12  # bf16 tensor-core products
 
 def log(*a):
     print(*a, flush=True)
+
+
+def spills(log_text):
+    """{mangled kernel name: (spill store bytes, spill load bytes)} from
+    ``ptxas -v`` output."""
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif fn and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[fn] = (nums[1], nums[2])
+            fn = None
+    return out
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -247,9 +281,19 @@ def phase_device():
     _build.library()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds} s) -> {_build.BUILD_DIR}")
-    for line in _build.build_log().splitlines():
+    text = _build.build_log()
+    for line in text.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
+    found = spills(text)
+    checked = {f: n for f, n in found.items() if any(k in f for k in NO_SPILL)}
+    if len(checked) < len(NO_SPILL) and _build.build_seconds is not None:
+        raise AssertionError(f"ptxas reported on {sorted(checked)} only, not "
+                             f"on every kernel of {NO_SPILL}")
+    spilled = {f: n for f, n in checked.items() if n != (0, 0)}
+    if spilled:
+        raise AssertionError(f"ptxas spills in B1/B3 kernels: {spilled}")
+    log(f"  ptxas: no spill in {len(checked)} B1/B3 kernel(s)")
     return smi
 
 
@@ -259,7 +303,7 @@ def phase_row_kernels(rs):
     err = {"row_sum": 0.0, "row_boolean": 0.0}
     log("phase 2: B1/B2 vs plain versions on the card, D=19456")
     for Q in (1, 7, 1024):
-        for Tq in (4, 20, 24, 64):
+        for Tq in (4, 20, 24, 64, 100):
             heavy, light, hidx, lidx, flags = kernel_inputs(rng, Q, Tq)
             got = rs.row_sum(heavy, light, hidx, lidx)
             want = rs.row_sum_reference(heavy, light, hidx, lidx)
@@ -270,7 +314,7 @@ def phase_row_kernels(rs):
                 raise AssertionError(f"kernel != plain at Q={Q} Tq={Tq}")
             err["row_sum"] = max(err["row_sum"], max_abs_err(got, want))
             err["row_boolean"] = max(err["row_boolean"], max_abs_err(gotb, wantb))
-        log(f"  Q={Q:5d} Tq in (4, 20, 24, 64): bit-exact")
+        log(f"  Q={Q:5d} Tq in (4, 20, 24, 64, 100): bit-exact")
     return err
 
 
@@ -325,6 +369,44 @@ def compact_inputs(rng, gen, Q, U8, Tq, D, family):
     }
 
 
+def adversarial_inputs(rng, gen, Q, U8, Tq, D):
+    """A pure-OR compact batch against the tensor cores' accumulator, as in
+    tests/test_torch_approx_bound.py: per doc one large value (row 1,
+    9-12) beside rows just under its f32 ulp (which truncate to nothing
+    once aligned with it), and rows of one equal value on a third of the
+    docs; each query draws Tq clause rows with replacement, so indicator
+    values above 1 occur, and half the queries hold row 1."""
+    big = 9.0 + 3.0 * torch.rand(D, generator=gen, device=DEVICE)
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 24)
+    bank = torch.empty((U8, D), device=DEVICE)
+    bank[0] = 0.0
+    bank[1] = big
+    half = U8 // 2
+    bank[2:half] = ulp * (1.0 - 2.0 ** -8)
+    bank[half:] = 3.0 * (torch.rand((U8 - half, D), generator=gen,
+                                    device=DEVICE) < 0.33)
+    live = (torch.rand(D, generator=gen, device=DEVICE) < 0.97).float()
+    cidx = rng.integers(1, U8, (Q, Tq)).astype(np.int32)
+    cidx[::2, 0] = 1
+    a = np.zeros((U8, Q), np.float32)
+    np.add.at(a, (cidx, np.broadcast_to(np.arange(Q)[:, None], cidx.shape)),
+              1.0)
+    dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)  # noqa: E731
+    return {"bank": bank, "bank_bf16": bank.to(torch.bfloat16), "live": live,
+            "cidx": dev(cidx), "a_sc": dev(a).to(torch.bfloat16)}
+
+
+def no_subnormals(what, *banks):
+    """The phase-1 banks hold no subnormal value (0 < |x| < 2^-126): the
+    exactness of B3's hits on the tensor cores assumes it."""
+    tiny = float(np.finfo(np.float32).tiny)
+    for bank in banks:
+        for rows in bank.split(8):
+            if bool(((rows != 0) & (rows.float().abs() < tiny)).any()):
+                raise AssertionError(f"{what}: the bank holds subnormal values")
+    log(f"    {what}: no subnormal value in the bank")
+
+
 def exact_tiles(rs, counts, b, boolean, q_chunk=128):
     """Exact per-(query, tile) maxima of the f32 clause sums (B1/B2 on the
     compact f32 rows, clause order), over matching docs for booleans
@@ -353,8 +435,8 @@ def exact_tiles(rs, counts, b, boolean, q_chunk=128):
     return torch.cat(tmaxs), torch.cat(hits)
 
 
-def check_select(name, got, want, exact, boolean):
-    """Kernel vs plain (hits, feasibility, maxima within REL_TOL), and
+def check_select(name, got, want, exact, boolean, rel_tol=REL_TOL):
+    """Kernel vs plain (hits, feasibility, maxima within rel_tol), and
     both against the exact scores (hits; tmax * (1 + eps) dominates)."""
     from diagon_tpu_torch.search.row_engine import _APPROX_RELEPS
 
@@ -362,8 +444,11 @@ def check_select(name, got, want, exact, boolean):
     if not torch.equal(hg, hw) or not torch.equal(hg.long(), he):
         raise AssertionError(f"{name}: hits differ (kernel/plain/exact)")
     scale = torch.maximum(tg.abs(), tw.abs())
-    if not bool(((tg - tw).abs() <= REL_TOL * scale).all()):
-        raise AssertionError(f"{name}: tile maxima beyond 2^-8 relative")
+    if not bool(((tg - tw).abs() <= rel_tol * scale).all()):
+        raise AssertionError(f"{name}: tile maxima beyond {rel_tol} relative")
+    if rel_tol == BF16_STEP:
+        log(f"    {name}: {int((tg != tw).sum())} of {tg.numel()} tile maxima "
+            f"one bf16 step from the plain version's")
     up = tg * float(np.float32(1.0) + _APPROX_RELEPS)
     if boolean:
         feas = te > -float("inf")
@@ -409,7 +494,7 @@ def phase_pruned_kernels(rs, ap, gr, counts):
                 boolean = family != "or"
                 e = check_select(f"{name} D={D} Q={Q} U8={U8} Tq={Tq}", got,
                                  want, exact_tiles(rs, counts, b, boolean),
-                                 boolean)
+                                 boolean, REL_TOL if boolean else BF16_STEP)
                 err[name] = max(err[name], e)
                 ms = cuda_ms(lambda: counts.uncounted(fn, *args), reps=10)
                 pms = cuda_ms(lambda: ref(*args), reps=3, warmup=1)
@@ -446,6 +531,29 @@ def phase_pruned_kernels(rs, ap, gr, counts):
                 del b, args, got, want, ct, g, w, g6
             log(f"  D={D} Q={Q} U8={U8} Tq={Tq}: sound, kernels == plain; "
                 f"ms kernel/plain: {'; '.join(line)}")
+    # B3 at its edges: U8 = MAX_ROWS, Q off the 32-query chunk, and a bank
+    # made against the tensor cores' truncating accumulator
+    for D, Q, U8, Tq, kind in ((KERNEL_D, 1, ap.MAX_ROWS, 20, "random"),
+                               (KERNEL_D, 65, ap.MAX_ROWS, 64, "random"),
+                               (KERNEL_D, 820, ap.MAX_ROWS, 20, "random"),
+                               (SCALE_D, 65, ap.MAX_ROWS, 20, "random"),
+                               (KERNEL_D, 65, ap.MAX_ROWS, 600, "adversarial"),
+                               (KERNEL_D, 820, 168, 64, "adversarial"),
+                               (SCALE_D, 1, 168, 64, "adversarial")):
+        b = (compact_inputs(rng, gen, Q, U8, Tq, D, "or") if kind == "random"
+             else adversarial_inputs(rng, gen, Q, U8, Tq, D))
+        args = (b["a_sc"], b["bank_bf16"], b["live"])
+        got = counts.uncounted(ap.approx_select, *args)
+        want = ap.approx_select_reference(*args)
+        torch.cuda.synchronize()
+        e = check_select(f"approx_select {kind} D={D} Q={Q} U8={U8} Tq={Tq}",
+                         got, want, exact_tiles(rs, counts, b, False), False,
+                         BF16_STEP)
+        err["approx_select"] = max(err["approx_select"], e)
+        ms = counts.uncounted(cuda_ms, lambda: ap.approx_select(*args), 10)
+        log(f"  B3 {kind} D={D} Q={Q} U8={U8} Tq={Tq}: sound, hits == plain "
+            f"== exact; {ms:.4f} ms")
+        del b, args, got, want
     return err
 
 
@@ -767,7 +875,8 @@ def phase_scale10(counts, smi):
     mixed 1024 over the 32 most frequent terms, query_cache off, through
     dispatch_batch + collect_many on both on-demand routes: (a) phase 1
     (B3/B5, then B6/B7), (b) use_phase0 (phase 0 and B8, then B6/B7).
-    Returns the launches of each route and B8's main-path arguments."""
+    Returns the launches of each route, B8's main-path arguments and B3's
+    (the phase-1 entry's, with its f32 rows)."""
     from diagon_tpu_torch.bench.queries import (
         frequent_terms,
         mixed_query_batch,
@@ -813,6 +922,11 @@ def phase_scale10(counts, smi):
             raise AssertionError(f"route {route} launched {wrong}")
         if route == "phase1":
             check_replay(ex, counts, plans["10M mixed 1024"])
+            # B3's own tensors at the phase-1 entry of the pure-OR subset
+            args, rows = counts.uncounted(main_path_args, ex,
+                                          plans["10M mixed 1024"])
+            b3_10m = (args["approx_select"], rows["approx_select"])
+            del args, rows
         for label, _, _ in cells:
             exhaustive[label] = pruned_equals_exhaustive(
                 ex, counts, plans[label], f"{label} {route}", True,
@@ -822,14 +936,16 @@ def phase_scale10(counts, smi):
     c = ex._compact(split[0])
     bits_args = (c.bits, c.cidx, c.cflags, c.qmode)
     # one profiled batch per route: a phase-0 batch escalates most of its
-    # queries onto B1/B2 and takes seconds
-    for route in ("phase0", "phase1"):
+    # queries onto B1/B2 and takes seconds (profiled last: the phase-1
+    # profile taken after it had no row for B3, which every phase-1 batch
+    # launches)
+    for route in ("phase1", "phase0"):
         fresh_entries(ex, route == "phase0")
         counts.uncounted(profile_route, ex, plans["10M mixed 1024"],
-                         "10M mixed 1024", route, smi, 1)
+                         "10M mixed 1024", route, smi, counts, 1)
     log(f"  10M set-up: segment build {t_build:.2f} s, device load "
         f"{t_load:.2f} s [{smi}]")
-    return launches, bits_args
+    return launches, bits_args, b3_10m
 
 
 def check_replay(ex, counts, plans):
@@ -984,13 +1100,57 @@ def library_ms(name, args):
     return None
 
 
+def three_ways(fn, n=100, reps=5):
+    """Three times of one call of ``fn``, ms: CUDA events around one call
+    (median of 20), events around n back-to-back calls divided by n (median
+    of ``reps``), and the device time of its kernels per call from
+    torch.profiler (the host's share is the gap between them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    one = cuda_ms(fn)
+    batch = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        batch.append(a.elapsed_time(b) / n)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA) / n / 1e3
+    return one, statistics.median(batch), dev
+
+
+def row_sum_split(rs, counts, args, label, smi):
+    """B1 and embedding_bag (same rows, all clauses on the heavy bank) at
+    one shape, each timed three ways."""
+    heavy, light, hidx, lidx = args
+    if not bool((hidx >= 0).all()):
+        raise AssertionError(f"{label}: embedding_bag needs heavy rows only")
+    idx = hidx.long()
+    b1 = counts.uncounted(three_ways, lambda: rs.row_sum(*args))
+    lib = three_ways(lambda: torch.nn.functional.embedding_bag(
+        idx, heavy, mode="sum"))
+    log(f"  B1 split {label}: one call / per call of 100 / kernel only: "
+        f"row_sum {b1[0]:.4f} / {b1[1]:.4f} / {b1[2]:.4f} ms, embedding_bag "
+        f"{lib[0]:.4f} / {lib[1]:.4f} / {lib[2]:.4f} ms [{smi}]")
+    return b1, lib
+
+
 def time_kernel(counts, name, fn, ref, args, exact):
     got = counts.uncounted(fn, *args)
     want = ref(*args)
     torch.cuda.synchronize()
     if exact and not bits_equal(got, want):
         raise AssertionError(f"{name} != plain on the main path's args")
-    ms = cuda_ms(lambda: counts.uncounted(fn, *args))
+    ms = counts.uncounted(cuda_ms, lambda: fn(*args))
     plain = cuda_ms(lambda: ref(*args), reps=5, warmup=1)
     rescore = name in ("gather_rescore", "union_rescore")
     shape = tuple(args[1].shape if rescore else args[0].shape)
@@ -999,15 +1159,18 @@ def time_kernel(counts, name, fn, ref, args, exact):
 
 
 def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
-                            ex1m, batches1m, bits_args):
+                            ex1m, batches1m, bits_args, b3_10m, smi):
     """Each kernel on the args the main path gives it: B1 at the deduped
     or20 plan and B2 at the mixed batch's exhaustive args (the escalation
     shape) at 19k; B4 at the 19k MUST_NOT batch; B3, B5, B6 and B7 at the
     1M mixed batch; B8 at the 10M phase-0 entry of the mixed batch's
     pure-OR subset. B3-B5 are checked as in phase 3 (hits, feasibility,
-    maxima within 2^-8, soundness against B1/B2 on the compact rows); B6
-    and B7 bit for bit against their plain versions and each other; B8
-    exactly. Returns each kernel's times, error, bound and library time."""
+    maxima within 2^-8, soundness against B1/B2 on the compact rows), and
+    B3 again on the 10M phase-1 entry's own tensors (``b3_10m``); B6 and B7
+    bit for bit against their plain versions and each other; B8 exactly.
+    B1 and embedding_bag are split three ways (one call, per call of 100,
+    kernel only) at the main path's args and at Q 1024, Tq 20. Returns each
+    kernel's times, error, bound and library time."""
     from diagon_tpu_torch.search.row_engine import _flags
 
     log("phase 6: kernels vs plain on the main path's tensors")
@@ -1024,6 +1187,16 @@ def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
     ):
         out[name] = time_kernel(counts, name, fn, ref, args, True)[:3]
         at[name] = args
+    heavy, light, hidx, lidx, _ = kernel_inputs(np.random.default_rng(6), 1024,
+                                                20)
+    hidx = hidx.abs()  # every clause on the heavy bank, as embedding_bag needs
+    got = counts.uncounted(rs.row_sum, heavy, light, hidx, lidx)
+    if not bits_equal(got, rs.row_sum_reference(heavy, light, hidx, lidx)):
+        raise AssertionError("row_sum != plain at Q 1024, Tq 20")
+    row_sum_split(rs, counts, at["row_sum"], "main path (Q 1, Tq 20)", smi)
+    row_sum_split(rs, counts, (heavy, light, hidx, lidx), "Q 1024, Tq 20",
+                  smi)
+    del heavy, light, hidx, lidx, got
     neg_args, neg_rows = main_path_args(ex19, batches19["MUST_NOT 1024"])
     mixed_args, mixed_rows = main_path_args(ex1m, batches1m["1M mixed 1024"])
     for name, args, rows in (
@@ -1036,10 +1209,26 @@ def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
             args[name], False)
         boolean = name != "approx_select"
         e = check_select(f"main-path {name}", got, want,
-                         exact_tiles(rs, counts, rows[name], boolean), boolean)
+                         exact_tiles(rs, counts, rows[name], boolean), boolean,
+                         REL_TOL if boolean else BF16_STEP)
         out[name] = (ms, plain, e)
         at[name] = args[name]
         log("    sound, hits and feasibility == plain and exact")
+        if name == "approx_select":
+            no_subnormals("1M pure-OR entry", rows[name]["bank"], args[name][1])
+    name = "approx_select"
+    args10, rows10 = b3_10m
+    no_subnormals("10M phase-1 pure-OR entry", rows10["bank"], args10[1])
+    ms, plain, _, got, want = time_kernel(counts, name, ap.approx_select,
+                                          ap.approx_select_reference, args10,
+                                          False)
+    e = check_select("main-path approx_select 10M", got, want,
+                     exact_tiles(rs, counts, rows10, False), False, BF16_STEP)
+    b_ms, b_by = kernel_bound(name, args10)
+    log(f"    10M phase-1 entry: sound, hits == plain == exact; {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms by {b_by} [{smi}]")
+    out[name] = out[name][:2] + (max(out[name][2], e),)
+    del got, want
     for name in ("gather_rescore", "union_rescore"):
         ms, plain, e, got, _ = time_kernel(
             counts, name, getattr(gr, name), getattr(gr, name + "_reference"),
@@ -1098,9 +1287,10 @@ def served_both_routes(searcher, batch, label, reps, smi):
         f"({len(batch) / med['exhaustive']:.1f} qps) [{smi}]")
 
 
-def profile_route(ex, plans, label, route, smi, n=5):
+def profile_route(ex, plans, label, route, smi, counts, n=5):
     """torch.profiler over n batches of dispatch + finalize on one route:
-    wall, device time by kernel, and the busy share."""
+    wall, device time by kernel, and the busy share; and the port kernels
+    launched inside the profiled window, by their counters."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
@@ -1114,11 +1304,14 @@ def profile_route(ex, plans, label, route, smi, n=5):
         run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n
+    before = counts.read()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             run()
         torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in counts.read().items()
+                if v > before[k]}
     # device-side events only: an aten op's row repeats its kernels' time
     # (self_device_time_total is in us)
     rows = [e for e in prof.key_averages()
@@ -1127,7 +1320,7 @@ def profile_route(ex, plans, label, route, smi, n=5):
     total = sum(e.self_device_time_total for e in rows) / n / 1e3
     log(f"  {label} {route}: wall {wall * 1e3:.3f} ms/batch (dispatch + "
         f"finalize), device {total:.3f} ms/batch, busy "
-        f"{100 * total / (wall * 1e3):.1f}% [{smi}]")
+        f"{100 * total / (wall * 1e3):.1f}% [{smi}]; launched {launched}")
     rows.sort(key=lambda e: -e.self_device_time_total)
     # the top rows, then the port's own kernels further down
     for i, e in enumerate(rows):
@@ -1147,7 +1340,8 @@ def phase_routes(cells, counts, smi):
         counts.uncounted(served_both_routes, searcher, batch, label,
                          10 if "1M" not in label else 3, smi)
         for route in ("pruned", "exhaustive"):
-            counts.uncounted(profile_route, ex, plans, label, route, smi)
+            counts.uncounted(profile_route, ex, plans, label, route, smi,
+                             counts)
 
 
 def main():
@@ -1173,11 +1367,12 @@ def main():
     err.update(phase_bits_kernel(bh, counts))
     searcher19, batches19, sent19, launches19 = phase_serve(counts, smi)
     searcher1m, batches1m, sent1m, launches1m = phase_scale(counts, smi)
-    launches10, bits_args = phase_scale10(counts, smi)
+    launches10, bits_args, b3_10m = phase_scale10(counts, smi)
     ex1m = searcher1m._ctx("body").row_executors[0]
     times = phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19,
-                                    batches19, ex1m, batches1m, bits_args)
-    del bits_args
+                                    batches19, ex1m, batches1m, bits_args,
+                                    b3_10m, smi)
+    del bits_args, b3_10m
     phase_routes([
         ("mixed 1024", searcher19, sent19["mixed 1024"],
          batches19["mixed 1024"]),

@@ -25,26 +25,51 @@
 // where some doc of the tile matches, else -1. The counts are sums of small
 // integers below 2^24, so they and the hit counts are exact in any order.
 //
-// Layout. Each indicator column holds at most Tq nonzeros while U8 may be
-// hundreds, so a first kernel compacts every role matrix into per-query lists
-// of (row, value) in ascending row order, and the select kernel sums only the
-// listed rows (adding an exact zero product changes no f32 sum). A block of 8
-// warps owns one 128-doc tile and a slice of the queries: it stages the
-// tile's [U8, 128] bf16 slab in shared memory once, then each warp walks its
-// own queries (q = warp, warp + 8, ...) with no further barrier. A lane owns
-// 4 neighbouring docs, so each list entry feeds 4 independent f32 adds from
-// one 8-byte shared read, and per query the warp reduces its tile with 5
-// shuffles (max) and one integer reduction (match count), written by lane 0.
-// Each warp writes the tile's max and match count per query; a last kernel
-// sums the per-tile counts of each query in a fixed order, so hits are
-// deterministic without atomics.
+// B3 on the tensor cores (approx_or_mma_kernel). The TPU kernel is a dense
+// bf16 product on the MXU, and so is this one: P = A x B with A = a_t^T
+// ([Q, U8], the indicator) and B = the bank ([U8, docs]), bf16 in, f32 sums
+// in registers. On the CUDA cores (the list design of B4/B5 below) B3 spent
+// one __fmul_rn and one __fadd_rn per (query, list entry, doc), ~1.65e10 of
+// each at the 1M main-path shape, and the issue rate of the f32 pipes bounded
+// it at about 1 ms whatever the schedule; the dense product is 2 Q U8 D ~
+// 2.9e11 bf16 operations there, 0.3 ms at the tensor-core peak. The bank is
+// read from HBM once in either design.
+//   - Persistent blocks of one warpgroup (4 per SM) walk the 128-doc tiles;
+//     grid.y splits the queries where the tiles alone leave SMs idle. A
+//     block copies its tile's [U8, 128] bf16 slab into shared memory
+//     (cp.async) in wgmma's 128-byte-swizzled docs-major layout, K padded to
+//     a multiple of 16 with zero-filled rows (uninitialised padding times a
+//     zero indicator could be NaN).
+//   - Per 64-query chunk the warpgroup runs the k-steps as asynchronous
+//     wgmma.m64n128k16 batches: A from registers (warp w holds the m16k16
+//     fragments of rows 16w..16w+15, one 16-byte load each from a copy that
+//     pack_indicator_kernel lays out in fragment order; rows past Q and
+//     columns past U8 are zero), loaded one batch ahead; B through a
+//     shared-memory descriptor. The 64 x 128 sums stay in 64 registers a
+//     thread.
+//   - Epilogue in registers on packed bf16 pairs: a max tree, then two
+//     xor-shuffles over the 4 lanes of a row; the 0/1 match pairs
+//     (set.gt.bf16x2) are counted against the live docs by one mma.sync per
+//     16 docs. tmax is rounded once to bf16 (rounding is monotone, so the max
+//     of the rounded sums is the rounded max); the counts go to hits with
+//     one integer atomicAdd per (block, query), exact in any order.
+// The tensor core may align a k-group of products to its largest exponent
+// and truncate; ops/approx_pass.py derives the bound of _APPROX_RELEPS for
+// that arithmetic. Every product is >= 0, so p > 0 iff some product is > 0
+// and the hit counts stay exact.
 //
-// Bound: at 1M docs, Q = 1024, Tq = 20 the select reads the bf16 bank once
-// (U8 * D * 2 bytes, ~340 MB at U8 = 168) and performs Q * Tq * D
-// multiply-adds, one shared read per 4 of them: the latency of the list
-// loads and the issue rate of the adds bound it, not HBM. Tensor-core MMA
-// over the dense indicator matrix, and staging the lists in shared memory,
-// are later work.
+// B4 and B5 use the list design. Each indicator column holds at most
+// Tq nonzeros while U8 may be hundreds, so a first kernel compacts every
+// role matrix into per-query lists of (row, value) in ascending row order,
+// and the select kernel sums only the listed rows (adding an exact zero
+// product changes no f32 sum). A block of 8 warps owns one 128-doc tile and
+// a slice of the queries: it stages the tile's [U8, 128] bf16 slab in
+// shared memory once, then each warp walks its own queries (q = warp,
+// warp + 8, ...) with no further barrier. A lane owns 4 neighbouring docs,
+// so each list entry feeds 4 independent f32 adds from one 8-byte shared
+// read, and per query the warp reduces its tile with 5 shuffles (max) and
+// one integer reduction (match count), written by lane 0. The issue rate of
+// the f32 adds and the latency of the list loads bound it, not HBM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +83,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 264;  // 2 blocks per SM on a 132-SM card
 constexpr int kMaxGridY = 65535;
 
-enum Mode { kOr = 0, kBool = 1, kBool2 = 2 };
+enum Mode { kBool = 1, kBool2 = 2 };
 
 struct Lists {
   const int32_t* idx;  // [Q, U8] row of the j-th nonzero of column q
@@ -146,31 +171,26 @@ __global__ void __launch_bounds__(kThreads) approx_select_kernel(
       float ap[4];
       list_dot4(l0, q, U8, s_bank, lane, false, ap);
       bool match[4];
-      if (MODE == kOr) {
+      const float nreq = __ldg(params + q);
+      const float msm = __ldg(params + Q + q);
+      if (MODE == kBool) {
+        float rc[4], oc[4], nc[4];
+        list_dot4(l1, q, U8, s_bank, lane, true, rc);
+        list_dot4(l2, q, U8, s_bank, lane, true, oc);
+        list_dot4(l3, q, U8, s_bank, lane, true, nc);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) match[i] = ap[i] > 0.f && alive[i];
+        for (int i = 0; i < 4; ++i) {
+          match[i] = rc[i] == nreq && oc[i] >= msm && nc[i] == 0.f &&
+                     __fadd_rn(rc[i], oc[i]) > 0.f && alive[i];
+        }
       } else {
-        const float nreq = __ldg(params + q);
-        const float msm = __ldg(params + Q + q);
-        if (MODE == kBool) {
-          float rc[4], oc[4], nc[4];
-          list_dot4(l1, q, U8, s_bank, lane, true, rc);
-          list_dot4(l2, q, U8, s_bank, lane, true, oc);
-          list_dot4(l3, q, U8, s_bank, lane, true, nc);
+        float cc[4];
+        list_dot4(l1, q, U8, s_bank, lane, true, cc);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            match[i] = rc[i] == nreq && oc[i] >= msm && nc[i] == 0.f &&
-                       __fadd_rn(rc[i], oc[i]) > 0.f && alive[i];
-          }
-        } else {
-          float cc[4];
-          list_dot4(l1, q, U8, s_bank, lane, true, cc);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float rc = floorf(__fmul_rn(cc[i], 1.0f / 256.0f));
-            const float oc = __fsub_rn(cc[i], __fmul_rn(rc, 256.0f));
-            match[i] = rc == nreq && oc >= msm && cc[i] > 0.f && alive[i];
-          }
+        for (int i = 0; i < 4; ++i) {
+          const float rc = floorf(__fmul_rn(cc[i], 1.0f / 256.0f));
+          const float oc = __fsub_rn(cc[i], __fmul_rn(rc, 256.0f));
+          match[i] = rc == nreq && oc >= msm && cc[i] > 0.f && alive[i];
         }
       }
       float mx = fmaxf(fmaxf(ap[0], ap[1]), fmaxf(ap[2], ap[3]));
@@ -180,14 +200,8 @@ __global__ void __launch_bounds__(kThreads) approx_select_kernel(
       }
       c = __reduce_add_sync(0xffffffffu, c);
       if (lane == 0) {
-        float out;
-        if (MODE == kOr) {
-          out = __bfloat162float(__float2bfloat16_rn(mx));
-        } else {
-          out = c > 0 ? mx : -1.f;
-        }
         const int64_t o = (int64_t)q * S + g;
-        tmax[o] = out;
+        tmax[o] = c > 0 ? mx : -1.f;
         tcnt[o] = c;
       }
     }
@@ -211,6 +225,336 @@ __global__ void __launch_bounds__(256) hits_kernel(
     }
     if (threadIdx.x == 0) hits[q] = part[0];
     __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B3: the pure-OR select on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 128;  // one warpgroup per block
+constexpr int kWgBlocks = 528;  // persistent blocks: 4 per SM of a 132-SM card
+constexpr int kChunkQ = 64;  // queries per chunk: the warpgroup's M = 64
+constexpr int kGroup = 4;  // k-steps per batch of asynchronous MMAs
+constexpr int kMaxChunksPerBlock = 32;  // 2,048 queries' counts, 8 KB
+constexpr int64_t kMaxSmem = 232448;  // a block's dynamic shared memory, max
+constexpr int kNFrags = kLane / 8;  // 16 column groups of 8 docs per tile
+constexpr int kAtomBytes = 1024;  // 8 rows x 64 docs, 128-byte swizzle
+constexpr int kKGroupBytes = 2 * kAtomBytes;  // 8 rows of the tile
+static_assert(kWgThreads == kLane, "a thread stages one doc's live flag");
+
+// The m16k16 A fragments (row-major, 16 queries x 16 rows) in the order the
+// kernel loads them: packed[(m * KS + ks) * 32 + lane] holds lane's four
+// registers of fragment (m, ks). With g = lane / 4, t = lane % 4 and
+// A(q, k) = a_t[k, q] (zero past Q or U8), the registers are
+// (A(g, 2t), A(g, 2t+1)), (A(g+8, 2t), ..), (A(g, 2t+8), ..),
+// (A(g+8, 2t+8), ..), each pair low half first, q and k relative to the
+// fragment's origin (16 m, 16 ks). Warp w of the warpgroup takes fragment
+// m = 4 * chunk + w.
+__global__ void pack_indicator_kernel(const __nv_bfloat16* __restrict__ a_t,
+                                      int U8, int Q, int MF, int KS,
+                                      uint4* __restrict__ packed) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)MF * KS * 32) return;
+  const int lane = (int)(i & 31);
+  const int64_t f = i >> 5;
+  const int m = (int)(f / KS), ks = (int)(f % KS);
+  const int g = lane >> 2, t = lane & 3;
+  const unsigned short* raw = reinterpret_cast<const unsigned short*>(a_t);
+  auto at = [&](int q, int k) -> uint32_t {
+    return (q < Q && k < U8) ? raw[(int64_t)k * Q + q] : 0u;
+  };
+  auto pair = [&](int q, int k) -> uint32_t {
+    return at(q, k) | (at(q, k + 1) << 16);
+  };
+  const int q0 = 16 * m + g, k0 = 16 * ks + 2 * t;
+  packed[i] = make_uint4(pair(q0, k0), pair(q0 + 8, k0), pair(q0, k0 + 8),
+                         pair(q0 + 8, k0 + 8));
+}
+
+// d (+)= A x B for 64 queries x 128 docs x 16 rows on the tensor cores
+// (wgmma, asynchronous): A from registers (lane's m16k16 A fragment, warp w
+// of the warpgroup holding rows 16w..16w+15), B = the staged tile through
+// its shared-memory descriptor, docs-major (transposed); with accumulate = 0
+// the sums start from zero.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint4& a,
+                                                 uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(desc_b), "r"(accumulate));
+}
+
+// c (+)= A x B for one m16n8k16 (the match counts of the epilogue).
+template <bool kZero = false>
+__device__ __forceinline__ void mma_bf16(float c[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  if (kZero) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1),
+          "f"(0.f));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+  }
+}
+
+// Keeps the compiler from moving reads or writes of r across the
+// asynchronous MMAs (it sees them only where they are issued).
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void fence_operand(uint4& r) {
+  asm volatile("" : "+r"(r.x), "+r"(r.y), "+r"(r.z), "+r"(r.w)::"memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0,
+                                                  uint32_t& r1, uint32_t& r2,
+                                                  uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// (x.lo > 0, x.hi > 0) as a bf16 pair of 1.0 or 0.0
+__device__ __forceinline__ uint32_t positive2(__nv_bfloat162 x) {
+  uint32_t y;
+  asm("set.gt.bf16x2.bf16x2 %0, %1, %2;"
+      : "=r"(y)
+      : "r"(*reinterpret_cast<uint32_t*>(&x)), "r"(0u));
+  return y;
+}
+
+// Byte offset of 16-byte chunk c (docs 8c..8c+7) of row k of the staged
+// tile, in the canonical 128-byte-swizzled layout of a docs-major wgmma
+// operand: atoms of 8 rows x 64 docs (1 KB, 1 KB aligned) whose row r holds
+// its 16-byte chunks XOR-ed with r; two atoms along the docs, then the next
+// 8 rows. The swizzle spreads the 8 rows of a chunk over all banks.
+__device__ __forceinline__ uint32_t core_offset(int k, int c) {
+  return (uint32_t)((k / 8) * kKGroupBytes + (c / 8) * kAtomBytes +
+                    (k % 8) * 128 + (((c % 8) ^ (k % 8)) * 16));
+}
+
+// Copies tile `tile` of the bank ([U8, 128] bf16) into the buffer at shared
+// address s_buf with cp.async, as one commit group.
+__device__ __forceinline__ void stage_tile(uint32_t s_buf,
+                                           const __nv_bfloat16* bank,
+                                           int64_t tile, int U8, int64_t D) {
+  const char* src = reinterpret_cast<const char*>(bank + tile * kLane);
+  for (int i = threadIdx.x; i < U8 * 16; i += kWgThreads) {
+    const int k = i >> 4, c = i & 15;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(s_buf + core_offset(k, c)),
+                    "l"(src + (int64_t)k * D * 2 + c * 16));
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Persistent: block (x, y), one warpgroup, walks tiles x, x + gridDim.x, ...
+// (neighbouring blocks read neighbouring tiles of every bank row together)
+// for the 64-query chunks [y * chunks_per_y, ...). Per tile it stages the
+// bank tile in shared memory, then per chunk runs the KS k-steps as
+// asynchronous wgmma batches of kGroup (the A fragments of the next batch
+// load while a batch runs), and reduces the 64 x 128 sums in registers:
+// tmax[q, tile] = bf16(max over the tile's docs of P[q, d]); #(P[q, d] > 0
+// && live[d]) adds to the block's count of q in shared memory, which goes to
+// hits[q] (zeroed by the launcher) with one integer atomicAdd when the block
+// ends: exact in any order.
+//
+// The epilogue stays on packed bf16 pairs: rounding to nearest is monotone,
+// so the max of the rounded sums is the rounded max. A sum is > 0 iff its
+// bf16 rounding is (no sum is subnormal), and set.gt.bf16x2 maps each pair
+// of rounded sums to 0 or 1 in one instruction; those 0/1 pairs form an
+// m16k16 A fragment (the sums of two neighbouring 8-doc groups), and one
+// mma.sync per 16 docs against the live docs (a B fragment of 0/1 from
+// shared memory) counts the matches per query, exact as a sum of at most
+// 128 ones.
+//
+// Dynamic shared memory: the tile, KS * 16 rows x 256 bytes (core_offset);
+// the tile's live docs as 128 rows of 8 equal bf16 (2 KB); chunks_per_y * 64
+// counts.
+__global__ void __launch_bounds__(kWgThreads) approx_or_mma_kernel(
+    const __nv_bfloat16* __restrict__ bank, const float* __restrict__ live,
+    const uint4* __restrict__ packed, float* __restrict__ tmax,
+    int32_t* __restrict__ hits, int U8, int Q, int KS, int chunks_per_y,
+    int64_t D) {
+  extern __shared__ __align__(1024) unsigned char s_mem[];
+  const uint32_t s_tile = (uint32_t)__cvta_generic_to_shared(s_mem);
+  const int tile_bytes = KS * 16 * kLane * 2;
+  unsigned char* s_live = s_mem + tile_bytes;
+  const uint32_t s_live_addr = s_tile + tile_bytes;
+  int32_t* s_cnt = reinterpret_cast<int32_t*>(s_live + kLane * 16);
+  const int64_t S = D / kLane;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int chunks = (Q + kChunkQ - 1) / kChunkQ;
+  const int c_begin = (int)blockIdx.y * chunks_per_y;
+  const int c_end = min(chunks, c_begin + chunks_per_y);
+
+  int64_t tile = blockIdx.x;
+  stage_tile(s_tile, bank, tile, U8, D);
+  // counts, and the zero rows that pad K to KS * 16
+  for (int i = threadIdx.x; i < chunks_per_y * kChunkQ; i += kWgThreads) {
+    s_cnt[i] = 0;
+  }
+  for (int i = U8 * 16 + threadIdx.x; i < KS * 16 * 16; i += kWgThreads) {
+    *reinterpret_cast<uint4*>(s_mem + core_offset(i >> 4, i & 15)) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  // B descriptor of k-step 0 (cute's GmmaDescriptor): start address,
+  // leading byte offset (the two 64-doc atoms), stride byte offset (8-row
+  // groups), all in 16-byte units; layout 1 = 128-byte swizzle, which needs
+  // the tile 1 KB aligned (the kernel has no static shared memory, so the
+  // dynamic one starts aligned: checked). k-step ks starts 2 ks row groups on.
+  if (s_tile & (kAtomBytes - 1)) __trap();
+  const uint64_t desc0 = (uint64_t)((s_tile >> 4) & 0x3fff) |
+                         ((uint64_t)(kAtomBytes >> 4) << 16) |
+                         ((uint64_t)(kKGroupBytes >> 4) << 32) | (1ull << 62);
+  const uint64_t desc_step = (uint64_t)(2 * kKGroupBytes) >> 4;
+
+  // the warp's A fragments of a tile: (chunk, k-step) in order, the same
+  // stream for every tile; each batch loads the next batch's fragments
+  auto frag = [&](int ch, int ks) {
+    return packed + ((int64_t)(4 * ch + warp) * KS + ks) * 32 + lane;
+  };
+  uint4 a[kGroup], n[kGroup];
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    a[i] = (c_begin < c_end && i < KS) ? __ldg(frag(c_begin, i))
+                                       : make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  for (; tile < S; tile += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    // live docs of the tile: row d holds 8 copies of live[d] as bf16 0 or 1
+    {
+      const uint32_t v = __ldg(live + tile * kLane + threadIdx.x) > 0.f
+                             ? 0x3f803f80u : 0u;
+      *reinterpret_cast<uint4*>(s_live + threadIdx.x * 16) =
+          make_uint4(v, v, v, v);
+    }
+    // the tile and the zero rows were written by the generic proxy; wgmma
+    // reads them through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+
+    for (int ch = c_begin; ch < c_end; ++ch) {
+      float acc[64];
+      for (int kb = 0; kb < KS; kb += kGroup) {
+        // the next batch of this stream: later k-steps, the next chunk, or
+        // the first chunk again for the next tile
+        int nch = ch, nkb = kb + kGroup;
+        if (nkb >= KS) {
+          nkb = 0;
+          nch = ch + 1 < c_end ? ch + 1 : c_begin;
+        }
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) fence_operand(a[i]);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          if (kb + i < KS) {
+            wgmma_m64n128k16(acc, a[i], desc0 + (kb + i) * desc_step,
+                             kb + i > 0);
+          }
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          n[i] = nkb + i < KS ? __ldg(frag(nch, nkb + i)) : a[i];
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          fence_operand(a[i]);
+          a[i] = n[i];
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+      }
+      // rows g and g + 8 of the warp's 16; docs 8j + 2t + {0, 1} in
+      // acc[4j + {0, 1}] (row g) and acc[4j + {2, 3}] (row g + 8)
+      float cnt[4];
+      __nv_bfloat162 mx[2];  // row g, row g + 8
+      uint32_t l0, l1, l2, l3;  // live docs of 32 docs: B fragments of 16
+#pragma unroll
+      for (int J = 0; J < kNFrags / 2; ++J) {  // 16 docs: groups 2J, 2J+1
+        if (J % 2 == 0) {
+          ldmatrix_x4_trans(s_live_addr + (32 * (J / 2) + lane) * 16, l0, l1,
+                            l2, l3);
+        }
+        const float* lo = acc + 4 * (2 * J);
+        const float* hi = acc + 4 * (2 * J + 1);
+        const __nv_bfloat162 p0 = __floats2bfloat162_rn(lo[0], lo[1]);
+        const __nv_bfloat162 p1 = __floats2bfloat162_rn(lo[2], lo[3]);
+        const __nv_bfloat162 p2 = __floats2bfloat162_rn(hi[0], hi[1]);
+        const __nv_bfloat162 p3 = __floats2bfloat162_rn(hi[2], hi[3]);
+        const __nv_bfloat162 top_g = __hmax2(p0, p2);
+        const __nv_bfloat162 top_g8 = __hmax2(p1, p3);
+        mx[0] = J == 0 ? top_g : __hmax2(mx[0], top_g);
+        mx[1] = J == 0 ? top_g8 : __hmax2(mx[1], top_g8);
+        const uint4 y = make_uint4(positive2(p0), positive2(p1),
+                                   positive2(p2), positive2(p3));
+        const uint32_t lb0 = (J % 2 == 0) ? l0 : l2;
+        const uint32_t lb1 = (J % 2 == 0) ? l1 : l3;
+        if (J == 0) {
+          mma_bf16<true>(cnt, y, lb0, lb1);
+        } else {
+          mma_bf16<false>(cnt, y, lb0, lb1);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float top = __bfloat162float(__hmax(mx[r].x, mx[r].y));
+        top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, 1));
+        top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, 2));
+        const int qc = 16 * warp + 8 * r + g;  // row of the chunk
+        const int q = ch * kChunkQ + qc;
+        if (t == 0 && q < Q) {
+          tmax[(int64_t)q * S + tile] = top;  // a bf16 value already
+          s_cnt[(ch - c_begin) * kChunkQ + qc] +=
+              __float2int_rn(cnt[2 * r]);  // one thread per q
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the tile and s_live
+    if (tile + gridDim.x < S) {
+      stage_tile(s_tile, bank, tile + gridDim.x, U8, D);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < (c_end - c_begin) * kChunkQ; i += kWgThreads) {
+    const int q = c_begin * kChunkQ + i;
+    if (q < Q && s_cnt[i] != 0) atomicAdd(hits + q, s_cnt[i]);
   }
 }
 
@@ -253,32 +597,78 @@ int launch(const void* const* mats, int n_mats, const void* bank,
   return (int)cudaGetLastError();
 }
 
+int launch_or_mma(const void* a_t, const void* bank, const float* live,
+                  uint4* packed, float* tmax, int32_t* hits, int U8, int Q,
+                  int64_t D, cudaStream_t stream) {
+  const int KS = (U8 + 15) / 16;
+  const int chunks = (Q + kChunkQ - 1) / kChunkQ;
+  const int64_t n_packed = (int64_t)4 * chunks * KS * 32;
+  pack_indicator_kernel<<<(unsigned)((n_packed + 255) / 256), 256, 0,
+                          stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(a_t), U8, Q, 4 * chunks, KS,
+      packed);
+  cudaError_t err = cudaMemsetAsync(hits, 0, (size_t)Q * sizeof(int32_t),
+                                    stream);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t S = D / kLane;
+  // split the chunks over grid.y when the tiles alone leave SMs idle, or
+  // when the block's counts would not fit beside the tile
+  const size_t tile_bytes = (size_t)KS * 16 * kLane * sizeof(__nv_bfloat16);
+  int64_t cap = (kMaxSmem - (int64_t)tile_bytes - kLane * 16) / (kChunkQ * 4);
+  if (cap < 1) return (int)cudaErrorInvalidValue;
+  if (cap > kMaxChunksPerBlock) cap = kMaxChunksPerBlock;
+  int64_t ys = (kWgBlocks + S - 1) / S;
+  if (ys > chunks) ys = chunks;
+  const int64_t min_ys = (chunks + cap - 1) / cap;
+  if (ys < min_ys) ys = min_ys;
+  if (ys > kMaxGridY) ys = kMaxGridY;
+  const int chunks_per_y = (int)((chunks + ys - 1) / ys);
+  const size_t smem =
+      tile_bytes + kLane * 16 + (size_t)chunks_per_y * kChunkQ * 4;
+  err = cudaFuncSetAttribute(approx_or_mma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(S < kWgBlocks ? S : kWgBlocks), (unsigned)ys);
+  approx_or_mma_kernel<<<grid, kWgThreads, smem, stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(bank), live, packed, tmax, hits,
+      U8, Q, KS, chunks_per_y, D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Launchers: plain C interface for ctypes, one signature for all three. Each
-// runs on the given stream, allocates nothing and returns cudaGetLastError()
-// (0 = launched).
+// Launchers: plain C interface for ctypes. Each runs on the given stream,
+// allocates nothing and returns cudaGetLastError() (0 = launched).
 //
 // Preconditions, checked by the Python wrapper: all tensors contiguous on one
-// device; a0..a3 bf16 [U8, Q] (B3 reads a0; B5 reads a0 = a_sc, a1 = a_cb; B4
-// reads a0..a3 = a_sc, a_rq, a_sh, a_ng; unused ones may be null); bank bf16
-// [U8, D], 16-byte aligned; params f32 [8, Q] (rows 0 num_required, 1
-// min_should; null for B3); live f32 [D]; scratch idx i32 and val f32
-// [R, Q, U8], cnt i32 [R, Q] (R = matrices read); outputs tmax f32 [Q, D/128],
-// tcnt i32 [Q, D/128] (per-tile match counts), hits i32 [Q];
-// 8 <= U8 <= 896, U8 % 8 == 0, D % 128 == 0, Q >= 1.
+// device; bank bf16 [U8, D], 16-byte aligned; live f32 [D], 16-byte aligned;
+// outputs tmax f32 [Q, D/128], hits i32 [Q]; 8 <= U8 <= 896, U8 % 8 == 0,
+// D % 128 == 0, Q >= 1.
+
+// B3: a_t bf16 [U8, Q]; scratch packed: 4 * ceil(Q / 64) * ceil(U8 / 16) * 32
+// uint4 (16-byte aligned), the indicator in fragment order; hits is zeroed
+// here and summed with atomics (no tcnt).
+extern "C" int diagon_approx_select(const void* a_t, const void* bank,
+                                    const float* live, void* packed,
+                                    float* tmax, int32_t* hits, int U8, int Q,
+                                    int64_t D, cudaStream_t stream) {
+  return launch_or_mma(a_t, bank, live, reinterpret_cast<uint4*>(packed),
+                       tmax, hits, U8, Q, D, stream);
+}
+
+// B4 and B5, one signature: a0..a3 bf16 [U8, Q] (B5 reads a0 = a_sc, a1 =
+// a_cb; B4 reads a0..a3 = a_sc, a_rq, a_sh, a_ng; unused ones may be null);
+// params f32 [8, Q] (rows 0 num_required, 1 min_should); scratch idx i32
+// and val f32 [R, Q, U8], cnt i32 [R, Q] (R = matrices read); tcnt i32
+// [Q, D/128] (per-tile match counts, summed in a fixed order by
+// hits_kernel).
 
 #define DIAGON_APPROX_ARGS                                                   \
   const void *a0, const void *a1, const void *a2, const void *a3,            \
       const void *bank, const float *params, const float *live, int32_t *idx, \
       float *val, int32_t *cnt, float *tmax, int32_t *tcnt, int32_t *hits,   \
       int U8, int Q, int64_t D, cudaStream_t stream
-
-extern "C" int diagon_approx_select(DIAGON_APPROX_ARGS) {
-  const void* mats[4] = {a0, a1, a2, a3};
-  return launch<kOr>(mats, 1, bank, params, live, idx, val, cnt, tmax, tcnt,
-                     hits, U8, Q, D, stream);
-}
 
 extern "C" int diagon_approx_select_bool(DIAGON_APPROX_ARGS) {
   const void* mats[4] = {a0, a1, a2, a3};

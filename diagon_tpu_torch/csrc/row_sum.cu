@@ -20,25 +20,39 @@
 //
 // Layout. A block owns one query and a span of docs; a thread owns 4
 // consecutive docs read and written as float4 (D % 1024 == 0, so every row
-// starts 16-byte aligned). The block reads its own clause indices; nothing
-// carries between blocks, so no atomics. grid.y strides over queries so any
-// Q fits the 65535 limit on gridDim.y.
+// starts 16-byte aligned). Nothing carries between blocks, so no atomics.
+// grid.y strides over queries so any Q fits the 65535 limit on gridDim.y.
 //
 // Bound: bytes. The kernel reads Q*Tq*D*4 bytes of rows and writes Q*D*4
 // (x4 for the boolean kernel) with one add per element read. The heavy bank
 // is shared across queries, so at serving sizes (tens of MB) the repeated
-// row reads of a batch hit the 50 MB L2 rather than HBM. A simple, correct
-// kernel first: tiling several queries per block to reuse rows from shared
-// memory, and fusing the match mask and the per-tile max into the epilogue,
-// are later work.
+// row reads of a batch hit the 50 MB L2 rather than HBM.
+//
+// B1's design for this card. On the main path B1 mostly runs one query over
+// a 19,456-doc axis (an or20 plan): 1.6 MB of row reads, a few microseconds
+// of memory time, so what bounds it is latency and how much of the card it
+// fills, not bandwidth. Three things follow:
+//   - the block stages its query's clause indices once, resolved to row
+//     pointers in shared memory (one coalesced read; no thread re-reads an
+//     index from global memory before each row load);
+//   - a thread issues the row loads of kGroup clauses back to back, then
+//     adds them in clause order, so up to kGroup independent 16-byte loads
+//     are in flight instead of one;
+//   - the caller picks the block size from Q * D and the SM count
+//     (ops/row_sum.py launch_geometry): 32-thread blocks at Q = 1 spread the
+//     4,864 float4 columns over 152 blocks, where 256-thread blocks gave 19.
+// B2 keeps the first layout (a 256-thread block, one dependent load per
+// clause): it runs at Q = 1024, where the grid already fills the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // B2's block; B1's largest
 constexpr int kMaxGridY = 65535;
+constexpr int kStage = 64;  // B1: clause row pointers staged per pass
+constexpr int kGroup = 8;   // B1: row loads in flight per thread
 
 __device__ __forceinline__ const float4* clause_row(
     const float* __restrict__ heavy, const float* __restrict__ light,
@@ -61,20 +75,45 @@ __device__ __forceinline__ float4 select4(bool on, float4 v) {
   return on ? v : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+// Any blockDim.x in {32, 64, 128, 256}; every thread reaches every barrier.
 __global__ void __launch_bounds__(kThreads) row_sum_kernel(
     const float* __restrict__ heavy, const float* __restrict__ light,
     const int32_t* __restrict__ hidx, const int32_t* __restrict__ lidx,
     float* __restrict__ out, int Q, int Tq, int64_t D) {
-  const int64_t d4 = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (d4 * 4 >= D) return;
+  __shared__ const float4* s_row[kStage];
+  const int64_t d4 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = d4 * 4 < D;
   for (int q = blockIdx.y; q < Q; q += gridDim.y) {
     const int32_t* hq = hidx + (int64_t)q * Tq;
     const int32_t* lq = lidx + (int64_t)q * Tq;
-    float4 acc = __ldg(clause_row(heavy, light, hq[0], lq[0], D) + d4);
-    for (int t = 1; t < Tq; ++t) {
-      acc = add4(acc, __ldg(clause_row(heavy, light, hq[t], lq[t], D) + d4));
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    bool first = true;  // clause 0 is copied, not added to a zero
+    for (int t0 = 0; t0 < Tq; t0 += kStage) {
+      const int n = min(kStage, Tq - t0);
+      __syncthreads();  // the previous pass has read its pointers
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        s_row[i] = clause_row(heavy, light, hq[t0 + i], lq[t0 + i], D);
+      }
+      __syncthreads();
+      if (!active) continue;
+      int i = 0;
+      for (; i + kGroup <= n; i += kGroup) {
+        float4 r[kGroup];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) r[j] = __ldg(s_row[i + j] + d4);
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          acc = first ? r[j] : add4(acc, r[j]);
+          first = false;
+        }
+      }
+      for (; i < n; ++i) {
+        const float4 r = __ldg(s_row[i] + d4);
+        acc = first ? r : add4(acc, r);
+        first = false;
+      }
     }
-    reinterpret_cast<float4*>(out + (int64_t)q * D)[d4] = acc;
+    if (active) reinterpret_cast<float4*>(out + (int64_t)q * D)[d4] = acc;
   }
 }
 
@@ -130,12 +169,19 @@ dim3 grid_for(int Q, int64_t D) {
 // [Q, Tq]; D % 1024 == 0; Q >= 1, Tq >= 1. Index values are the caller's
 // contract: -1 <= hidx < H and 0 <= lidx < L.
 
+// threads: B1's block size, 32, 64, 128 or 256 (ops/row_sum.py
+// launch_geometry); any other value is refused with cudaErrorInvalidValue.
 extern "C" int diagon_row_sum(const float* heavy, const float* light,
                               const int32_t* hidx, const int32_t* lidx,
                               float* out, int Q, int Tq, int64_t D,
-                              cudaStream_t stream) {
-  row_sum_kernel<<<grid_for(Q, D), kThreads, 0, stream>>>(
-      heavy, light, hidx, lidx, out, Q, Tq, D);
+                              int threads, cudaStream_t stream) {
+  if (threads != 32 && threads != 64 && threads != 128 && threads != 256) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((unsigned)(D / 4 / threads),
+                  (unsigned)(Q < kMaxGridY ? Q : kMaxGridY));
+  row_sum_kernel<<<grid, threads, 0, stream>>>(heavy, light, hidx, lidx, out,
+                                               Q, Tq, D);
   return (int)cudaGetLastError();
 }
 

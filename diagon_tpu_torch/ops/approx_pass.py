@@ -15,29 +15,50 @@ rows; each indicator matrix [U8, Q] (bf16) counts how often query q uses
 row u in one role. Hits, the per-doc counts and so the feasibility of a
 tile (-1 or not) are exact in every version: they are sums of small
 integers. The tile maxima are an approximation and differ between
-versions by the order of the f32 adds (and, for B3, by one bf16 rounding
-of the result).
+versions by the order of the f32 adds; B3's kernel sums on the tensor
+cores and rounds each tile max once to bf16, so it and its plain version
+may land on neighbouring bf16 values.
 
 Why ``_APPROX_RELEPS`` = 2^-7 still bounds the error of this arithmetic
 (``row_engine._APPROX_RELEPS``; the caller inflates every tile max by
 ``1 + _APPROX_RELEPS`` and needs it to dominate the exact f32 score of
 every doc of the tile). Let a doc's clause contributions be c_t >= 0
-(with multiplicity, at most T <= U8 terms) and S their exact real sum;
-u = 2^-24 is the f32 unit roundoff.
+(with multiplicity, at most T <= MAX_ROWS = 896 terms) and S their exact
+real sum; u = 2^-24 is the f32 unit roundoff.
 
 - The oracle's score is an f32 sum of the c_t: s <= S (1 + (T-1) u).
 - The bank holds bf16(c_t) >= c_t (1 - 2^-9) (round to nearest even,
-  8 significant bits). Each product with an integer indicator value is
-  exact in f32, and the kernels add the nonnegative products in f32, so
-  the product p >= S (1 - 2^-9) (1 - (T-1) u).
+  8 significant bits). Each product with a small integer indicator value
+  is exact in f32; at most T of them are nonzero.
+- B4, B5 and the plain versions add the nonnegative products in IEEE f32:
+  p >= S (1 - 2^-9) (1 - (T-1) u), whatever the order of the adds.
+- B3 adds them on the tensor cores (``mma.sync`` bf16 -> f32), whose
+  accumulator is not IEEE. Take it at its worst: per k-group of products
+  (k undocumented; 8, 16 or 32), it aligns the group's terms and the
+  running sum to the largest exponent among them, truncates each to 24
+  bits at that exponent, adds exactly, and truncates the sum to 24 bits.
+  Every term is >= 0, so each truncation loses less than 2^-23 of the
+  group's exact sum; a zero term loses nothing, and a group of zero
+  products passes the sum through unchanged. A group with m nonzero
+  products keeps more than (1 - (m + 2) 2^-23) of its exact sum (m
+  products, the running sum, the result), and over the G groups that
+  hold a nonzero product, G <= min(T, ceil(U8 / k)):
+  p >= S (1 - 2^-9) (1 - delta), delta = (T + 2 G) 2^-23. At T = U8 = 896
+  delta < 2^-12.8 for k = 8 and < 2^-11.6 even for k = 1 (G = T).
 - B3 rounds its tile max once more to bf16: tmax >= p (1 - 2^-9) for the
   doc of the tile with the largest score; B4/B5 keep the f32 max.
 
-So s / tmax <= (1 + (T-1) u) / ((1 - 2^-9)^2 (1 - (T-1) u)), which for
-T <= 896 is below 1 + 2^-8 + 2^-12 < 1 + 2^-7: the bound holds with a
-margin of almost 2x, whatever order the f32 adds take (the plain
-versions use ``torch.matmul``, the kernels add in ascending row order).
-Tensor-core MMA, which may truncate, would need the derivation again.
+So s / tmax <= (1 + (T-1) u) / ((1 - 2^-9)^2 (1 - delta))
+(``tile_error_bound``), which for T <= 896 is below 1 + 2^-8 + 2^-11
+< 1 + 2^-7 for any k (1 + 2^-7.93 at k = 8): the bound holds with a
+margin of 1.8x. The f32 IEEE sums take delta = (T-1) u and give
+1 + 2^-8 + 2^-12. ``tests/test_torch_approx_bound.py`` emulates the
+truncating accumulator on adversarial inputs and pins this bound.
+
+Hits stay exact on the tensor cores too: a sum of terms >= 0 that holds
+one positive normal term is at least that term after any truncation, so
+p > 0 iff some product is > 0, which is when the f32 score is > 0 (the
+bank holds no subnormal values; ``chip_smoke.py`` checks its banks).
 """
 
 from __future__ import annotations
@@ -48,9 +69,24 @@ from diagon_tpu_torch.ops import _build
 
 LANE = 128  # docs per tile
 MAX_ROWS = 896  # the kernels stage a [U8, 128] bf16 tile in shared memory
+MMA_CHUNK_Q = 64  # B3: queries per warpgroup chunk (the wgmma M)
+MMA_K = 16  # B3: rows per MMA k-step; U8 pads to a multiple with zero rows
 # [Q, chunk] f32 temporaries of the plain versions stay under this many
 # elements (the card holds them next to the banks at 1M docs)
 _PLAIN_CHUNK_ELEMS = 1 << 26
+
+
+def tile_error_bound(T: int = MAX_ROWS, U8: int = MAX_ROWS, k: int = 8,
+                     mma: bool = True) -> float:
+    """The module docstring's closed form: the largest s / tmax - 1 for a
+    doc of T clause terms, with the tensor cores' truncating k-group
+    accumulator (``mma``) or IEEE f32 adds."""
+    u = 2.0 ** -24
+    if mma:
+        delta = (T + 2 * min(T, -(-U8 // k))) * 2.0 ** -23
+    else:
+        delta = (T - 1) * u
+    return (1 + (T - 1) * u) / ((1 - 2.0 ** -9) ** 2 * (1 - delta)) - 1
 
 
 def _check(mats: dict, bank, live, params=None):
@@ -186,15 +222,35 @@ def _launch(name, mats, bank, params, live, U8, Q, D):
     return tmax, hits
 
 
+def packed_indicator_shape(U8: int, Q: int):
+    """B3's scratch: the indicator in MMA fragment order, int32
+    [4 * ceil(Q / 64) * ceil(U8 / 16) * 32, 4] (one 16-byte row per lane
+    and 16 x 16 fragment; csrc/approx_pass.cu pack_indicator_kernel)."""
+    chunks = -(-Q // MMA_CHUNK_Q)
+    return (4 * chunks * -(-U8 // MMA_K) * 32, 4)
+
+
 def approx_select(a_t, bank, live):
     """B3, pure-OR phase 1: (tile max f32 [Q, D/128] rounded once to bf16,
     hits i32 [Q]); a doc matches iff its product is positive and live."""
     U8, Q, D = _check({"a_t": a_t}, bank, live)
     if bank.device.type == "cpu":
         return approx_select_reference(a_t, bank, live)
-    out = _launch("diagon_approx_select", [a_t], bank, None, live, U8, Q, D)
+    dev = bank.device
+    S = D // LANE
+    packed = torch.empty(packed_indicator_shape(U8, Q), dtype=torch.int32,
+                         device=dev)
+    tmax = torch.empty((Q, S), dtype=torch.float32, device=dev)
+    hits = torch.empty(Q, dtype=torch.int32, device=dev)
+    rc = _build.library().diagon_approx_select(
+        a_t.data_ptr(), bank.data_ptr(), live.data_ptr(), packed.data_ptr(),
+        tmax.data_ptr(), hits.data_ptr(), U8, Q, D,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"diagon_approx_select launch failed: cudaError {rc}")
     approx_select.launches += 1
-    return out
+    return tmax, hits
 
 
 def approx_select_bool(a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank, params_t,

@@ -15,15 +15,67 @@ bit-identical to the JAX scan, the Pallas kernel and the oracle.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from diagon_tpu_torch.ops import _build
 
 TILE = 1024  # D must be a multiple of this (float4 rows, 16-byte aligned)
+MAX_GRID_Y = 65535
+_BLOCKS = (256, 128, 64, 32)  # B1's block sizes, largest first
+_F32, _I32 = torch.float32, torch.int32
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(Q: int, D: int, sms: int):
+    """B1's (threads per block, blocks along docs, blocks along queries):
+    the largest block that still puts two blocks on every SM, else the
+    smallest. A thread owns one float4 column (D / 4 of them); grid.y
+    strides over queries past MAX_GRID_Y."""
+    cols, gy = D // 4, min(Q, MAX_GRID_Y)
+    for threads in _BLOCKS:
+        if (cols // threads) * gy >= 2 * sms:
+            break
+    return threads, cols // threads, gy
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(heavy, light, hidx, lidx, flags=None):
-    """Raise on anything the kernels do not take; returns (Q, Tq, D)."""
+    """Raise on anything the kernels do not take; returns (Q, Tq, D). One
+    pass over the cheap attributes; only a refused call pays for
+    ``_diagnose``, which names the fault."""
+    shape = hidx.shape
+    dev = heavy.device
+    if (
+        heavy.dtype == _F32 and light.dtype == _F32
+        and hidx.dtype == _I32 and lidx.dtype == _I32
+        and heavy.dim() == 2 and light.dim() == 2 and len(shape) == 2
+        and lidx.shape == shape
+        and heavy.is_contiguous() and light.is_contiguous()
+        and hidx.is_contiguous() and lidx.is_contiguous()
+        and dev.type in ("cpu", "cuda") and light.device == dev
+        and hidx.device == dev and lidx.device == dev
+        and (flags is None or (flags.dtype == _I32 and flags.shape == shape
+                               and flags.is_contiguous()
+                               and flags.device == dev))
+    ):
+        D = heavy.shape[1]
+        Q, Tq = shape
+        if (light.shape[1] == D and D > 0 and D % TILE == 0
+                and heavy.shape[0] >= 1 and light.shape[0] >= 1
+                and Q >= 1 and Tq >= 1):
+            return Q, Tq, D
+    _diagnose(heavy, light, hidx, lidx, flags)
+    raise ValueError("row sums refused their inputs")  # _diagnose raises first
+
+
+def _diagnose(heavy, light, hidx, lidx, flags):
+    """Raise the error that names what the kernels do not take."""
     tensors = {"heavy": heavy, "light": light, "hidx": hidx, "lidx": lidx}
     if flags is not None:
         tensors["flags"] = flags
@@ -53,7 +105,6 @@ def _check(heavy, light, hidx, lidx, flags=None):
             raise ValueError(f"{name} shape {tuple(t.shape)} != {(Q, Tq)}")
     if Q < 1 or Tq < 1:
         raise ValueError(f"need at least one query and one clause, got {(Q, Tq)}")
-    return Q, Tq, D
 
 
 def _clause_rows(heavy, light, hidx_t, lidx_t):
@@ -99,15 +150,24 @@ def _launch_args(heavy, light, hidx, lidx):
             lidx.data_ptr()), stream
 
 
+_row_sum_fn = None  # the launcher, looked up once
+
+
 def row_sum(heavy, light, hidx, lidx):
     """B1: scores f32 [Q, D] = sum over clauses of the selected rows."""
+    global _row_sum_fn
     Q, Tq, D = _check(heavy, light, hidx, lidx)
-    if heavy.device.type == "cpu":
+    if not heavy.is_cuda:
         return row_sum_reference(heavy, light, hidx, lidx)
-    out = torch.empty((Q, D), dtype=torch.float32, device=heavy.device)
-    ptrs, stream = _launch_args(heavy, light, hidx, lidx)
-    rc = _build.library().diagon_row_sum(
-        *ptrs, out.data_ptr(), Q, Tq, D, stream
+    if _row_sum_fn is None:
+        _row_sum_fn = _build.library().diagon_row_sum
+    index = heavy.get_device()
+    threads = launch_geometry(Q, D, _sm_count(index))[0]
+    out = heavy.new_empty((Q, D))
+    rc = _row_sum_fn(
+        heavy.data_ptr(), light.data_ptr(), hidx.data_ptr(), lidx.data_ptr(),
+        out.data_ptr(), Q, Tq, D, threads,
+        torch._C._cuda_getCurrentRawStream(index),
     )
     if rc != 0:
         raise RuntimeError(f"diagon_row_sum launch failed: cudaError {rc}")

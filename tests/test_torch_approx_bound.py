@@ -1,0 +1,148 @@
+"""The phase-1 bound _APPROX_RELEPS = 2^-7 under tensor-core accumulation.
+
+B3 (``approx_select``) sums its bf16 products on the tensor cores, whose f32
+accumulator may align a k-group of products to the largest exponent among
+them and truncate. This file emulates that accumulator at its worst, in
+numpy, on adversarial inputs made from a seed, and holds it to the closed
+form of ``diagon_tpu_torch/ops/approx_pass.py``'s docstring:
+
+- bf16(tile max of the emulated sums) * (1 + 2^-7) dominates every doc's
+  exact f32 score, summed in clause order as the oracle sums it;
+- every doc with a positive term has a positive emulated sum (exact hits);
+- the emulated loss stays within the docstring's delta, and the closed
+  form stays below 2^-7.
+"""
+
+import numpy as np
+import pytest
+
+from diagon_tpu_torch.ops.approx_pass import MAX_ROWS, tile_error_bound
+from diagon_tpu_torch.search.row_engine import _APPROX_RELEPS
+
+EPS = 2.0 ** -7
+DOCS = 128  # one tile
+
+
+def bf16(x):
+    """f32 -> bf16 (round to nearest even) -> f32, as the caller's cast."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return b.astype(np.uint32).view(np.float32)
+
+
+def trunc24(x, e):
+    """Truncate x >= 0 (f64) to multiples of 2^(e - 23), elementwise."""
+    q = np.ldexp(1.0, e - 23)
+    return np.floor(x / q) * q
+
+
+def exponent(x):
+    """floor(log2(x)) for x > 0; 0 where x == 0 (unused there)."""
+    return np.frexp(x)[1] - 1
+
+
+def truncating_sum(products, k):
+    """The worst accumulator of the docstring over [docs, T] products
+    (f64, exact values of f32 products), in groups of k along T: each
+    group's terms and the running sum align to their largest exponent and
+    truncate to 24 bits there, add exactly, and the sum truncates to 24
+    bits."""
+    acc = np.zeros(products.shape[0])
+    for g0 in range(0, products.shape[1], k):
+        terms = np.concatenate([acc[:, None], products[:, g0:g0 + k]], axis=1)
+        top = terms.max(axis=1)
+        on = top > 0
+        e = np.where(on, exponent(np.where(on, top, 1.0)), 0)
+        s = trunc24(terms, e[:, None]).sum(axis=1)
+        e2 = np.where(s > 0, exponent(np.where(s > 0, s, 1.0)), 0)
+        acc = np.where(on, trunc24(s, e2), acc)
+    return acc
+
+
+def clause_order_f32(c, reps):
+    """The oracle's score: c[:, t] added reps[t] times, t ascending, in f32
+    (the first clause copied)."""
+    s = None
+    for t in range(c.shape[1]):
+        for _ in range(int(reps[t])):
+            s = c[:, t].copy() if s is None else (s + c[:, t]).astype(np.float32)
+    return s
+
+
+def adversarial(case, rng, T):
+    """(c f32 [DOCS, T] clause contributions, reps int [T] indicator values)."""
+    reps = np.ones(T, np.int64)
+    if case == "big_then_sub_ulp":
+        # one large term, the rest just under its f32 ulp: each truncates
+        # to nothing once aligned with the large one, in any group
+        big = np.float32(rng.uniform(1.0, 2.0)) * np.float32(2.0 ** rng.integers(-4, 5))
+        ulp = np.ldexp(1.0, int(exponent(np.float64(big))) - 23)
+        c = np.full((DOCS, T), np.float32(ulp * (1 - 2.0 ** -8)), np.float32)
+        c[rng.integers(0, T, DOCS)[:, None] == np.arange(T)] = big
+    elif case == "equal":
+        c = np.full((DOCS, T), np.float32(rng.uniform(0.5, 12.0)), np.float32)
+    elif case == "wide_range":
+        c = (rng.uniform(1.0, 2.0, (DOCS, T))
+             * 2.0 ** rng.integers(-20, 4, (DOCS, T))).astype(np.float32)
+    elif case == "multiplicity":
+        c = rng.uniform(0.1, 12.0, (DOCS, T)).astype(np.float32)
+        reps = rng.integers(1, 9, T)
+    elif case == "sparse_docs":
+        c = rng.uniform(0.1, 12.0, (DOCS, T)).astype(np.float32)
+        c *= rng.random((DOCS, T)) < 0.05
+        c[:8] = 0.0  # docs with no term at all
+        reps = rng.integers(1, 4, T)
+    else:
+        raise ValueError(case)
+    return c, reps
+
+
+CASES = ["big_then_sub_ulp", "equal", "wide_range", "multiplicity",
+         "sparse_docs"]
+
+
+@pytest.mark.parametrize("k", [8, 16, 32])
+@pytest.mark.parametrize("T", [20, 168, MAX_ROWS])
+@pytest.mark.parametrize("case", CASES)
+def test_truncating_accumulator_keeps_the_bound(case, T, k):
+    rng = np.random.default_rng([20261016, CASES.index(case), T, k])
+    c, reps = adversarial(case, rng, T)
+    b = bf16(c).astype(np.float64)
+    products = b * reps  # exact: bf16 x small integer
+    p = truncating_sum(products, k)
+    exact = products.sum(axis=1)  # f64: exact at these magnitudes
+    # the loss is within the docstring's delta for this doc's terms
+    nnz = (products > 0).sum(axis=1)
+    groups = np.array([
+        sum(bool((row[g:g + k] > 0).any()) for g in range(0, T, k))
+        for row in products])
+    delta = (nnz + 2 * groups) * 2.0 ** -23
+    assert (p <= exact).all()
+    assert (p >= exact * (1 - delta)).all()
+    # exact hits: positive iff some term is positive
+    np.testing.assert_array_equal(p > 0, (products > 0).any(axis=1))
+    # the inflated tile max dominates every doc's oracle score
+    tmax = bf16(np.float32(p.max()))
+    s = clause_order_f32(c, reps)
+    up = np.float32(tmax) * (np.float32(1.0) + np.float32(EPS))
+    assert (up >= s).all(), (float(up), float(s.max()))
+
+
+def test_sub_ulp_terms_really_truncate():
+    """The emulation loses what the docstring charges: 895 terms just under
+    the ulp of one large term vanish from the sum."""
+    products = np.zeros((1, MAX_ROWS))
+    products[0, 0] = 1.0
+    products[0, 1:] = 2.0 ** -23 * (1 - 2.0 ** -8)
+    p = truncating_sum(products, 8)
+    assert p[0] == 1.0 and products.sum() > 1.0 + 2.0 ** -14
+
+
+@pytest.mark.parametrize("k", [1, 8, 16, 32])
+def test_closed_form_stays_below_eps(k):
+    assert float(_APPROX_RELEPS) == EPS
+    mma = tile_error_bound(MAX_ROWS, MAX_ROWS, k)
+    ieee = tile_error_bound(MAX_ROWS, MAX_ROWS, k, mma=False)
+    assert ieee < mma < 2.0 ** -8 + 2.0 ** -11 < EPS
+    if k == 8:
+        assert mma < 2.0 ** -7.9

@@ -1,6 +1,8 @@
 """Kernels B1/B2 of diagon_tpu_torch against the JAX package's Pallas
 kernels (interpret mode), bit for bit, and the wrappers' CPU contract."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -124,3 +126,39 @@ def test_kernels_match_plain_versions_on_the_card(shape):
                        rs.row_sum_reference(*args[:4]).view(torch.int32))
     for g, w in zip(rs.row_boolean(*args), rs.row_boolean_reference(*args)):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("Q, D, want", [
+    (1, 19456, 32),        # the main path's or20 plan: 152 blocks
+    (7, 19456, 128),
+    (1024, 19456, 256),
+    (1, 1003520, 256),
+    (70000, 1024, 256),    # grid.y capped, strided in the kernel
+])
+def test_launch_geometry_fills_the_card(Q, D, want):
+    threads, bx, gy = rs.launch_geometry(Q, D, 132)
+    assert threads == want
+    assert threads * bx * 4 == D  # one float4 column per thread, all covered
+    assert gy == min(Q, rs.MAX_GRID_Y)
+    assert bx * gy >= 2 * 132 or threads == 32
+
+
+@pytest.mark.parametrize("case", [
+    "f64_bank", "i64_index", "ragged_docs", "non_contiguous",
+    "shape_mismatch", "light_width", "no_clauses", "flags_shape",
+])
+def test_fast_check_raises_what_the_diagnosis_names(case):
+    heavy, light, hidx, lidx, flags = _bad_inputs(case)
+    with pytest.raises((ValueError, TypeError)) as diag:
+        rs._diagnose(heavy, light, hidx, lidx, flags)
+    with pytest.raises(diag.type, match=re.escape(str(diag.value))):
+        rs._check(heavy, light, hidx, lidx, flags)
+
+
+def test_check_refuses_other_devices_and_passes_good_inputs():
+    heavy, light, hidx, lidx, flags = _torch(*_inputs(2, 4, 1024, 3, 2))
+    assert rs._check(heavy, light, hidx, lidx) == (2, 4, 1024)
+    assert rs._check(heavy, light, hidx, lidx, flags) == (2, 4, 1024)
+    with pytest.raises(ValueError):
+        rs._check(heavy.to("meta"), light.to("meta"), hidx.to("meta"),
+                  lidx.to("meta"))
