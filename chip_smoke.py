@@ -12,11 +12,13 @@ script exits non-zero), in the order they run:
 
 1. Device: card name and power limit; build the CUDA kernels from
    ``diagon_tpu_torch/csrc`` (one nvcc per source, all at once) and time
-   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1 or
-   B3.
+   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1, B2,
+   B3 or B5.
 2. Kernels B1 (row_sum) and B2 (row_boolean) against their plain PyTorch
-   versions on the card, bit for bit (D = 19,456; Q in {1, 7, 1024};
-   Tq in {4, 20, 24, 64, 100}; B1 stages 64 clauses per pass).
+   versions on the card, bit for bit (D = 19,456; Q in {1, 3, 7, 19,
+   1024}; Tq in {4, 20, 24, 64, 100}; both stage 64 clauses per pass), and
+   at D = 1,003,520 with Q in {1, 3, 19}, Tq 20: the block sizes the
+   wrappers pick for few queries over a long doc axis.
 3. Kernels B3-B5 (approx_select, _bool, _bool2), B6 (gather_rescore)
    and B7 (union_rescore) against their plain versions at the main
    path's shapes (D in {19,456, 1,003,520}; Q in {1, 8, 820, 1024}; U8 in
@@ -30,7 +32,11 @@ script exits non-zero), in the order they run:
    edges, held the same way against plain and exact: U8 = 896 (MAX_ROWS),
    Q in {1, 65, 820} (off its 32-query chunk), and banks built against a
    truncating accumulator (one large value per doc beside rows just under
-   its ulp, indicator values above 1). Then B8 (bits_hits) exactly equal to
+   its ulp, indicator values above 1). B5 (tensor cores) at its edges too:
+   U8 = 896, Q in {1, 65, 820}, and queries of 64 required and 64 should
+   clauses (the largest counts its combined count product carries) with
+   min_should up to 64 on a dense bank, hits and feasibility equal to plain
+   and exact. Then B8 (bits_hits) exactly equal to
    its plain version at D in {19,456, 10,002,432} x (Q, U8, Tq) in
    {(1, 40, 20), (820, 40, 20), (200, 40, 4), (1024, 512, 4)}, every mode
    word, dead queries and queries without a required clause included.
@@ -54,15 +60,18 @@ script exits non-zero), in the order they run:
    0, B8, then B6/B7): the kernels each route must launch (B8 on (b)
    only), 3-4 queries oracle-exact, pruned finalize equal to the
    exhaustive finalize (B1/B2 on the batch's on-demand heavy rows) over
-   each whole batch, escalations, served qps (median of 3 batches),
+   each whole batch, escalations, served qps (median of 3 batches; one
+   batch on the phase-0 route, where a batch takes seconds),
    first-batch time (entry builds included), segment build and device
    load seconds; a query_cache replay returns the same bits and skips
    phase 1; a torch.profiler pass over each route of the mixed batch.
 6. On the very tensors the main path hands each kernel: B3-B5 checked
-   as in phase 3 (hits, feasibility, soundness against B1/B2; B3 at the
-   1M mixed batch and at the 10M phase-1 entry, whose banks must hold no
-   subnormal value), B6/B7 bit for bit, B8 exactly (the 10M phase-0
-   entry's own bitmaps), and kernel and plain times (CUDA events); each
+   as in phase 3 (hits, feasibility, soundness against B1/B2; B3 and B5
+   at the 1M mixed batch and at the 10M phase-1 entries of its two
+   subsets, whose banks must hold no subnormal value), B2 bit for bit also
+   on the queries the 10M mixed batch escalates, B6/B7 bit for bit, B8
+   exactly (the 10M phase-0 entry's own bitmaps), and kernel and plain
+   times (CUDA events); each
    kernel's bound (the least time for its work on the card) and the time
    of one PyTorch call computing the same function where there is one.
    B1 and embedding_bag are timed three ways at Q 1, Tq 20 (the main
@@ -74,7 +83,9 @@ script exits non-zero), in the order they run:
    exhaustive, pruned; the exhaustive route is the same dispatch with
    the pruning floor raised past the segment), then a torch.profiler
    pass over each route: device time by kernel and the card's busy
-   share.
+   share. A profiled window that launched no B4 must hold neither of B4's
+   list kernels (compact_lists_kernel, hits_kernel): B3 and B5 run without
+   them.
 
 Launch counters are set to 0 just before each main-path phase (4, 5, and
 each route of 8) and read just after it; comparisons with plain versions
@@ -121,12 +132,15 @@ BF16_STEP = 2.0 ** -7
 DEVICE = torch.device("cuda")
 # the kernels of diagon_tpu_torch/csrc, by function name (profile rows)
 PORT_KERNELS = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
-                "pack_indicator_kernel", "approx_select_kernel",
-                "compact_lists_kernel", "hits_kernel", "gather_rescore_kernel",
-                "union_rescore_kernel", "bits_hits_kernel")
-# B1's and B3's kernels: ptxas must report no spill for them
-NO_SPILL = ("row_sum_kernel", "approx_or_mma_kernel", "pack_indicator_kernel",
-            "hits_kernel")
+                "approx_bool2_mma_kernel", "pack_indicator_kernel",
+                "approx_select_kernel", "compact_lists_kernel", "hits_kernel",
+                "gather_rescore_kernel", "union_rescore_kernel",
+                "bits_hits_kernel")
+# B4's helper kernels: a batch without MUST_NOT must launch neither
+LIST_KERNELS = ("compact_lists_kernel", "hits_kernel")
+# the kernels of B1, B2, B3 and B5: ptxas must report no spill for them
+NO_SPILL = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
+            "approx_bool2_mma_kernel", "pack_indicator_kernel", "hits_kernel")
 # the card's published peaks (H100 SXM datasheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F32 = 67e12  # f32 outside the tensor cores; taken for 32-bit int ops too
@@ -292,8 +306,8 @@ def phase_device():
                              f"on every kernel of {NO_SPILL}")
     spilled = {f: n for f, n in checked.items() if n != (0, 0)}
     if spilled:
-        raise AssertionError(f"ptxas spills in B1/B3 kernels: {spilled}")
-    log(f"  ptxas: no spill in {len(checked)} B1/B3 kernel(s)")
+        raise AssertionError(f"ptxas spills in B1/B2/B3/B5 kernels: {spilled}")
+    log(f"  ptxas: no spill in {len(checked)} B1/B2/B3/B5 kernel(s)")
     return smi
 
 
@@ -301,20 +315,29 @@ def phase_row_kernels(rs):
     """B1/B2 against their plain versions over the main path's shapes."""
     rng = np.random.default_rng(20261016)
     err = {"row_sum": 0.0, "row_boolean": 0.0}
-    log("phase 2: B1/B2 vs plain versions on the card, D=19456")
-    for Q in (1, 7, 1024):
+    log("phase 2: B1/B2 vs plain versions on the card")
+
+    def check(Q, Tq, **kw):
+        heavy, light, hidx, lidx, flags = kernel_inputs(rng, Q, Tq, **kw)
+        got = rs.row_sum(heavy, light, hidx, lidx)
+        want = rs.row_sum_reference(heavy, light, hidx, lidx)
+        gotb = rs.row_boolean(heavy, light, hidx, lidx, flags)
+        wantb = rs.row_boolean_reference(heavy, light, hidx, lidx, flags)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want) or not bits_equal(gotb, wantb):
+            raise AssertionError(f"kernel != plain at Q={Q} Tq={Tq} {kw}")
+        err["row_sum"] = max(err["row_sum"], max_abs_err(got, want))
+        err["row_boolean"] = max(err["row_boolean"], max_abs_err(gotb, wantb))
+        return cuda_ms(lambda: rs.row_boolean(heavy, light, hidx, lidx, flags),
+                       reps=10)
+
+    for Q in (1, 3, 7, 19, 1024):
         for Tq in (4, 20, 24, 64, 100):
-            heavy, light, hidx, lidx, flags = kernel_inputs(rng, Q, Tq)
-            got = rs.row_sum(heavy, light, hidx, lidx)
-            want = rs.row_sum_reference(heavy, light, hidx, lidx)
-            gotb = rs.row_boolean(heavy, light, hidx, lidx, flags)
-            wantb = rs.row_boolean_reference(heavy, light, hidx, lidx, flags)
-            torch.cuda.synchronize()
-            if not bits_equal(got, want) or not bits_equal(gotb, wantb):
-                raise AssertionError(f"kernel != plain at Q={Q} Tq={Tq}")
-            err["row_sum"] = max(err["row_sum"], max_abs_err(got, want))
-            err["row_boolean"] = max(err["row_boolean"], max_abs_err(gotb, wantb))
-        log(f"  Q={Q:5d} Tq in (4, 20, 24, 64, 100): bit-exact")
+            check(Q, Tq)
+        log(f"  D={KERNEL_D} Q={Q:5d} Tq in (4, 20, 24, 64, 100): bit-exact")
+    for Q in (1, 3, 19):
+        ms = check(Q, 20, D=SCALE_D, H=24, L=5)
+        log(f"  D={SCALE_D} Q={Q:5d} Tq=20: bit-exact; B2 {ms:.4f} ms")
     return err
 
 
@@ -345,6 +368,15 @@ def compact_inputs(rng, gen, Q, U8, Tq, D, family):
     else:
         roles = rng.integers(0, 4 if family == "bool" else 3, (Q, Tq))
         roles[0] = FILTER
+    return compact_batch(bank, live, cidx, roles)
+
+
+def compact_batch(bank, live, cidx, roles, min_should=None):
+    """The tensors of a compact batch from its bank, clause rows and roles:
+    flags, params (min_should: 1 for a query without a required clause,
+    else 0, unless given) and the indicator matrices of
+    ``RowExecutor._build_compact``."""
+    U8, Q = bank.shape[0], cidx.shape[0]
     a = {r: np.zeros((U8, Q), np.float32) for r in ("sc", "rq", "sh", "ng")}
     qgrid = np.broadcast_to(np.arange(Q)[:, None], cidx.shape)
     sc = (roles == MUST) | (roles == SHOULD)
@@ -355,7 +387,8 @@ def compact_inputs(rng, gen, Q, U8, Tq, D, family):
         np.add.at(a[r], (cidx[m], qgrid[m]), 1.0)
     params = np.zeros((8, Q), np.float32)
     params[0] = rq.sum(axis=1)
-    params[1] = np.where(params[0] > 0, 0.0, 1.0)
+    params[1] = (np.where(params[0] > 0, 0.0, 1.0) if min_should is None
+                 else min_should)
     flags = (sc.astype(np.int32) + 2 * rq + 4 * (roles == SHOULD)
              + 8 * (roles == MUST_NOT)).astype(np.int32)
     dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)  # noqa: E731
@@ -396,6 +429,24 @@ def adversarial_inputs(rng, gen, Q, U8, Tq, D):
             "cidx": dev(cidx), "a_sc": dev(a).to(torch.bfloat16)}
 
 
+def adversarial_bool2_inputs(rng, gen, Q, U8, D):
+    """A no-MUST_NOT compact batch at the largest counts B5's combined
+    product carries: every query holds 64 required clauses (MUST and FILTER
+    in turn) and 64 should clauses on 128 distinct rows, so cc reaches 64 *
+    256 + 64, with min_should 0, 1, 60 or 64 by query; the bank is dense
+    (2% zeros), so docs that hold all 64 required rows exist."""
+    bank = 0.05 + 12.0 * torch.rand((U8, D), generator=gen, device=DEVICE)
+    bank *= torch.rand((U8, D), generator=gen, device=DEVICE) < 0.98
+    bank[0] = 0.0
+    live = (torch.rand(D, generator=gen, device=DEVICE) < 0.97).float()
+    cidx = np.stack([rng.choice(np.arange(1, U8), 128, replace=False)
+                     for _ in range(Q)]).astype(np.int32)
+    roles = np.empty((Q, 128), np.int64)
+    roles[:, 0:64:2], roles[:, 1:64:2], roles[:, 64:] = MUST, FILTER, SHOULD
+    min_should = np.array([0.0, 1.0, 60.0, 64.0], np.float32)[np.arange(Q) % 4]
+    return compact_batch(bank, live, cidx, roles, min_should)
+
+
 def no_subnormals(what, *banks):
     """The phase-1 banks hold no subnormal value (0 < |x| < 2^-126): the
     exactness of B3's hits on the tensor cores assumes it."""
@@ -407,11 +458,13 @@ def no_subnormals(what, *banks):
     log(f"    {what}: no subnormal value in the bank")
 
 
-def exact_tiles(rs, counts, b, boolean, q_chunk=128):
+def exact_tiles(rs, counts, b, boolean):
     """Exact per-(query, tile) maxima of the f32 clause sums (B1/B2 on the
     compact f32 rows, clause order), over matching docs for booleans
-    (-inf where none matches), and the exact hit counts."""
+    (-inf where none matches), and the exact hit counts; in query chunks
+    that keep B2's four planes under 8 GiB."""
     U8, D = b["bank"].shape
+    q_chunk = min(128, max(1, (1 << 29) // D)) if boolean else 128
     zero = torch.zeros((1, D), device=DEVICE)
     Q = b["cidx"].shape[0]
     tmaxs, hits = [], []
@@ -553,6 +606,34 @@ def phase_pruned_kernels(rs, ap, gr, counts):
         ms = counts.uncounted(cuda_ms, lambda: ap.approx_select(*args), 10)
         log(f"  B3 {kind} D={D} Q={Q} U8={U8} Tq={Tq}: sound, hits == plain "
             f"== exact; {ms:.4f} ms")
+        del b, args, got, want
+    # B5 at its edges: U8 = MAX_ROWS (one tile buffer, the indicators left
+    # in global memory), Q off the 16-query fragment, and the largest counts
+    for D, Q, U8, Tq, kind in ((KERNEL_D, 1, ap.MAX_ROWS, 20, "random"),
+                               (KERNEL_D, 65, ap.MAX_ROWS, 64, "random"),
+                               (KERNEL_D, 820, ap.MAX_ROWS, 20, "random"),
+                               (SCALE_D, 65, ap.MAX_ROWS, 20, "random"),
+                               (KERNEL_D, 65, ap.MAX_ROWS, 128, "adversarial"),
+                               (KERNEL_D, 820, 168, 128, "adversarial"),
+                               (SCALE_D, 8, 168, 128, "adversarial")):
+        b = (compact_inputs(rng, gen, Q, U8, Tq, D, "bool2")
+             if kind == "random"
+             else adversarial_bool2_inputs(rng, gen, Q, U8, D))
+        args = (b["a_sc"], b["a_cb"], b["bank_bf16"], b["params"], b["live"])
+        got = counts.uncounted(ap.approx_select_bool2, *args)
+        want = ap.approx_select_bool2_reference(*args)
+        torch.cuda.synchronize()
+        name = f"approx_select_bool2 {kind} D={D} Q={Q} U8={U8} Tq={Tq}"
+        e = check_select(name, got, want, exact_tiles(rs, counts, b, True),
+                         True)
+        if kind == "adversarial" and int(got[1].sum()) == 0:
+            raise AssertionError(f"{name}: no doc matches, the check is empty")
+        err["approx_select_bool2"] = max(err["approx_select_bool2"], e)
+        ms = counts.uncounted(cuda_ms, lambda: ap.approx_select_bool2(*args),
+                              10)
+        log(f"  B5 {kind} D={D} Q={Q} U8={U8} Tq={Tq}: sound, hits and "
+            f"feasibility == plain == exact ({int(got[1].sum())} hits); "
+            f"{ms:.4f} ms")
         del b, args, got, want
     return err
 
@@ -875,8 +956,10 @@ def phase_scale10(counts, smi):
     mixed 1024 over the 32 most frequent terms, query_cache off, through
     dispatch_batch + collect_many on both on-demand routes: (a) phase 1
     (B3/B5, then B6/B7), (b) use_phase0 (phase 0 and B8, then B6/B7).
-    Returns the launches of each route, B8's main-path arguments and B3's
-    (the phase-1 entry's, with its f32 rows)."""
+    Returns the launches of each route and, for phase 6, the kernels' own
+    tensors there: B8's phase-0 arguments, B3's and B5's phase-1 entries
+    (with their f32 rows) and B2's arguments for the queries the mixed batch
+    escalates."""
     from diagon_tpu_torch.bench.queries import (
         frequent_terms,
         mixed_query_batch,
@@ -909,9 +992,11 @@ def phase_scale10(counts, smi):
         fresh_entries(ex, route == "phase0")
         counts.reset()
         for label, batch, sample in cells:
+            # a phase-0 batch takes seconds: one timed repeat
             plans[label], dm = serve_batch(searcher, oracle, counts, batch,
                                            f"{label} {route}", sample,
-                                           need[route][label], smi, reps=3)
+                                           need[route][label], smi,
+                                           reps=3 if route == "phase1" else 1)
             if dm["pruned"] < 1 or dm["phase0_ineligible"]:
                 raise AssertionError(f"{label} {route}: not on the route")
         launches[route] = counts.read()
@@ -922,11 +1007,15 @@ def phase_scale10(counts, smi):
             raise AssertionError(f"route {route} launched {wrong}")
         if route == "phase1":
             check_replay(ex, counts, plans["10M mixed 1024"])
-            # B3's own tensors at the phase-1 entry of the pure-OR subset
+            # B3's and B5's own tensors at the phase-1 entries of the mixed
+            # batch's two subsets, and B2's for the queries it escalates
             args, rows = counts.uncounted(main_path_args, ex,
                                           plans["10M mixed 1024"])
-            b3_10m = (args["approx_select"], rows["approx_select"])
+            at10m = {n: (args[n], rows[n])
+                     for n in ("approx_select", "approx_select_bool2")}
             del args, rows
+            at10m["row_boolean"] = counts.uncounted(
+                escalation_args, ex, plans["10M mixed 1024"])
         for label, _, _ in cells:
             exhaustive[label] = pruned_equals_exhaustive(
                 ex, counts, plans[label], f"{label} {route}", True,
@@ -934,7 +1023,7 @@ def phase_scale10(counts, smi):
     # phase 0's own B8 arguments for phase 6: the pure-OR subset's entry
     split = ex._purity_split(plans["10M mixed 1024"])
     c = ex._compact(split[0])
-    bits_args = (c.bits, c.cidx, c.cflags, c.qmode)
+    at10m["bits_hits"] = (c.bits, c.cidx, c.cflags, c.qmode)
     # one profiled batch per route: a phase-0 batch escalates most of its
     # queries onto B1/B2 and takes seconds (profiled last: the phase-1
     # profile taken after it had no row for B3, which every phase-1 batch
@@ -942,10 +1031,28 @@ def phase_scale10(counts, smi):
     for route in ("phase1", "phase0"):
         fresh_entries(ex, route == "phase0")
         counts.uncounted(profile_route, ex, plans["10M mixed 1024"],
-                         "10M mixed 1024", route, smi, counts, 1)
+                         "10M mixed 1024", route, smi, counts, 1,
+                         route == "phase1")
     log(f"  10M set-up: segment build {t_build:.2f} s, device load "
         f"{t_load:.2f} s [{smi}]")
-    return launches, bits_args, b3_10m
+    return launches, at10m
+
+
+def escalation_args(ex, plans):
+    """B2's arguments for the queries of ``plans`` whose certificate fails
+    on the pruned route (the ones ``finalize`` rescores exhaustively), and
+    whether B2 is the kernel the main path runs on them (B1 where every one
+    is pure OR)."""
+    from diagon_tpu_torch.search.row_engine import _flags
+
+    fused = ex.dispatch(plans, K).cpu().numpy()
+    unsafe = np.nonzero(fused[:, 2 * K + 1] == 0.0)[0]
+    if not len(unsafe):
+        raise AssertionError("the 10M mixed batch escalates no query")
+    sub = [plans[int(i)] for i in unsafe]
+    a = ex._args(sub)
+    return ((a[0], a[1], a[3], a[4], _flags(*a[5:9])),
+            not all(p.pure_or for p in sub))
 
 
 def check_replay(ex, counts, plans):
@@ -1159,14 +1266,15 @@ def time_kernel(counts, name, fn, ref, args, exact):
 
 
 def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
-                            ex1m, batches1m, bits_args, b3_10m, smi):
+                            ex1m, batches1m, at10m, smi):
     """Each kernel on the args the main path gives it: B1 at the deduped
     or20 plan and B2 at the mixed batch's exhaustive args (the escalation
     shape) at 19k; B4 at the 19k MUST_NOT batch; B3, B5, B6 and B7 at the
     1M mixed batch; B8 at the 10M phase-0 entry of the mixed batch's
     pure-OR subset. B3-B5 are checked as in phase 3 (hits, feasibility,
     maxima within 2^-8, soundness against B1/B2 on the compact rows), and
-    B3 again on the 10M phase-1 entry's own tensors (``b3_10m``); B6 and B7
+    B3 and B5 again on the 10M phase-1 entries' own tensors, B2 on the
+    queries the 10M mixed batch escalates (``at10m``); B6 and B7
     bit for bit against their plain versions and each other; B8 exactly.
     B1 and embedding_bag are split three ways (one call, per call of 100,
     kernel only) at the main path's args and at Q 1024, Tq 20. Returns each
@@ -1183,7 +1291,8 @@ def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
          (a1[0], a1[1], a1[3], a1[4])),
         ("row_boolean", rs.row_boolean, rs.row_boolean_reference,
          (a2[0], a2[1], a2[3], a2[4], _flags(*a2[5:9]))),
-        ("bits_hits", bh.bits_hits, bh.bits_hits_reference, bits_args),
+        ("bits_hits", bh.bits_hits, bh.bits_hits_reference,
+         at10m["bits_hits"]),
     ):
         out[name] = time_kernel(counts, name, fn, ref, args, True)[:3]
         at[name] = args
@@ -1216,19 +1325,41 @@ def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
         log("    sound, hits and feasibility == plain and exact")
         if name == "approx_select":
             no_subnormals("1M pure-OR entry", rows[name]["bank"], args[name][1])
-    name = "approx_select"
-    args10, rows10 = b3_10m
-    no_subnormals("10M phase-1 pure-OR entry", rows10["bank"], args10[1])
-    ms, plain, _, got, want = time_kernel(counts, name, ap.approx_select,
-                                          ap.approx_select_reference, args10,
-                                          False)
-    e = check_select("main-path approx_select 10M", got, want,
-                     exact_tiles(rs, counts, rows10, False), False, BF16_STEP)
-    b_ms, b_by = kernel_bound(name, args10)
-    log(f"    10M phase-1 entry: sound, hits == plain == exact; {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms by {b_by} [{smi}]")
-    out[name] = out[name][:2] + (max(out[name][2], e),)
-    del got, want
+    for name, boolean in (("approx_select", False),
+                          ("approx_select_bool2", True)):
+        args10, rows10 = at10m[name]
+        no_subnormals(f"10M phase-1 {name} entry", rows10["bank"],
+                      args10[2 if boolean else 1])
+        ms, plain, _, got, want = time_kernel(
+            counts, name, getattr(ap, name), getattr(ap, name + "_reference"),
+            args10, False)
+        e = check_select(f"main-path {name} 10M", got, want,
+                         exact_tiles(rs, counts, rows10, boolean), boolean,
+                         REL_TOL if boolean else BF16_STEP)
+        b_ms, b_by = kernel_bound(name, args10)
+        log(f"    10M phase-1 entry (Q {args10[0].shape[1]}, U8 "
+            f"{args10[0].shape[0]}): sound, hits and feasibility == plain == "
+            f"exact; {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+            f"by {b_by} [{smi}]")
+        out[name] = out[name][:2] + (max(out[name][2], e),)
+        del got, want, args10, rows10
+    args10, on_b2 = at10m["row_boolean"]
+    ms, plain, e = time_kernel(counts, "row_boolean", rs.row_boolean,
+                               rs.row_boolean_reference, args10, True)[:3]
+    b_ms, b_by = kernel_bound("row_boolean", args10)
+    log(f"    10M mixed batch's escalated queries (Q {args10[2].shape[0]}, Tq "
+        f"{args10[2].shape[1]}, D {args10[0].shape[1]}; the main path runs "
+        f"{'B2' if on_b2 else 'B1'} on them): bit-exact; {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {b_ms:.4f} ms by {b_by} [{smi}]")
+    # B2 beside it at Q 1024, Tq 20, D 19,456 on seeded inputs
+    args_q = kernel_inputs(np.random.default_rng(62), 1024, 20)
+    ms, plain, _ = time_kernel(counts, "row_boolean", rs.row_boolean,
+                               rs.row_boolean_reference, args_q, True)[:3]
+    b_ms, b_by = kernel_bound("row_boolean", args_q)
+    log(f"    Q 1024, Tq 20, D {KERNEL_D} (seeded inputs): bit-exact; "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+        f"[{smi}]")
+    del args10, args_q
     for name in ("gather_rescore", "union_rescore"):
         ms, plain, e, got, _ = time_kernel(
             counts, name, getattr(gr, name), getattr(gr, name + "_reference"),
@@ -1287,29 +1418,35 @@ def served_both_routes(searcher, batch, label, reps, smi):
         f"({len(batch) / med['exhaustive']:.1f} qps) [{smi}]")
 
 
-def profile_route(ex, plans, label, route, smi, counts, n=5):
+def profile_route(ex, plans, label, route, smi, counts, n=5, wall_pass=True):
     """torch.profiler over n batches of dispatch + finalize on one route:
     wall, device time by kernel, and the busy share; and the port kernels
-    launched inside the profiled window, by their counters."""
+    launched inside the profiled window, by their counters. The wall time
+    comes from n batches before the profiled ones, or (``wall_pass`` false,
+    for batches that take seconds) from the profiled batches themselves."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
         with on_route(ex, route):
             return ex.finalize(plans, ex.dispatch(plans, K), K)
 
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        run()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / n
-    before = counts.read()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def timed_runs():
+        t0 = time.perf_counter()
         for _ in range(n):
             run()
         torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    run()
+    torch.cuda.synchronize()
+    if wall_pass:
+        wall = timed_runs()
+    before = counts.read()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        in_profile = timed_runs()
+    if not wall_pass:
+        wall = in_profile
     launched = {k: v - before[k] for k, v in counts.read().items()
                 if v > before[k]}
     # device-side events only: an aten op's row repeats its kernels' time
@@ -1321,6 +1458,12 @@ def profile_route(ex, plans, label, route, smi, counts, n=5):
     log(f"  {label} {route}: wall {wall * 1e3:.3f} ms/batch (dispatch + "
         f"finalize), device {total:.3f} ms/batch, busy "
         f"{100 * total / (wall * 1e3):.1f}% [{smi}]; launched {launched}")
+    stray = [e.key for e in rows if "approx_select_bool" not in launched
+             and any(f"(anonymous namespace)::{n}" in e.key
+                     for n in LIST_KERNELS)]
+    if stray:
+        raise AssertionError(f"{label} {route}: a batch without B4 launched "
+                             f"B4's list kernels: {stray}")
     rows.sort(key=lambda e: -e.self_device_time_total)
     # the top rows, then the port's own kernels further down
     for i, e in enumerate(rows):
@@ -1362,18 +1505,24 @@ def main():
         "bits_hits": bh.bits_hits,
     }
     counts = Counts(kernels)
-    err = phase_row_kernels(rs)
-    err.update(phase_pruned_kernels(rs, ap, gr, counts))
-    err.update(phase_bits_kernel(bh, counts))
-    searcher19, batches19, sent19, launches19 = phase_serve(counts, smi)
-    searcher1m, batches1m, sent1m, launches1m = phase_scale(counts, smi)
-    launches10, bits_args, b3_10m = phase_scale10(counts, smi)
+
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"  [{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
+    err = phase(phase_row_kernels, rs)
+    err.update(phase(phase_pruned_kernels, rs, ap, gr, counts))
+    err.update(phase(phase_bits_kernel, bh, counts))
+    searcher19, batches19, sent19, launches19 = phase(phase_serve, counts, smi)
+    searcher1m, batches1m, sent1m, launches1m = phase(phase_scale, counts, smi)
+    launches10, at10m = phase(phase_scale10, counts, smi)
     ex1m = searcher1m._ctx("body").row_executors[0]
-    times = phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19,
-                                    batches19, ex1m, batches1m, bits_args,
-                                    b3_10m, smi)
-    del bits_args, b3_10m
-    phase_routes([
+    times = phase(phase_main_path_kernels, rs, ap, gr, bh, counts, searcher19,
+                  batches19, ex1m, batches1m, at10m, smi)
+    del at10m
+    phase(phase_routes, [
         ("mixed 1024", searcher19, sent19["mixed 1024"],
          batches19["mixed 1024"]),
         ("1M mixed 1024", searcher1m, sent1m["1M mixed 1024"],

@@ -28,7 +28,7 @@
 // B3 on the tensor cores (approx_or_mma_kernel). The TPU kernel is a dense
 // bf16 product on the MXU, and so is this one: P = A x B with A = a_t^T
 // ([Q, U8], the indicator) and B = the bank ([U8, docs]), bf16 in, f32 sums
-// in registers. On the CUDA cores (the list design of B4/B5 below) B3 spent
+// in registers. On the CUDA cores (the list design of B4 below) B3 spent
 // one __fmul_rn and one __fadd_rn per (query, list entry, doc), ~1.65e10 of
 // each at the 1M main-path shape, and the issue rate of the f32 pipes bounded
 // it at about 1 ms whatever the schedule; the dense product is 2 Q U8 D ~
@@ -58,7 +58,51 @@
 // that arithmetic. Every product is >= 0, so p > 0 iff some product is > 0
 // and the hit counts stay exact.
 //
-// B4 and B5 use the list design. Each indicator column holds at most
+// B5 on the tensor cores (approx_bool2_mma_kernel). Both products are MMAs
+// (mma.sync.m16n8k16, bf16 in, f32 sums) from one staged copy of the bank
+// tile; as a list kernel on the CUDA cores it was bounded, like B3 before
+// it, by the rate of one f32 multiply and one add per (query, list entry,
+// doc), twice.
+//   - Persistent blocks, one or two an SM. A block owns runs of 8
+//     neighbouring tiles (x, x + gridDim.x, ...: neighbouring blocks read
+//     neighbouring runs of every bank row together) and a range of 16-query
+//     fragments (grid.y splits the fragments where the tiles alone leave SMs
+//     idle or the block's shared memory needs it). The tile's [U8, 128] slab
+//     is copied with cp.async into the swizzled layout above (core_offset
+//     spreads the 8 rows of a 16-byte chunk over all banks, which is what
+//     ldmatrix needs too), K padded to 16 with written zero rows; where two
+//     tiles fit, the next tile's copy runs under this tile's MMAs.
+//   - The indicators are A fragments that pack_indicator_kernel lays out in
+//     fragment order once per call. The block copies its fragments into
+//     shared memory once and keeps them for every tile: read from global
+//     memory per k-step they cost an L2 round trip each, which set the
+//     kernel's time. Only where they do not fit beside the tile (U8 of
+//     several hundred) do they stay in global memory, loaded a k-step ahead.
+//   - A warp takes whole fragments (16 queries x the tile's 128 docs, in two
+//     halves of 64 docs). Per k-step and 16 docs one ldmatrix.x4.trans gives
+//     the B fragments of the bank; presence = (bank > 0) is made from them in
+//     registers (set.gt.bf16x2) and never read from memory; the count MMA
+//     (a_cb x presence) and the score MMA (a_sc x bank) take the same
+//     fragment. The first k-step's MMAs take a zero C operand: sums that were
+//     zeroed in registers first made every tile's first MMAs wait.
+//   - Epilogue in registers. cc is an exact integer (ops/approx_pass.py), so
+//     rc == nreq && oc >= msm && cc > 0 is the range test lo <= cc <= hi with
+//     lo = max(256 nreq + ceil(msm), 1), hi = 256 nreq + 255 (empty unless
+//     nreq is an integer in [0, 255]), one subtract and one compare per doc;
+//     the matches become bits that a popcount takes against the tile's live
+//     bits. The f32 tile max is reduced with two shuffles over the 4 lanes of
+//     a row.
+//   - The tile maxima of a run wait in a [queries, 8] slab in shared memory
+//     and leave as 32 contiguous bytes per query; hits add up per (block,
+//     query) in shared memory and go out with one integer atomicAdd each
+//     (pack_indicator_kernel zeroes hits): exact in any order. There is no
+//     per-tile count plane and no pass over one.
+// What bounds B5: the rate of mma.sync (below wgmma's) and the fragments'
+// way through the shared-memory pipe (192 bytes per MMA) where U8 is in the
+// hundreds; the epilogue, the per-tile barriers and the [Q, D/128] stores
+// where U8 is a few tens.
+//
+// B4 uses the list design. Each indicator column holds at most
 // Tq nonzeros while U8 may be hundreds, so a first kernel compacts every
 // role matrix into per-query lists of (row, value) in ascending row order,
 // and the select kernel sums only the listed rows (adding an exact zero
@@ -68,12 +112,15 @@
 // warp + 8, ...) with no further barrier. A lane owns 4 neighbouring docs,
 // so each list entry feeds 4 independent f32 adds from one 8-byte shared
 // read, and per query the warp reduces its tile with 5 shuffles (max) and
-// one integer reduction (match count), written by lane 0. The issue rate of
-// the f32 adds and the latency of the list loads bound it, not HBM.
+// one integer reduction (match count), written by lane 0; hits_kernel sums
+// the per-tile counts. The rate of the f32 adds and the latency of the list
+// loads bound it, not HBM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -82,8 +129,6 @@ constexpr int kThreads = 256;  // 8 warps; a lane owns 4 docs of the tile
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 264;  // 2 blocks per SM on a 132-SM card
 constexpr int kMaxGridY = 65535;
-
-enum Mode { kBool = 1, kBool2 = 2 };
 
 struct Lists {
   const int32_t* idx;  // [Q, U8] row of the j-th nonzero of column q
@@ -140,7 +185,6 @@ __device__ __forceinline__ void list_dot4(const Lists& L, int q, int U8,
   }
 }
 
-template <int MODE>
 __global__ void __launch_bounds__(kThreads) approx_select_kernel(
     const __nv_bfloat16* __restrict__ bank, const float* __restrict__ live,
     const float* __restrict__ params, Lists l0, Lists l1, Lists l2, Lists l3,
@@ -173,25 +217,14 @@ __global__ void __launch_bounds__(kThreads) approx_select_kernel(
       bool match[4];
       const float nreq = __ldg(params + q);
       const float msm = __ldg(params + Q + q);
-      if (MODE == kBool) {
-        float rc[4], oc[4], nc[4];
-        list_dot4(l1, q, U8, s_bank, lane, true, rc);
-        list_dot4(l2, q, U8, s_bank, lane, true, oc);
-        list_dot4(l3, q, U8, s_bank, lane, true, nc);
+      float rc[4], oc[4], nc[4];
+      list_dot4(l1, q, U8, s_bank, lane, true, rc);
+      list_dot4(l2, q, U8, s_bank, lane, true, oc);
+      list_dot4(l3, q, U8, s_bank, lane, true, nc);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          match[i] = rc[i] == nreq && oc[i] >= msm && nc[i] == 0.f &&
-                     __fadd_rn(rc[i], oc[i]) > 0.f && alive[i];
-        }
-      } else {
-        float cc[4];
-        list_dot4(l1, q, U8, s_bank, lane, true, cc);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float rc = floorf(__fmul_rn(cc[i], 1.0f / 256.0f));
-          const float oc = __fsub_rn(cc[i], __fmul_rn(rc, 256.0f));
-          match[i] = rc == nreq && oc >= msm && cc[i] > 0.f && alive[i];
-        }
+      for (int i = 0; i < 4; ++i) {
+        match[i] = rc[i] == nreq && oc[i] >= msm && nc[i] == 0.f &&
+                   __fadd_rn(rc[i], oc[i]) > 0.f && alive[i];
       }
       float mx = fmaxf(fmaxf(ap[0], ap[1]), fmaxf(ap[2], ap[3]));
       int c = (int)match[0] + (int)match[1] + (int)match[2] + (int)match[3];
@@ -238,29 +271,39 @@ constexpr int kChunkQ = 64;  // queries per chunk: the warpgroup's M = 64
 constexpr int kGroup = 4;  // k-steps per batch of asynchronous MMAs
 constexpr int kMaxChunksPerBlock = 32;  // 2,048 queries' counts, 8 KB
 constexpr int64_t kMaxSmem = 232448;  // a block's dynamic shared memory, max
+constexpr int64_t kSmSmem = 233472;  // an SM's shared memory, all its blocks
+constexpr int64_t kBlockReserve = 1024;  // of it, a block's cost beside its own
+constexpr int kSms = 132;  // the card's SMs
 constexpr int kNFrags = kLane / 8;  // 16 column groups of 8 docs per tile
 constexpr int kAtomBytes = 1024;  // 8 rows x 64 docs, 128-byte swizzle
 constexpr int kKGroupBytes = 2 * kAtomBytes;  // 8 rows of the tile
 static_assert(kWgThreads == kLane, "a thread stages one doc's live flag");
 
 // The m16k16 A fragments (row-major, 16 queries x 16 rows) in the order the
-// kernel loads them: packed[(m * KS + ks) * 32 + lane] holds lane's four
-// registers of fragment (m, ks). With g = lane / 4, t = lane % 4 and
+// kernels load them: packed[((i * MF + m) * KS + ks) * 32 + lane] holds
+// lane's four registers of fragment (m, ks) of matrix i (a_t, then a_t2
+// where it is not null). With g = lane / 4, t = lane % 4 and
 // A(q, k) = a_t[k, q] (zero past Q or U8), the registers are
 // (A(g, 2t), A(g, 2t+1)), (A(g+8, 2t), ..), (A(g, 2t+8), ..),
 // (A(g+8, 2t+8), ..), each pair low half first, q and k relative to the
-// fragment's origin (16 m, 16 ks). Warp w of the warpgroup takes fragment
-// m = 4 * chunk + w.
+// fragment's origin (16 m, 16 ks). B3: warp w of the warpgroup takes fragment
+// m = 4 * chunk + w. B5: a warp takes fragment m of both matrices. The
+// kernel also zeroes hits[0..Q), which the select kernels add into.
 __global__ void pack_indicator_kernel(const __nv_bfloat16* __restrict__ a_t,
+                                      const __nv_bfloat16* __restrict__ a_t2,
                                       int U8, int Q, int MF, int KS,
-                                      uint4* __restrict__ packed) {
+                                      uint4* __restrict__ packed,
+                                      int32_t* __restrict__ hits) {
+  const int64_t per = (int64_t)MF * KS * 32;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)MF * KS * 32) return;
+  if (i < Q) hits[i] = 0;  // MF * 16 >= Q: the grid covers every query
+  if (i >= (a_t2 ? 2 : 1) * per) return;
   const int lane = (int)(i & 31);
-  const int64_t f = i >> 5;
+  const int64_t f = (i % per) >> 5;
   const int m = (int)(f / KS), ks = (int)(f % KS);
   const int g = lane >> 2, t = lane & 3;
-  const unsigned short* raw = reinterpret_cast<const unsigned short*>(a_t);
+  const unsigned short* raw =
+      reinterpret_cast<const unsigned short*>(i < per ? a_t : a_t2);
   auto at = [&](int q, int k) -> uint32_t {
     return (q < Q && k < U8) ? raw[(int64_t)k * Q + q] : 0u;
   };
@@ -342,13 +385,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0,
       : "r"(addr));
 }
 
-// (x.lo > 0, x.hi > 0) as a bf16 pair of 1.0 or 0.0
-__device__ __forceinline__ uint32_t positive2(__nv_bfloat162 x) {
+// (x.lo > 0, x.hi > 0) as a bf16 pair of 1.0 or 0.0, x a bf16 pair
+__device__ __forceinline__ uint32_t positive2(uint32_t x) {
   uint32_t y;
-  asm("set.gt.bf16x2.bf16x2 %0, %1, %2;"
-      : "=r"(y)
-      : "r"(*reinterpret_cast<uint32_t*>(&x)), "r"(0u));
+  asm("set.gt.bf16x2.bf16x2 %0, %1, %2;" : "=r"(y) : "r"(x), "r"(0u));
   return y;
+}
+__device__ __forceinline__ uint32_t positive2(__nv_bfloat162 x) {
+  return positive2(*reinterpret_cast<uint32_t*>(&x));
 }
 
 // Byte offset of 16-byte chunk c (docs 8c..8c+7) of row k of the staged
@@ -362,12 +406,12 @@ __device__ __forceinline__ uint32_t core_offset(int k, int c) {
 }
 
 // Copies tile `tile` of the bank ([U8, 128] bf16) into the buffer at shared
-// address s_buf with cp.async, as one commit group.
+// address s_buf with cp.async, as one commit group of the block's threads.
 __device__ __forceinline__ void stage_tile(uint32_t s_buf,
                                            const __nv_bfloat16* bank,
                                            int64_t tile, int U8, int64_t D) {
   const char* src = reinterpret_cast<const char*>(bank + tile * kLane);
-  for (int i = threadIdx.x; i < U8 * 16; i += kWgThreads) {
+  for (int i = threadIdx.x; i < U8 * 16; i += blockDim.x) {
     const int k = i >> 4, c = i & 15;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
                  :: "r"(s_buf + core_offset(k, c)),
@@ -384,8 +428,8 @@ __device__ __forceinline__ void stage_tile(uint32_t s_buf,
 // load while a batch runs), and reduces the 64 x 128 sums in registers:
 // tmax[q, tile] = bf16(max over the tile's docs of P[q, d]); #(P[q, d] > 0
 // && live[d]) adds to the block's count of q in shared memory, which goes to
-// hits[q] (zeroed by the launcher) with one integer atomicAdd when the block
-// ends: exact in any order.
+// hits[q] (zeroed by pack_indicator_kernel) with one integer atomicAdd when
+// the block ends: exact in any order.
 //
 // The epilogue stays on packed bf16 pairs: rounding to nearest is monotone,
 // so the max of the rounded sums is the rounded max. A sum is > 0 iff its
@@ -558,18 +602,271 @@ __global__ void __launch_bounds__(kWgThreads) approx_or_mma_kernel(
   }
 }
 
-template <int MODE>
-int launch(const void* const* mats, int n_mats, const void* bank,
-           const float* params, const float* live, int32_t* idx, float* val,
-           int32_t* cnt, float* tmax, int32_t* tcnt, int32_t* hits, int U8,
-           int Q, int64_t D, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// B5: the two-product boolean select on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kB5MaxWarps = 16;  // an SM's warps at 128 registers a thread
+constexpr int kB5StreamWarps = 8;  // with the indicators left in global memory
+constexpr int kRun = 8;  // tiles whose maxima leave together: 32 bytes a query
+constexpr int kFragQ = 16;  // queries per m16 fragment
+// a block's shared memory per fragment: its slab of maxima, its counts and
+// its queries' match ranges
+constexpr int kFragBytes = kFragQ * (kRun + 3) * 4;
+constexpr int kFragABytes = 2 * 32 * 16;  // per k-step: both indicators' A
+
+// The match test rc == nreq && oc >= msm && cc > 0 on an exact integer cc
+// (rc = floor(cc / 256), oc = cc - 256 rc) as |cc - mid| <= half: the range
+// [max(256 nreq + max(ceil(msm), 0), 1), 256 nreq + 255], empty (half < 0)
+// unless nreq is an integer in [0, 255]. Every value is a small integer or
+// half of one, so the arithmetic is exact.
+// Returns (mid, half) of query q; no count matches a query past Q.
+__device__ __forceinline__ float2 match_range(const float* params, int Q,
+                                              int q) {
+  if (q >= Q) return make_float2(0.f, -1.f);
+  const float nreq = __ldg(params + q), msm = __ldg(params + Q + q);
+  const float base = __fmul_rn(256.f, nreq);
+  const float lo = fmaxf(__fadd_rn(base, fmaxf(ceilf(msm), 0.f)), 1.f);
+  const float hi = __fadd_rn(base, 255.f);
+  const bool ok = nreq >= 0.f && nreq <= 255.f && nreq == floorf(nreq) &&
+                  msm == msm;
+  return make_float2(__fmul_rn(0.5f, __fadd_rn(lo, hi)),
+                     ok ? __fmul_rn(0.5f, __fsub_rn(hi, lo)) : -1.f);
+}
+
+// Block (x, y), 4 to 16 warps, owns the runs x, x + gridDim.x, ... of `run`
+// neighbouring tiles and the 16-query fragments [y * mf_per_y, ...). With
+// A_SMEM it first copies its fragments of both packed indicators into shared
+// memory, where they stay for every tile (from global memory each A fragment
+// is an L2 round trip per k-step and sets the kernel's time); the launcher
+// leaves them in global memory only where they do not fit beside the tile,
+// and the kernel then loads them a k-step ahead. Per tile the block
+// stages the [U8, 128] slab (cp.async; with nbuf = 2 the next tile's copy
+// runs under this tile's MMAs), and each warp takes fragments warp,
+// warp + warps, ... of the block's range: per half of 64 docs, the count
+// product cc = a_cb x (bank > 0) and the score product ap = a_sc x bank from
+// the same B fragments, 32 sums each in registers; then the matches
+// (match_range) as bits against the live bits of the lane's columns, and the
+// f32 max of ap. tmax[q, tile] = max over the tile's docs of ap[q, d] where a
+// live doc of the tile matches, else -1, through the block's [queries, kRun]
+// slab; hits[q] (zeroed by pack_indicator_kernel) += the block's matches of
+// q, one integer atomicAdd per (block, query).
+//
+// Dynamic shared memory: nbuf tiles of KS * 16 rows x 256 bytes
+// (core_offset); with A_SMEM mf_per_y * KS * kFragABytes of A fragments,
+// [fragment][k-step][matrix][lane]; 4 words of live bits; mf_per_y * 16 *
+// kRun maxima; mf_per_y * 16 counts; mf_per_y * 16 match ranges (mid, half).
+template <bool A_SMEM>
+__global__ void __launch_bounds__(32 * (A_SMEM ? kB5MaxWarps : kB5StreamWarps),
+                                  1)
+    approx_bool2_mma_kernel(const __nv_bfloat16* __restrict__ bank,
+                            const float* __restrict__ live,
+                            const float* __restrict__ params,
+                            const uint4* __restrict__ packed,
+                            float* __restrict__ tmax,
+                            int32_t* __restrict__ hits, int U8, int Q, int KS,
+                            int MF, int mf_per_y, int nbuf, int run,
+                            int64_t D) {
+  extern __shared__ __align__(1024) unsigned char s_mem[];
+  const uint32_t s_tile = (uint32_t)__cvta_generic_to_shared(s_mem);
+  const int tile_bytes = KS * 16 * kLane * 2;
+  uint4* s_a = reinterpret_cast<uint4*>(s_mem + nbuf * tile_bytes);
+  const int a_bytes = A_SMEM ? mf_per_y * KS * kFragABytes : 0;
+  uint32_t* s_live =
+      reinterpret_cast<uint32_t*>(s_mem + nbuf * tile_bytes + a_bytes);
+  float* s_max = reinterpret_cast<float*>(s_live + 4);
+  int32_t* s_cnt =
+      reinterpret_cast<int32_t*>(s_max + mf_per_y * kFragQ * kRun);
+  float2* s_range = reinterpret_cast<float2*>(s_cnt + mf_per_y * kFragQ);
+  const int S = (int)(D / kLane);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mf_begin = (int)blockIdx.y * mf_per_y;
+  const int mf_end = min(MF, mf_begin + mf_per_y);
+  // the block's tiles in order: tile `tile` of the run that starts at run0
+  int run0 = (int)blockIdx.x * run;
+  int tile = run0;
+  if (tile >= S) return;
+
+  stage_tile(s_tile, bank, tile, U8, D);
+  // threads 0..127 hold the next tile's live docs, loaded one tile ahead
+  float lv = threadIdx.x < kLane
+                 ? __ldg(live + (int64_t)tile * kLane + threadIdx.x) : 0.f;
+  for (int i = threadIdx.x; i < mf_per_y * kFragQ; i += blockDim.x) {
+    s_cnt[i] = 0;
+    s_range[i] = match_range(params, Q, mf_begin * kFragQ + i);
+  }
+  // the zero rows that pad K to KS * 16, in every buffer
+  for (int b = 0; b < nbuf; ++b) {
+    for (int i = U8 * 16 + threadIdx.x; i < KS * 16 * 16; i += blockDim.x) {
+      *reinterpret_cast<uint4*>(s_mem + b * tile_bytes +
+                                core_offset(i >> 4, i & 15)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  if (A_SMEM) {
+    const int per_mat = (mf_end - mf_begin) * KS * 32;
+    for (int i = threadIdx.x; i < 2 * per_mat; i += blockDim.x) {
+      // r = (fragment * KS + k-step) * 32 + lane
+      const int mat = i / per_mat, r = i % per_mat;
+      s_a[(r / 32 * 2 + mat) * 32 + r % 32] =
+          __ldg(packed + ((int64_t)(mat * MF + mf_begin) * KS) * 32 + r);
+    }
+  }
+  // lane's A fragments of (fragment mf, k-step ks): a_sc, then a_cb
+  auto load_a = [&](int mf, int ks, uint4& a_sc, uint4& a_cb) {
+    if (A_SMEM) {
+      const uint4* f = s_a + ((mf - mf_begin) * KS + ks) * 64 + lane;
+      a_sc = f[0];
+      a_cb = f[32];
+    } else {
+      const uint4* f = packed + ((int64_t)mf * KS + ks) * 32 + lane;
+      a_sc = __ldg(f);
+      a_cb = __ldg(f + (int64_t)MF * KS * 32);
+    }
+  };
+  // ldmatrix.x4.trans: lanes 8i..8i+7 address the 8 rows of matrix i; matrices
+  // 0, 1 are rows 0-7 and 8-15 of the k-step at one 8-doc chunk (b0, b1 of
+  // one n8 fragment), matrices 2, 3 the same rows at the next chunk
+  const int lm_row = lane & 7;
+  const int lm_chunk = lane >> 4;
+  const uint32_t lm_off = ((lane >> 3) & 1) * kKGroupBytes + lm_row * 128;
+
+  for (int n = 0;; ++n) {
+    const int cur = nbuf == 2 ? (n & 1) : 0;
+    const int col = tile - run0;  // the tile's column of the slab
+    const bool run_ends = col + 1 == run || tile + 1 == S;
+    const int next_run0 = run_ends ? run0 + (int)gridDim.x * run : run0;
+    const int next = run_ends ? next_run0 : tile + 1;
+    const bool more = next < S;
+    if (nbuf == 2 && more) {
+      stage_tile(s_tile + (cur ^ 1) * tile_bytes, bank, next, U8, D);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    if (threadIdx.x < kLane) {
+      const unsigned on = __ballot_sync(0xffffffffu, lv > 0.f);
+      if (lane == 0) s_live[warp] = on;
+      if (more) lv = __ldg(live + (int64_t)next * kLane + threadIdx.x);
+    }
+    __syncthreads();  // the tile, the live bits (and A) are in place
+    const uint32_t buf = s_tile + cur * tile_bytes;
+    // live bits of the lane's columns: docs 32 w + 8 j + 2 t + e at bit
+    // 8 j + e of x[w]
+    uint32_t x[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) x[w] = (s_live[w] >> (2 * t)) & 0x03030303u;
+
+    for (int mf = mf_begin + warp; mf < mf_end; mf += warps) {
+      const int r0 = (mf - mf_begin) * kFragQ + g;  // lane's rows: r0, r0 + 8
+      const float mid0 = s_range[r0].x, half0 = s_range[r0].y;
+      const float mid1 = s_range[r0 + 8].x, half1 = s_range[r0 + 8].y;
+      float mx0 = 0.f, mx1 = 0.f;  // no sum is negative
+      int c0 = 0, c1 = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // docs 64 h .. 64 h + 63
+        float cc[32], ap[32];
+        uint4 a_sc, a_cb;
+        if (!A_SMEM) load_a(mf, 0, a_sc, a_cb);
+        // k-step ks into the sums; the first one starts them from zero
+        auto k_step = [&](int ks, auto first) {
+          constexpr bool kFirst = decltype(first)::value;
+          uint4 n_sc = a_sc, n_cb = a_cb;
+          if (A_SMEM) {
+            load_a(mf, ks, a_sc, a_cb);
+          } else if (ks + 1 < KS) {
+            load_a(mf, ks + 1, n_sc, n_cb);  // an L2 round trip: a k-step ahead
+          }
+          const uint32_t row = buf + 2 * ks * kKGroupBytes + lm_off +
+                               h * kAtomBytes;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {  // 16 docs: n8 fragments 2jj, 2jj+1
+            uint32_t b0, b1, b2, b3;
+            ldmatrix_x4_trans(row + (((2 * jj + lm_chunk) ^ lm_row) << 4), b0,
+                              b1, b2, b3);
+            mma_bf16<kFirst>(cc + 8 * jj, a_cb, positive2(b0), positive2(b1));
+            mma_bf16<kFirst>(cc + 8 * jj + 4, a_cb, positive2(b2),
+                             positive2(b3));
+            mma_bf16<kFirst>(ap + 8 * jj, a_sc, b0, b1);
+            mma_bf16<kFirst>(ap + 8 * jj + 4, a_sc, b2, b3);
+          }
+          if (!A_SMEM) {
+            a_sc = n_sc;
+            a_cb = n_cb;
+          }
+        };
+        k_step(0, std::true_type{});
+        for (int ks = 1; ks < KS; ++ks) k_step(ks, std::false_type{});
+        // fragment j: docs 64 h + 8 j + 2 t + e in [4 j + e] (row g) and
+        // [4 j + 2 + e] (row g + 8)
+        uint32_t m0[2] = {0u, 0u}, m1[2] = {0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const uint32_t bit = 1u << (8 * (j % 4) + e);
+            if (fabsf(__fsub_rn(cc[4 * j + e], mid0)) <= half0) {
+              m0[j / 4] |= bit;
+            }
+            if (fabsf(__fsub_rn(cc[4 * j + 2 + e], mid1)) <= half1) {
+              m1[j / 4] |= bit;
+            }
+          }
+          mx0 = fmaxf(mx0, fmaxf(ap[4 * j], ap[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(ap[4 * j + 2], ap[4 * j + 3]));
+        }
+        c0 += __popc(m0[0] & x[2 * h]) + __popc(m0[1] & x[2 * h + 1]);
+        c1 += __popc(m1[0] & x[2 * h]) + __popc(m1[1] & x[2 * h + 1]);
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {  // the 4 lanes of a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+        c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+        c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+      }
+      if (t == 0) {  // one thread per query of the block
+        s_max[r0 * kRun + col] = c0 > 0 ? mx0 : -1.f;
+        s_max[(r0 + 8) * kRun + col] = c1 > 0 ? mx1 : -1.f;
+        s_cnt[r0] += c0;
+        s_cnt[r0 + 8] += c1;
+      }
+    }
+    __syncthreads();  // every warp is done with the tile, and the slab is set
+    if (nbuf == 1 && more) stage_tile(s_tile, bank, next, U8, D);
+    if (run_ends) {
+      // the run's maxima: 8 neighbouring threads write one query's 32 bytes;
+      // the slab is next written after the next tile's first barrier
+      for (int i = threadIdx.x; i < (mf_end - mf_begin) * kFragQ * kRun;
+           i += blockDim.x) {
+        const int q = mf_begin * kFragQ + i / kRun;
+        const int r = i % kRun;
+        if (q < Q && r <= col) tmax[(int64_t)q * S + run0 + r] = s_max[i];
+      }
+    }
+    if (!more) break;
+    tile = next;
+    run0 = next_run0;
+  }
+  for (int i = threadIdx.x; i < (mf_end - mf_begin) * kFragQ;
+       i += blockDim.x) {
+    const int q = mf_begin * kFragQ + i;
+    if (q < Q && s_cnt[i] != 0) atomicAdd(hits + q, s_cnt[i]);
+  }
+}
+
+// B4: compacts the four role matrices, runs the list kernel, sums the hits.
+int launch_bool(const void* const* mats, const void* bank, const float* params,
+                const float* live, int32_t* idx, float* val, int32_t* cnt,
+                float* tmax, int32_t* tcnt, int32_t* hits, int U8, int Q,
+                int64_t D, cudaStream_t stream) {
   const int64_t list = (int64_t)Q * U8;
   Lists lists[4];
   for (int r = 0; r < 4; ++r) {
-    const int rr = r < n_mats ? r : 0;  // unused roles alias list 0
-    lists[r] = Lists{idx + rr * list, val + rr * list, cnt + (int64_t)rr * Q};
-  }
-  for (int r = 0; r < n_mats; ++r) {
+    lists[r] = Lists{idx + r * list, val + r * list, cnt + (int64_t)r * Q};
     compact_lists_kernel<<<(Q + 127) / 128, 128, 0, stream>>>(
         reinterpret_cast<const __nv_bfloat16*>(mats[r]), U8, Q,
         idx + r * list, val + r * list, cnt + (int64_t)r * Q);
@@ -577,7 +874,7 @@ int launch(const void* const* mats, int n_mats, const void* bank,
   const int64_t S = D / kLane;
   const size_t smem = (size_t)U8 * kLane * sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
-      approx_select_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      approx_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   // split the queries over grid.y when the tiles alone cannot fill the card
@@ -589,12 +886,108 @@ int launch(const void* const* mats, int n_mats, const void* bank,
   const int64_t per = (Q + ys - 1) / ys;
   const int q_per_block = (int)(((per + kWarps - 1) / kWarps) * kWarps);
   const dim3 grid((unsigned)S, (unsigned)ys);
-  approx_select_kernel<MODE><<<grid, kThreads, smem, stream>>>(
+  approx_select_kernel<<<grid, kThreads, smem, stream>>>(
       reinterpret_cast<const __nv_bfloat16*>(bank), live, params, lists[0],
       lists[1], lists[2], lists[3], tmax, tcnt, U8, Q, q_per_block, D);
   hits_kernel<<<Q < kMaxGridY ? Q : kMaxGridY, 256, 0, stream>>>(tcnt, S, Q,
                                                                   hits);
   return (int)cudaGetLastError();
+}
+
+// The fewest warps (4 to `most`) that take `frags` fragments in as few rounds
+// as `most` warps would: 13 fragments run on 13 warps, not on 8 in two rounds.
+int balanced_warps(int64_t frags, int most) {
+  const int64_t rounds = (frags + most - 1) / most;
+  const int64_t warps = (frags + rounds - 1) / rounds;
+  return (int)(warps < 4 ? 4 : warps);
+}
+
+template <bool A_SMEM>
+int launch_bool2_kernel(dim3 grid, int warps, size_t smem, cudaStream_t stream,
+                        const void* bank, const float* live,
+                        const float* params, const uint4* packed, float* tmax,
+                        int32_t* hits, int U8, int Q, int KS, int MF,
+                        int mf_per_y, int nbuf, int run, int64_t D) {
+  static bool sized = false;  // once per instantiation: the largest block
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        approx_bool2_mma_kernel<A_SMEM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  approx_bool2_mma_kernel<A_SMEM><<<grid, warps * 32, smem, stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(bank), live, params, packed, tmax,
+      hits, U8, Q, KS, MF, mf_per_y, nbuf, run, D);
+  return (int)cudaGetLastError();
+}
+
+// B5: packs both indicators (which zeroes hits) and sizes the grid: x over
+// the runs of tiles, y over ranges of fragments. The block keeps its
+// fragments' A in shared memory beside two tile buffers, or beside one, where
+// at least min(MF, 8) fragments fit so; grid.y then splits the fragments as
+// the shared memory needs, and further where the tiles alone leave SMs idle;
+// one or two persistent blocks an SM, with as many warps as balance a
+// block's fragments. Else (U8 of several hundred) A stays in global memory:
+// 8 warps, the slab alone beside one or two tile buffers.
+int launch_bool2_mma(const void* a_sc, const void* a_cb, const void* bank,
+                     const float* params, const float* live, uint4* packed,
+                     float* tmax, int32_t* hits, int U8, int Q, int64_t D,
+                     cudaStream_t stream) {
+  const int KS = (U8 + 15) / 16;
+  const int MF = (Q + kFragQ - 1) / kFragQ;
+  const int64_t n_packed = (int64_t)2 * MF * KS * 32;
+  pack_indicator_kernel<<<(unsigned)((n_packed + 255) / 256), 256, 0,
+                          stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(a_sc),
+      reinterpret_cast<const __nv_bfloat16*>(a_cb), U8, Q, MF, KS, packed,
+      hits);
+  const int64_t S = D / kLane;
+  const int64_t tile_bytes = (int64_t)KS * 16 * kLane * sizeof(__nv_bfloat16);
+  const int64_t fixed = 16;  // the live bits
+  const int64_t want = MF < 8 ? MF : 8;
+  bool a_smem = true;
+  int nbuf = 2;
+  int64_t per_frag = (int64_t)KS * kFragABytes + kFragBytes;
+  int64_t cap = (kMaxSmem - 2 * tile_bytes - fixed) / per_frag;
+  if (cap < want) {
+    nbuf = 1;
+    cap = (kMaxSmem - tile_bytes - fixed) / per_frag;
+  }
+  if (cap < want) {
+    a_smem = false;
+    per_frag = kFragBytes;
+    nbuf = 2 * tile_bytes + fixed + want * per_frag <= kMaxSmem ? 2 : 1;
+    cap = (kMaxSmem - nbuf * tile_bytes - fixed) / per_frag;
+  }
+  if (cap < 1) return (int)cudaErrorInvalidValue;
+  // two blocks an SM where their shared memory allows (each then takes half
+  // the warps): one computes while the other waits at its tile's barriers
+  const int per_sm =
+      2 * (nbuf * tile_bytes + fixed + (MF < cap ? MF : cap) * per_frag +
+           kBlockReserve) <= kSmSmem ? 2 : 1;
+  const int64_t blocks = kSms * per_sm;
+  // runs of kRun tiles; shorter ones where those would leave SMs idle
+  int run = kRun;
+  while (run > 1 && (S + run - 1) / run < blocks) run /= 2;
+  const int64_t runs = (S + run - 1) / run;
+  const int64_t gx = runs < blocks ? runs : blocks;
+  int64_t ys = (blocks + gx - 1) / gx;
+  if (ys > MF) ys = MF;
+  const int64_t min_ys = (MF + cap - 1) / cap;
+  if (ys < min_ys) ys = min_ys;
+  if (ys > kMaxGridY) return (int)cudaErrorInvalidValue;
+  const int mf_per_y = (int)((MF + ys - 1) / ys);
+  ys = (MF + mf_per_y - 1) / mf_per_y;
+  const size_t smem =
+      (size_t)(nbuf * tile_bytes + fixed + (int64_t)mf_per_y * per_frag);
+  const dim3 grid((unsigned)gx, (unsigned)ys);
+  const int warps =
+      balanced_warps(mf_per_y, a_smem ? kB5MaxWarps / per_sm : kB5StreamWarps);
+  auto* launch =
+      a_smem ? launch_bool2_kernel<true> : launch_bool2_kernel<false>;
+  return launch(grid, warps, smem, stream, bank, live, params, packed, tmax,
+                hits, U8, Q, KS, MF, mf_per_y, nbuf, run, D);
 }
 
 int launch_or_mma(const void* a_t, const void* bank, const float* live,
@@ -605,11 +998,8 @@ int launch_or_mma(const void* a_t, const void* bank, const float* live,
   const int64_t n_packed = (int64_t)4 * chunks * KS * 32;
   pack_indicator_kernel<<<(unsigned)((n_packed + 255) / 256), 256, 0,
                           stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(a_t), U8, Q, 4 * chunks, KS,
-      packed);
-  cudaError_t err = cudaMemsetAsync(hits, 0, (size_t)Q * sizeof(int32_t),
-                                    stream);
-  if (err != cudaSuccess) return (int)err;
+      reinterpret_cast<const __nv_bfloat16*>(a_t), nullptr, U8, Q, 4 * chunks,
+      KS, packed, hits);
   const int64_t S = D / kLane;
   // split the chunks over grid.y when the tiles alone leave SMs idle, or
   // when the block's counts would not fit beside the tile
@@ -625,7 +1015,7 @@ int launch_or_mma(const void* a_t, const void* bank, const float* live,
   const int chunks_per_y = (int)((chunks + ys - 1) / ys);
   const size_t smem =
       tile_bytes + kLane * 16 + (size_t)chunks_per_y * kChunkQ * 4;
-  err = cudaFuncSetAttribute(approx_or_mma_kernel,
+  cudaError_t err = cudaFuncSetAttribute(approx_or_mma_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -657,27 +1047,31 @@ extern "C" int diagon_approx_select(const void* a_t, const void* bank,
                        tmax, hits, U8, Q, D, stream);
 }
 
-// B4 and B5, one signature: a0..a3 bf16 [U8, Q] (B5 reads a0 = a_sc, a1 =
-// a_cb; B4 reads a0..a3 = a_sc, a_rq, a_sh, a_ng; unused ones may be null);
-// params f32 [8, Q] (rows 0 num_required, 1 min_should); scratch idx i32
-// and val f32 [R, Q, U8], cnt i32 [R, Q] (R = matrices read); tcnt i32
-// [Q, D/128] (per-tile match counts, summed in a fixed order by
-// hits_kernel).
-
-#define DIAGON_APPROX_ARGS                                                   \
-  const void *a0, const void *a1, const void *a2, const void *a3,            \
-      const void *bank, const float *params, const float *live, int32_t *idx, \
-      float *val, int32_t *cnt, float *tmax, int32_t *tcnt, int32_t *hits,   \
-      int U8, int Q, int64_t D, cudaStream_t stream
-
-extern "C" int diagon_approx_select_bool(DIAGON_APPROX_ARGS) {
-  const void* mats[4] = {a0, a1, a2, a3};
-  return launch<kBool>(mats, 4, bank, params, live, idx, val, cnt, tmax, tcnt,
-                       hits, U8, Q, D, stream);
+// B4: a_sc, a_rq, a_sh, a_ng bf16 [U8, Q]; params f32 [8, Q] (rows 0
+// num_required, 1 min_should); scratch idx i32 and val f32 [4, Q, U8], cnt
+// i32 [4, Q]; tcnt i32 [Q, D/128] (per-tile match counts, summed in a fixed
+// order by hits_kernel).
+extern "C" int diagon_approx_select_bool(
+    const void* a_sc, const void* a_rq, const void* a_sh, const void* a_ng,
+    const void* bank, const float* params, const float* live, int32_t* idx,
+    float* val, int32_t* cnt, float* tmax, int32_t* tcnt, int32_t* hits,
+    int U8, int Q, int64_t D, cudaStream_t stream) {
+  const void* mats[4] = {a_sc, a_rq, a_sh, a_ng};
+  return launch_bool(mats, bank, params, live, idx, val, cnt, tmax, tcnt, hits,
+                     U8, Q, D, stream);
 }
 
-extern "C" int diagon_approx_select_bool2(DIAGON_APPROX_ARGS) {
-  const void* mats[4] = {a0, a1, a2, a3};
-  return launch<kBool2>(mats, 2, bank, params, live, idx, val, cnt, tmax,
-                        tcnt, hits, U8, Q, D, stream);
+// B5: a_sc, a_cb bf16 [U8, Q]; params as B4's; scratch packed: 2 *
+// ceil(Q / 16) * ceil(U8 / 16) * 32 uint4 (16-byte aligned), both indicators
+// in fragment order; hits is zeroed here and summed with atomics (no tcnt).
+extern "C" int diagon_approx_select_bool2(const void* a_sc, const void* a_cb,
+                                          const void* bank,
+                                          const float* params,
+                                          const float* live, void* packed,
+                                          float* tmax, int32_t* hits, int U8,
+                                          int Q, int64_t D,
+                                          cudaStream_t stream) {
+  return launch_bool2_mma(a_sc, a_cb, bank, params, live,
+                          reinterpret_cast<uint4*>(packed), tmax, hits, U8, Q,
+                          D, stream);
 }

@@ -21,7 +21,8 @@
 // Layout. A block owns one query and a span of docs; a thread owns 4
 // consecutive docs read and written as float4 (D % 1024 == 0, so every row
 // starts 16-byte aligned). Nothing carries between blocks, so no atomics.
-// grid.y strides over queries so any Q fits the 65535 limit on gridDim.y.
+// The grid is (blocks along docs, min(Q, 65535) query slots); a block strides
+// over queries past that limit, and block_slot says which block takes what.
 //
 // Bound: bytes. The kernel reads Q*Tq*D*4 bytes of rows and writes Q*D*4
 // (x4 for the boolean kernel) with one add per element read. The heavy bank
@@ -41,18 +42,30 @@
 //   - the caller picks the block size from Q * D and the SM count
 //     (ops/row_sum.py launch_geometry): 32-thread blocks at Q = 1 spread the
 //     4,864 float4 columns over 152 blocks, where 256-thread blocks gave 19.
-// B2 keeps the first layout (a 256-thread block, one dependent load per
-// clause): it runs at Q = 1024, where the grid already fills the card.
+// B2 has the same three parts. Its block also stages each clause's flags
+// beside the row pointer, so no thread reads an index or a flag from global
+// memory before a row load, and up to kGroup row loads are in flight where
+// the first layout had one dependent load per clause, 20 in series. A
+// query's clause flags are the same for every thread of its block, so the
+// four accumulators take block-uniform branches: a clause adds only into the
+// planes of the roles it has (a role it lacks costs no arithmetic, and a
+// plane no clause feeds is written as the zeros it started from). Skipping
+// the add of a +0 changes no bit: the rows hold no negative value and no -0,
+// each plane starts at +0, x + 0 = x, and 0 + x = x is also what copying the
+// first clause gives. The four planes are written once and read once by the
+// caller, so they are stored streaming (__stcs) and leave the L2 to the bank
+// rows. What bounds B2 is the write of the planes (4 Q D f32) and, where a
+// batch reads each row many times, the L2's read rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // B2's block; B1's largest
+constexpr int kThreads = 256;  // the largest block
 constexpr int kMaxGridY = 65535;
-constexpr int kStage = 64;  // B1: clause row pointers staged per pass
-constexpr int kGroup = 8;   // B1: row loads in flight per thread
+constexpr int kStage = 64;  // clause row pointers (B2: and flags) staged per pass
+constexpr int kGroup = 8;   // row loads in flight per thread
 
 __device__ __forceinline__ const float4* clause_row(
     const float* __restrict__ heavy, const float* __restrict__ light,
@@ -71,8 +84,16 @@ __device__ __forceinline__ float4 present4(float4 v) {
                      v.z > 0.f ? 1.f : 0.f, v.w > 0.f ? 1.f : 0.f);
 }
 
-__device__ __forceinline__ float4 select4(bool on, float4 v) {
-  return on ? v : make_float4(0.f, 0.f, 0.f, 0.f);
+// The block's first query and its thread's float4 column. Blocks start in
+// linear order, x fastest; numbering them with the query fastest puts the
+// blocks that run together on one span of docs, so the span of a row that
+// several queries read comes from HBM once and from the L2 after that; with
+// the docs fastest, a batch over a bank beyond the L2 streams every row again
+// for every query.
+__device__ __forceinline__ void block_slot(int& q0, int64_t& d4) {
+  const uint64_t lin = (uint64_t)blockIdx.y * gridDim.x + blockIdx.x;
+  q0 = (int)(lin % gridDim.y);
+  d4 = (int64_t)(lin / gridDim.y) * blockDim.x + threadIdx.x;
 }
 
 // Any blockDim.x in {32, 64, 128, 256}; every thread reaches every barrier.
@@ -81,9 +102,11 @@ __global__ void __launch_bounds__(kThreads) row_sum_kernel(
     const int32_t* __restrict__ hidx, const int32_t* __restrict__ lidx,
     float* __restrict__ out, int Q, int Tq, int64_t D) {
   __shared__ const float4* s_row[kStage];
-  const int64_t d4 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int q0;
+  int64_t d4;
+  block_slot(q0, d4);
   const bool active = d4 * 4 < D;
-  for (int q = blockIdx.y; q < Q; q += gridDim.y) {
+  for (int q = q0; q < Q; q += gridDim.y) {
     const int32_t* hq = hidx + (int64_t)q * Tq;
     const int32_t* lq = lidx + (int64_t)q * Tq;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -117,45 +140,83 @@ __global__ void __launch_bounds__(kThreads) row_sum_kernel(
   }
 }
 
+__device__ __forceinline__ void stcs4(float* plane, int64_t d4, float4 v) {
+  __stcs(reinterpret_cast<float4*>(plane) + d4, v);
+}
+
+// One clause into the four planes, by its flags (uniform over the block).
+__device__ __forceinline__ void add_clause(int fl, bool first, float4 row,
+                                           float4& s, float4& r, float4& o,
+                                           float4& n) {
+  if (fl & 1) s = first ? row : add4(s, row);  // clause 0 is copied
+  if (fl & 14) {
+    const float4 pres = present4(row);
+    if (fl & 2) r = add4(r, pres);
+    if (fl & 4) o = add4(o, pres);
+    if (fl & 8) n = add4(n, pres);
+  }
+}
+
+// Any blockDim.x in {32, 64, 128, 256}; every thread reaches every barrier.
 __global__ void __launch_bounds__(kThreads) row_boolean_kernel(
     const float* __restrict__ heavy, const float* __restrict__ light,
     const int32_t* __restrict__ hidx, const int32_t* __restrict__ lidx,
     const int32_t* __restrict__ flags, float* __restrict__ out, int Q,
     int Tq, int64_t D) {
-  const int64_t d4 = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (d4 * 4 >= D) return;
+  __shared__ const float4* s_row[kStage];
+  __shared__ int s_flag[kStage];
+  int q0;
+  int64_t d4;
+  block_slot(q0, d4);
+  const bool active = d4 * 4 < D;
   const int64_t plane = (int64_t)Q * D;
-  for (int q = blockIdx.y; q < Q; q += gridDim.y) {
+  for (int q = q0; q < Q; q += gridDim.y) {
     const int32_t* hq = hidx + (int64_t)q * Tq;
     const int32_t* lq = lidx + (int64_t)q * Tq;
     const int32_t* fq = flags + (int64_t)q * Tq;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
     float4 s = zero, r = zero, o = zero, n = zero;
-    for (int t = 0; t < Tq; ++t) {
-      const float4 row = __ldg(clause_row(heavy, light, hq[t], lq[t], D) + d4);
-      const float4 pres = present4(row);
-      const int fl = fq[t];
-      const float4 sc = select4(fl & 1, row);
-      const float4 rc = select4(fl & 2, pres);
-      const float4 oc = select4(fl & 4, pres);
-      const float4 nc = select4(fl & 8, pres);
-      if (t == 0) {
-        s = sc; r = rc; o = oc; n = nc;
-      } else {
-        s = add4(s, sc); r = add4(r, rc); o = add4(o, oc); n = add4(n, nc);
+    for (int t0 = 0; t0 < Tq; t0 += kStage) {
+      const int m = min(kStage, Tq - t0);
+      __syncthreads();  // the previous pass has read its pointers and flags
+      for (int i = threadIdx.x; i < m; i += blockDim.x) {
+        s_row[i] = clause_row(heavy, light, hq[t0 + i], lq[t0 + i], D);
+        s_flag[i] = fq[t0 + i];
+      }
+      __syncthreads();
+      if (!active) continue;
+      int i = 0;
+      for (; i + kGroup <= m; i += kGroup) {
+        float4 row[kGroup];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) row[j] = __ldg(s_row[i + j] + d4);
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          add_clause(s_flag[i + j], t0 + i + j == 0, row[j], s, r, o, n);
+        }
+      }
+      for (; i < m; ++i) {
+        add_clause(s_flag[i], t0 + i == 0, __ldg(s_row[i] + d4), s, r, o, n);
       }
     }
-    const int64_t off = (int64_t)q * D;
-    reinterpret_cast<float4*>(out + off)[d4] = s;
-    reinterpret_cast<float4*>(out + plane + off)[d4] = r;
-    reinterpret_cast<float4*>(out + 2 * plane + off)[d4] = o;
-    reinterpret_cast<float4*>(out + 3 * plane + off)[d4] = n;
+    if (active) {
+      float* oq = out + (int64_t)q * D;
+      stcs4(oq, d4, s);
+      stcs4(oq + plane, d4, r);
+      stcs4(oq + 2 * plane, d4, o);
+      stcs4(oq + 3 * plane, d4, n);
+    }
   }
 }
 
-dim3 grid_for(int Q, int64_t D) {
-  const int64_t blocks_x = (D / 4 + kThreads - 1) / kThreads;
-  return dim3((unsigned)blocks_x, (unsigned)(Q < kMaxGridY ? Q : kMaxGridY));
+// threads: 32, 64, 128 or 256 (ops/row_sum.py launch_geometry)
+bool block_ok(int threads) {
+  return threads == 32 || threads == 64 || threads == 128 || threads == 256;
+}
+
+dim3 grid_for(int Q, int64_t D, int threads) {
+  return dim3((unsigned)(D / 4 / threads),
+              (unsigned)(Q < kMaxGridY ? Q : kMaxGridY));
 }
 
 }  // namespace
@@ -169,19 +230,15 @@ dim3 grid_for(int Q, int64_t D) {
 // [Q, Tq]; D % 1024 == 0; Q >= 1, Tq >= 1. Index values are the caller's
 // contract: -1 <= hidx < H and 0 <= lidx < L.
 
-// threads: B1's block size, 32, 64, 128 or 256 (ops/row_sum.py
+// threads: the block size, 32, 64, 128 or 256 (ops/row_sum.py
 // launch_geometry); any other value is refused with cudaErrorInvalidValue.
 extern "C" int diagon_row_sum(const float* heavy, const float* light,
                               const int32_t* hidx, const int32_t* lidx,
                               float* out, int Q, int Tq, int64_t D,
                               int threads, cudaStream_t stream) {
-  if (threads != 32 && threads != 64 && threads != 128 && threads != 256) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((unsigned)(D / 4 / threads),
-                  (unsigned)(Q < kMaxGridY ? Q : kMaxGridY));
-  row_sum_kernel<<<grid, threads, 0, stream>>>(heavy, light, hidx, lidx, out,
-                                               Q, Tq, D);
+  if (!block_ok(threads)) return (int)cudaErrorInvalidValue;
+  row_sum_kernel<<<grid_for(Q, D, threads), threads, 0, stream>>>(
+      heavy, light, hidx, lidx, out, Q, Tq, D);
   return (int)cudaGetLastError();
 }
 
@@ -189,8 +246,10 @@ extern "C" int diagon_row_sum(const float* heavy, const float* light,
 extern "C" int diagon_row_boolean(const float* heavy, const float* light,
                                   const int32_t* hidx, const int32_t* lidx,
                                   const int32_t* flags, float* out, int Q,
-                                  int Tq, int64_t D, cudaStream_t stream) {
-  row_boolean_kernel<<<grid_for(Q, D), kThreads, 0, stream>>>(
+                                  int Tq, int64_t D, int threads,
+                                  cudaStream_t stream) {
+  if (!block_ok(threads)) return (int)cudaErrorInvalidValue;
+  row_boolean_kernel<<<grid_for(Q, D, threads), threads, 0, stream>>>(
       heavy, light, hidx, lidx, flags, out, Q, Tq, D);
   return (int)cudaGetLastError();
 }

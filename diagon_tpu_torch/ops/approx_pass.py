@@ -15,9 +15,10 @@ rows; each indicator matrix [U8, Q] (bf16) counts how often query q uses
 row u in one role. Hits, the per-doc counts and so the feasibility of a
 tile (-1 or not) are exact in every version: they are sums of small
 integers. The tile maxima are an approximation and differ between
-versions by the order of the f32 adds; B3's kernel sums on the tensor
-cores and rounds each tile max once to bf16, so it and its plain version
-may land on neighbouring bf16 values.
+versions by the order of the f32 adds. B3's kernel (``wgmma``) and B5's
+(``mma.sync``) sum on the tensor cores; B4's and the plain versions add in
+IEEE f32. B3 rounds each tile max once to bf16, so it and its plain
+version may land on neighbouring bf16 values; B4 and B5 keep the f32 max.
 
 Why ``_APPROX_RELEPS`` = 2^-7 still bounds the error of this arithmetic
 (``row_engine._APPROX_RELEPS``; the caller inflates every tile max by
@@ -30,9 +31,10 @@ real sum; u = 2^-24 is the f32 unit roundoff.
 - The bank holds bf16(c_t) >= c_t (1 - 2^-9) (round to nearest even,
   8 significant bits). Each product with a small integer indicator value
   is exact in f32; at most T of them are nonzero.
-- B4, B5 and the plain versions add the nonnegative products in IEEE f32:
+- B4 and the plain versions add the nonnegative products in IEEE f32:
   p >= S (1 - 2^-9) (1 - (T-1) u), whatever the order of the adds.
-- B3 adds them on the tensor cores (``mma.sync`` bf16 -> f32), whose
+- B3 (``wgmma``) and B5 (``mma.sync``) add them on the tensor cores (bf16
+  in, f32 out), whose
   accumulator is not IEEE. Take it at its worst: per k-group of products
   (k undocumented; 8, 16 or 32), it aligns the group's terms and the
   running sum to the largest exponent among them, truncates each to 24
@@ -51,14 +53,29 @@ real sum; u = 2^-24 is the f32 unit roundoff.
 So s / tmax <= (1 + (T-1) u) / ((1 - 2^-9)^2 (1 - delta))
 (``tile_error_bound``), which for T <= 896 is below 1 + 2^-8 + 2^-11
 < 1 + 2^-7 for any k (1 + 2^-7.93 at k = 8): the bound holds with a
-margin of 1.8x. The f32 IEEE sums take delta = (T-1) u and give
-1 + 2^-8 + 2^-12. ``tests/test_torch_approx_bound.py`` emulates the
+margin of 1.8x. B5 on the tensor cores is B3 without the last bf16
+rounding, so the same closed form covers it with room to spare. The f32
+IEEE sums take delta = (T-1) u and give 1 + 2^-8 + 2^-12. ``tests/test_torch_approx_bound.py`` emulates the
 truncating accumulator on adversarial inputs and pins this bound.
 
 Hits stay exact on the tensor cores too: a sum of terms >= 0 that holds
 one positive normal term is at least that term after any truncation, so
 p > 0 iff some product is > 0, which is when the f32 score is > 0 (the
 bank holds no subnormal values; ``chip_smoke.py`` checks its banks).
+
+B5's count product cc = a_cb x (bank > 0) is exact on the tensor cores.
+Every a_cb entry is rq * 256 or sh (the row engine builds a_cb only where
+no (row, query) pair is both required and should, and rq < 256), presence
+is 0 or 1, so every product is an integer, and with at most 64 clauses a
+query cc <= 64 * 256 + 64 < 2^15. Under the worst-case accumulator above a
+group's terms align to their largest exponent E <= 14 and keep 24 bits,
+that is, multiples of 2^(E - 23) <= 2^-9: an integer below 2^24 loses
+nothing, the exact sum of the group is again an integer below 2^24 and
+truncates to itself. So cc, its decode rc = floor(cc / 256), oc = cc - 256
+rc, the feasibility of every tile and the hits are exact; the bf16
+indicator holds rq * 256 and sh exactly (8 significant bits cover 1..255
+and 256 times them). ``tests/test_torch_approx_bound.py`` pins this on
+adversarial a_cb columns.
 """
 
 from __future__ import annotations
@@ -70,7 +87,8 @@ from diagon_tpu_torch.ops import _build
 LANE = 128  # docs per tile
 MAX_ROWS = 896  # the kernels stage a [U8, 128] bf16 tile in shared memory
 MMA_CHUNK_Q = 64  # B3: queries per warpgroup chunk (the wgmma M)
-MMA_K = 16  # B3: rows per MMA k-step; U8 pads to a multiple with zero rows
+MMA_FRAG_Q = 16  # queries per m16 A fragment; B5's mma.sync M
+MMA_K = 16  # rows per MMA k-step; U8 pads to a multiple with zero rows
 # [Q, chunk] f32 temporaries of the plain versions stay under this many
 # elements (the card holds them next to the banks at 1M docs)
 _PLAIN_CHUNK_ELEMS = 1 << 26
@@ -201,33 +219,35 @@ def approx_select_bool2_reference(a_sc_t, a_cb_t, bank, params_t, live):
                    params_t, match_of)
 
 
-def _launch(name, mats, bank, params, live, U8, Q, D):
+def packed_indicator_shape(U8: int, Q: int, matrices: int = 1,
+                           pad_q: int = MMA_CHUNK_Q):
+    """The tensor-core kernels' scratch: ``matrices`` indicators in MMA
+    fragment order, int32 [matrices * F * ceil(U8 / 16) * 32, 4] (one
+    16-byte row per lane and 16 x 16 fragment; csrc/approx_pass.cu
+    pack_indicator_kernel), F the 16-query fragments of Q padded to a
+    multiple of ``pad_q``: B3 (one matrix) pads to its 64-query chunks, B5
+    (a_sc, then a_cb) to one fragment."""
+    frags = -(-Q // pad_q) * (pad_q // MMA_FRAG_Q)
+    return (matrices * frags * -(-U8 // MMA_K) * 32, 4)
+
+
+def _tensor_core_select(name, mats, bank, params, live, U8, Q, D, pad_q):
+    """Launch B3 or B5: (tile max f32 [Q, D/128], hits i32 [Q])."""
     dev = bank.device
-    R, S = len(mats), D // LANE
-    idx = torch.empty((R, Q, U8), dtype=torch.int32, device=dev)
-    val = torch.empty((R, Q, U8), dtype=torch.float32, device=dev)
-    cnt = torch.empty((R, Q), dtype=torch.int32, device=dev)
-    tmax = torch.empty((Q, S), dtype=torch.float32, device=dev)
-    tcnt = torch.empty((Q, S), dtype=torch.int32, device=dev)
+    packed = torch.empty(packed_indicator_shape(U8, Q, len(mats), pad_q),
+                         dtype=torch.int32, device=dev)
+    tmax = torch.empty((Q, D // LANE), dtype=torch.float32, device=dev)
     hits = torch.empty(Q, dtype=torch.int32, device=dev)
-    ptrs = [m.data_ptr() for m in mats] + [None] * (4 - R)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [m.data_ptr() for m in mats] + [bank.data_ptr()]
+    if params is not None:
+        ptrs.append(params.data_ptr())
     rc = getattr(_build.library(), name)(
-        *ptrs, bank.data_ptr(), None if params is None else params.data_ptr(),
-        live.data_ptr(), idx.data_ptr(), val.data_ptr(), cnt.data_ptr(),
-        tmax.data_ptr(), tcnt.data_ptr(), hits.data_ptr(), U8, Q, D, stream,
+        *ptrs, live.data_ptr(), packed.data_ptr(), tmax.data_ptr(),
+        hits.data_ptr(), U8, Q, D, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     return tmax, hits
-
-
-def packed_indicator_shape(U8: int, Q: int):
-    """B3's scratch: the indicator in MMA fragment order, int32
-    [4 * ceil(Q / 64) * ceil(U8 / 16) * 32, 4] (one 16-byte row per lane
-    and 16 x 16 fragment; csrc/approx_pass.cu pack_indicator_kernel)."""
-    chunks = -(-Q // MMA_CHUNK_Q)
-    return (4 * chunks * -(-U8 // MMA_K) * 32, 4)
 
 
 def approx_select(a_t, bank, live):
@@ -236,21 +256,10 @@ def approx_select(a_t, bank, live):
     U8, Q, D = _check({"a_t": a_t}, bank, live)
     if bank.device.type == "cpu":
         return approx_select_reference(a_t, bank, live)
-    dev = bank.device
-    S = D // LANE
-    packed = torch.empty(packed_indicator_shape(U8, Q), dtype=torch.int32,
-                         device=dev)
-    tmax = torch.empty((Q, S), dtype=torch.float32, device=dev)
-    hits = torch.empty(Q, dtype=torch.int32, device=dev)
-    rc = _build.library().diagon_approx_select(
-        a_t.data_ptr(), bank.data_ptr(), live.data_ptr(), packed.data_ptr(),
-        tmax.data_ptr(), hits.data_ptr(), U8, Q, D,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"diagon_approx_select launch failed: cudaError {rc}")
+    out = _tensor_core_select("diagon_approx_select", [a_t], bank, None, live,
+                              U8, Q, D, MMA_CHUNK_Q)
     approx_select.launches += 1
-    return tmax, hits
+    return out
 
 
 def approx_select_bool(a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank, params_t,
@@ -263,21 +272,37 @@ def approx_select_bool(a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank, params_t,
     if bank.device.type == "cpu":
         return approx_select_bool_reference(
             a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank, params_t, live)
-    out = _launch("diagon_approx_select_bool", list(mats.values()), bank,
-                  params_t, live, U8, Q, D)
+    dev = bank.device
+    S = D // LANE
+    idx = torch.empty((4, Q, U8), dtype=torch.int32, device=dev)
+    val = torch.empty((4, Q, U8), dtype=torch.float32, device=dev)
+    cnt = torch.empty((4, Q), dtype=torch.int32, device=dev)
+    tmax = torch.empty((Q, S), dtype=torch.float32, device=dev)
+    tcnt = torch.empty((Q, S), dtype=torch.int32, device=dev)
+    hits = torch.empty(Q, dtype=torch.int32, device=dev)
+    rc = _build.library().diagon_approx_select_bool(
+        *(m.data_ptr() for m in mats.values()), bank.data_ptr(),
+        params_t.data_ptr(), live.data_ptr(), idx.data_ptr(), val.data_ptr(),
+        cnt.data_ptr(), tmax.data_ptr(), tcnt.data_ptr(), hits.data_ptr(),
+        U8, Q, D, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"diagon_approx_select_bool launch failed: cudaError {rc}")
     approx_select_bool.launches += 1
-    return out
+    return tmax, hits
 
 
 def approx_select_bool2(a_sc_t, a_cb_t, bank, params_t, live):
-    """B5, no-MUST_NOT boolean phase 1 in two products: as B4."""
+    """B5, no-MUST_NOT boolean phase 1 in two products on the tensor
+    cores: as B4, from a_sc and the combined counts a_cb = rq * 256 + sh."""
     mats = {"a_sc_t": a_sc_t, "a_cb_t": a_cb_t}
     U8, Q, D = _check(mats, bank, live, params_t)
     if bank.device.type == "cpu":
         return approx_select_bool2_reference(a_sc_t, a_cb_t, bank, params_t,
                                              live)
-    out = _launch("diagon_approx_select_bool2", [a_sc_t, a_cb_t], bank,
-                  params_t, live, U8, Q, D)
+    out = _tensor_core_select("diagon_approx_select_bool2", [a_sc_t, a_cb_t],
+                              bank, params_t, live, U8, Q, D, MMA_FRAG_Q)
     approx_select_bool2.launches += 1
     return out
 

@@ -23,16 +23,17 @@ from diagon_tpu_torch.ops import _build
 
 TILE = 1024  # D must be a multiple of this (float4 rows, 16-byte aligned)
 MAX_GRID_Y = 65535
-_BLOCKS = (256, 128, 64, 32)  # B1's block sizes, largest first
+_BLOCKS = (256, 128, 64, 32)  # the kernels' block sizes, largest first
 _F32, _I32 = torch.float32, torch.int32
 
 
 @functools.lru_cache(maxsize=256)
 def launch_geometry(Q: int, D: int, sms: int):
-    """B1's (threads per block, blocks along docs, blocks along queries):
+    """B1's and B2's (threads per block, blocks along docs, query slots):
     the largest block that still puts two blocks on every SM, else the
-    smallest. A thread owns one float4 column (D / 4 of them); grid.y
-    strides over queries past MAX_GRID_Y."""
+    smallest. A thread owns one float4 column (D / 4 of them). The kernels
+    number the blocks of this grid query-fastest (csrc/row_sum.cu
+    block_slot) and stride over queries past MAX_GRID_Y."""
     cols, gy = D // 4, min(Q, MAX_GRID_Y)
     for threads in _BLOCKS:
         if (cols // threads) * gy >= 2 * sms:
@@ -144,13 +145,8 @@ def row_boolean_reference(heavy, light, hidx, lidx, flags):
     return acc
 
 
-def _launch_args(heavy, light, hidx, lidx):
-    stream = torch.cuda.current_stream(heavy.device).cuda_stream
-    return (heavy.data_ptr(), light.data_ptr(), hidx.data_ptr(),
-            lidx.data_ptr()), stream
-
-
-_row_sum_fn = None  # the launcher, looked up once
+_row_sum_fn = None  # the launchers, looked up once
+_row_boolean_fn = None
 
 
 def row_sum(heavy, light, hidx, lidx):
@@ -177,13 +173,19 @@ def row_sum(heavy, light, hidx, lidx):
 
 def row_boolean(heavy, light, hidx, lidx, flags):
     """B2: (scores, req_cnt, sho_cnt, neg_cnt), each f32 [Q, D]."""
+    global _row_boolean_fn
     Q, Tq, D = _check(heavy, light, hidx, lidx, flags)
-    if heavy.device.type == "cpu":
+    if not heavy.is_cuda:
         return row_boolean_reference(heavy, light, hidx, lidx, flags)
-    out = torch.empty((4, Q, D), dtype=torch.float32, device=heavy.device)
-    ptrs, stream = _launch_args(heavy, light, hidx, lidx)
-    rc = _build.library().diagon_row_boolean(
-        *ptrs, flags.data_ptr(), out.data_ptr(), Q, Tq, D, stream
+    if _row_boolean_fn is None:
+        _row_boolean_fn = _build.library().diagon_row_boolean
+    index = heavy.get_device()
+    threads = launch_geometry(Q, D, _sm_count(index))[0]
+    out = heavy.new_empty((4, Q, D))
+    rc = _row_boolean_fn(
+        heavy.data_ptr(), light.data_ptr(), hidx.data_ptr(), lidx.data_ptr(),
+        flags.data_ptr(), out.data_ptr(), Q, Tq, D, threads,
+        torch._C._cuda_getCurrentRawStream(index),
     )
     if rc != 0:
         raise RuntimeError(f"diagon_row_boolean launch failed: cudaError {rc}")

@@ -10,7 +10,10 @@ form of ``diagon_tpu_torch/ops/approx_pass.py``'s docstring:
   exact f32 score, summed in clause order as the oracle sums it;
 - every doc with a positive term has a positive emulated sum (exact hits);
 - the emulated loss stays within the docstring's delta, and the closed
-  form stays below 2^-7.
+  form stays below 2^-7;
+- B5's count product cc = a_cb x presence, a sum of integers below 2^15,
+  comes out of that accumulator exactly, so its decode, the feasibility of
+  a tile and the hits are exact on the tensor cores.
 """
 
 import numpy as np
@@ -146,3 +149,66 @@ def test_closed_form_stays_below_eps(k):
     assert ieee < mma < 2.0 ** -8 + 2.0 ** -11 < EPS
     if k == 8:
         assert mma < 2.0 ** -7.9
+
+
+
+COUNT_LAYOUTS = ["required_first", "ones_first", "interleaved",
+                 "multiplicity", "sparse_presence"]
+
+
+def count_columns(layout, rng):
+    """(a_cb values [T], presence [DOCS, T]) at the largest counts the row
+    engine admits: 64 required clauses (rq * 256) and 64 should clauses (1),
+    in the column order of ``layout``."""
+    req = np.full(64, 256.0)
+    sho = np.ones(64)
+    if layout == "multiplicity":
+        # a row required more than once: 2 * 256 and 3 * 256 beside ones
+        req = 256.0 * rng.integers(1, 4, 64)
+    if layout == "ones_first":
+        a_cb = np.concatenate([sho, req])
+    elif layout == "interleaved":
+        a_cb = np.stack([req, sho], axis=1).ravel()
+    else:  # the largest products first, the ones last
+        a_cb = np.concatenate([np.sort(req)[::-1], sho])
+    density = 0.3 if layout == "sparse_presence" else 0.97
+    presence = (rng.random((DOCS, a_cb.size)) < density).astype(np.float64)
+    presence[0] = 1.0  # a doc that holds every row: the largest cc
+    presence[1] = 0.0  # and one that holds none
+    return a_cb, presence
+
+
+@pytest.mark.parametrize("k", [8, 16, 32])
+@pytest.mark.parametrize("layout", COUNT_LAYOUTS)
+def test_truncating_accumulator_keeps_integer_counts_exact(layout, k):
+    rng = np.random.default_rng([20261016, COUNT_LAYOUTS.index(layout), k])
+    a_cb, presence = count_columns(layout, rng)
+    np.testing.assert_array_equal(bf16(a_cb), a_cb)  # the indicator is exact
+    products = presence * a_cb
+    cc = truncating_sum(products, k)
+    exact = products.sum(axis=1)
+    assert exact.max() < 2.0 ** 15 or layout == "multiplicity"
+    assert exact.max() < 2.0 ** 24
+    np.testing.assert_array_equal(cc, exact)
+    # so the decode is the counts themselves
+    rc = np.floor(cc.astype(np.float32) * np.float32(1.0 / 256.0))
+    oc = cc.astype(np.float32) - rc * np.float32(256.0)
+    is_req = a_cb >= 256.0
+    np.testing.assert_array_equal(
+        rc, (presence[:, is_req] * (a_cb[is_req] / 256.0)).sum(axis=1))
+    np.testing.assert_array_equal(oc, presence[:, ~is_req].sum(axis=1))
+
+
+def test_fractional_terms_would_not_survive_the_accumulator():
+    """What makes the counts exact is that they are integers: the same
+    accumulator drops a term below the ulp of a large one."""
+    products = np.array([[64.0 * 256.0] + [2.0 ** -10] * 31])
+    assert truncating_sum(products, 8)[0] == 64.0 * 256.0 < products.sum()
+
+
+@pytest.mark.parametrize("rq", [1, 2, 3, 64, 127, 128, 255])
+def test_bf16_holds_every_combined_count_entry(rq):
+    """a_cb entries are rq * 256 (rq < 256) or sh (< 256): 8 significant
+    bits, which bf16 has."""
+    vals = np.array([rq, rq * 256.0], np.float32)
+    np.testing.assert_array_equal(bf16(vals), vals)

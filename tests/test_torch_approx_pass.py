@@ -214,6 +214,53 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
             ap.approx_select(args["a_t"], args["bank"], args["live"])
 
 
+@pytest.mark.parametrize("U8, Q, matrices, rows", [
+    (40, 811, 1, 4 * 13 * 3 * 32),    # B3 at the 10M entry: 13 chunks of 64
+    (168, 824, 1, 4 * 13 * 11 * 32),
+    (40, 213, 2, 2 * 14 * 3 * 32),    # B5 at the 10M entry: 14 fragments
+    (152, 200, 2, 2 * 13 * 10 * 32),  # B5 at the 1M mixed batch
+    (896, 1, 2, 2 * 1 * 56 * 32),     # MAX_ROWS, one query
+    (8, 17, 2, 2 * 2 * 1 * 32),       # U8 below one k-step pads to 16 rows
+])
+def test_packed_indicator_scratch_shape(U8, Q, matrices, rows):
+    """One 16-byte row per lane and 16 x 16 fragment: B3 pads the queries
+    to its 64-query chunks, B5 packs a_sc then a_cb in 16-query fragments."""
+    pad_q = ap.MMA_CHUNK_Q if matrices == 1 else ap.MMA_FRAG_Q
+    assert ap.packed_indicator_shape(U8, Q, matrices, pad_q) == (rows, 4)
+    if matrices == 1:
+        assert ap.packed_indicator_shape(U8, Q) == (rows, 4)
+
+
+def _match_range(nreq, msm):
+    """csrc/approx_pass.cu match_range in numpy f32: (mid, half) such that
+    |cc - mid| <= half is B5's match test on an integer cc."""
+    f = np.float32
+    nreq, msm = f(nreq), f(msm)
+    base = f(256) * nreq
+    lo = np.maximum(base + np.maximum(np.ceil(msm), f(0)), f(1))
+    hi = base + f(255)
+    ok = (nreq >= 0) and (nreq <= 255) and nreq == np.floor(nreq) \
+        and not np.isnan(msm)
+    return f(0.5) * (lo + hi), (f(0.5) * (hi - lo) if ok else f(-1))
+
+
+@pytest.mark.parametrize("nreq", [0, 1, 2, 63, 64, 255, 256, 1.5, -1])
+@pytest.mark.parametrize("msm", [0, 1, 2, 60, 64, 255, 256, 0.5, -3,
+                                 float("inf"), float("nan")])
+def test_bool2_range_test_equals_the_decode(nreq, msm):
+    """The kernel's one-subtract range test and the plain version's decode
+    (rc = floor(cc / 256), oc = cc - 256 rc; rc == nreq, oc >= msm, cc > 0)
+    agree on every count the product can reach, and past it."""
+    cc = np.arange(0, 65 * 256 + 300, dtype=np.float32)
+    rc = np.floor(cc * np.float32(1.0 / 256.0))
+    oc = cc - rc * np.float32(256.0)
+    with np.errstate(invalid="ignore"):
+        want = (rc == np.float32(nreq)) & (oc >= np.float32(msm)) & (cc > 0)
+        mid, half = _match_range(nreq, msm)
+        got = np.abs(cc - mid) <= half
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():
@@ -226,6 +273,8 @@ def test_kernels_match_plain_versions_on_the_card():
         (ap.approx_select, ap.approx_select_reference, (t("sc"), b, lv)),
         (ap.approx_select_bool, ap.approx_select_bool_reference,
          (t("sc"), t("rq"), t("sh"), t("ng"), b, p, lv)),
+        (ap.approx_select_bool2, ap.approx_select_bool2_reference,
+         (t("sc"), t("cb"), b, p, lv)),
     ):
         got, want = fn(*args), ref(*args)
         torch.cuda.synchronize()

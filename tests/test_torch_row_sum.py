@@ -143,6 +143,45 @@ def test_launch_geometry_fills_the_card(Q, D, want):
     assert bx * gy >= 2 * 132 or threads == 32
 
 
+@pytest.mark.parametrize("Q, D, want", [
+    (3, 10002432, 256),   # the 10M mixed batch's escalated queries
+    (19, 1003520, 256),   # the 1M mixed batch's
+    (3, 19456, 32),       # few queries over the 19k axis: small blocks
+    (19, 19456, 256),
+    (127, 19456, 256),    # the 19k MUST_NOT batch's escalations
+])
+def test_launch_geometry_at_row_boolean_escalation_shapes(Q, D, want):
+    """B2 takes B1's geometry: the largest block that still puts two blocks
+    on every SM."""
+    threads, bx, gy = rs.launch_geometry(Q, D, 132)
+    assert threads == want
+    assert threads * bx * 4 == D and gy == Q
+    assert bx * gy >= 2 * 132
+    if threads < 256:  # the next larger block would leave SMs idle
+        assert (D // 4 // (2 * threads)) * gy < 2 * 132
+
+
+@pytest.mark.parametrize("case", ["i64_flags", "non_contiguous_flags",
+                                  "flags_on_meta", "f32_flags"])
+def test_fast_check_names_bad_flags_as_the_diagnosis_does(case):
+    heavy, light, hidx, lidx, flags = _torch(*_inputs(4, 6, 1024, 3, 2))
+    if case == "i64_flags":
+        flags = flags.long()
+    elif case == "non_contiguous_flags":
+        flags = torch.stack([flags, flags], dim=2)[:, :, 0]
+        assert not flags.is_contiguous()
+    elif case == "flags_on_meta":
+        flags = flags.to("meta")
+    elif case == "f32_flags":
+        flags = flags.float()
+    with pytest.raises((ValueError, TypeError)) as diag:
+        rs._diagnose(heavy, light, hidx, lidx, flags)
+    with pytest.raises(diag.type, match=re.escape(str(diag.value))):
+        rs._check(heavy, light, hidx, lidx, flags)
+    with pytest.raises(diag.type, match=re.escape(str(diag.value))):
+        rs.row_boolean(heavy, light, hidx, lidx, flags)
+
+
 @pytest.mark.parametrize("case", [
     "f64_bank", "i64_index", "ragged_docs", "non_contiguous",
     "shape_mismatch", "light_width", "no_clauses", "flags_shape",
