@@ -12,8 +12,8 @@ script exits non-zero), in the order they run:
 
 1. Device: card name and power limit; build the CUDA kernels from
    ``diagon_tpu_torch/csrc`` (one nvcc per source, all at once) and time
-   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1, B2,
-   B3 or B5.
+   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1-B5
+   or B7.
 2. Kernels B1 (row_sum) and B2 (row_boolean) against their plain PyTorch
    versions on the card, bit for bit (D = 19,456; Q in {1, 3, 7, 19,
    1024}; Tq in {4, 20, 24, 64, 100}; both stage 64 clauses per pass), and
@@ -36,7 +36,13 @@ script exits non-zero), in the order they run:
    U8 = 896, Q in {1, 65, 820}, and queries of 64 required and 64 should
    clauses (the largest counts its combined count product carries) with
    min_should up to 64 on a dense bank, hits and feasibility equal to plain
-   and exact. Then B8 (bits_hits) exactly equal to
+   and exact. B4 (tensor cores) at its edges: U8 in {32, 168, 512, 896} x Q
+   in {1, 65, 820} on queries where one row serves two roles (SHOULD twice
+   and MUST, MUST twice and MUST_NOT, SHOULD twice and MUST_NOT, MUST_NOT
+   twice and SHOULD), U8 = 896 on random roles, and two such cases at
+   D = 1,003,520, held like B5. B7 also with each query's tiles shuffled
+   out of ascending order, bit-equal to plain and to B6. Then B8
+   (bits_hits) exactly equal to
    its plain version at D in {19,456, 10,002,432} x (Q, U8, Tq) in
    {(1, 40, 20), (820, 40, 20), (200, 40, 4), (1024, 512, 4)}, every mode
    word, dead queries and queries without a required clause included.
@@ -49,9 +55,10 @@ script exits non-zero), in the order they run:
    batch the pruned route's finalize equals the exhaustive route's bit
    for bit.
 5. Scale at 1,000,000 docs (main path, counted): mixed 1024 (B3, B5, B6,
-   B7) and or20 x 1024 (dedups to Q = 1, forced onto the batch route:
-   B3 + B6), pruned equal to exhaustive over the whole batch, 4 queries
-   oracle-exact, escalation counts printed.
+   B7), or20 x 1024 (dedups to Q = 1, forced onto the batch route:
+   B3 + B6) and a 1024-query MUST_NOT batch over the segment's frequent
+   terms (B4, B7), pruned equal to exhaustive over each whole batch, 6
+   queries oracle-exact, escalation counts printed.
 8. Scale at 10,000,000 docs, bench.py's 10M tier (main path, counted per
    route): a segment of 4M+ docs holds no resident bank (on-demand mode).
    or20 x 1024, then mixed 1024 over the 32 most frequent terms, with
@@ -66,9 +73,12 @@ script exits non-zero), in the order they run:
    load seconds; a query_cache replay returns the same bits and skips
    phase 1; a torch.profiler pass over each route of the mixed batch.
 6. On the very tensors the main path hands each kernel: B3-B5 checked
-   as in phase 3 (hits, feasibility, soundness against B1/B2; B3 and B5
-   at the 1M mixed batch and at the 10M phase-1 entries of its two
-   subsets, whose banks must hold no subnormal value), B2 bit for bit also
+   as in phase 3 (hits, feasibility, soundness against B1/B2; B4 at the
+   19k and 1M MUST_NOT batches, and on the 1M mixed batch's boolean
+   subset with its counts split from the same plans, timed beside B5
+   there; B3 and B5 at the 1M mixed batch and at the 10M phase-1 entries
+   of its two subsets, whose banks must hold no subnormal value), B2 bit
+   for bit also
    on the queries the 10M mixed batch escalates, B6/B7 bit for bit, B8
    exactly (the 10M phase-0 entry's own bitmaps), and kernel and plain
    times (CUDA events); each
@@ -78,14 +88,13 @@ script exits non-zero), in the order they run:
    path's args) and Q 1024, Tq 20: events around one call, events around
    100 back-to-back calls / 100, and kernel-only device time from
    torch.profiler.
-7. Routes on the same plans: served qps of the mixed cells and 1M or20
-   through the pruned and the exhaustive route (pruned, exhaustive,
-   exhaustive, pruned; the exhaustive route is the same dispatch with
-   the pruning floor raised past the segment), then a torch.profiler
-   pass over each route: device time by kernel and the card's busy
-   share. A profiled window that launched no B4 must hold neither of B4's
-   list kernels (compact_lists_kernel, hits_kernel): B3 and B5 run without
-   them.
+7. Routes on the same plans: served qps of the mixed cells, 1M or20 and
+   1M MUST_NOT through the pruned and the exhaustive route (pruned,
+   exhaustive, exhaustive, pruned; the exhaustive route is the same
+   dispatch with the pruning floor raised past the segment), then a
+   torch.profiler pass over each route: device time by kernel and the
+   card's busy share. A profiled window that launched no B4 must hold no
+   row of B4's kernel (approx_bool_mma_kernel): B5 serves those batches.
 
 Launch counters are set to 0 just before each main-path phase (4, 5, and
 each route of 8) and read just after it; comparisons with plain versions
@@ -132,15 +141,15 @@ BF16_STEP = 2.0 ** -7
 DEVICE = torch.device("cuda")
 # the kernels of diagon_tpu_torch/csrc, by function name (profile rows)
 PORT_KERNELS = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
-                "approx_bool2_mma_kernel", "pack_indicator_kernel",
-                "approx_select_kernel", "compact_lists_kernel", "hits_kernel",
-                "gather_rescore_kernel", "union_rescore_kernel",
-                "bits_hits_kernel")
-# B4's helper kernels: a batch without MUST_NOT must launch neither
-LIST_KERNELS = ("compact_lists_kernel", "hits_kernel")
-# the kernels of B1, B2, B3 and B5: ptxas must report no spill for them
+                "approx_bool_mma_kernel", "approx_bool2_mma_kernel",
+                "pack_indicator_kernel", "gather_rescore_kernel",
+                "union_rescore_kernel", "bits_hits_kernel")
+# B4's kernel: a batch without MUST_NOT must not launch it (B5 takes those)
+B4_KERNELS = ("approx_bool_mma_kernel",)
+# the redesigned kernels of B1-B5 and B7: ptxas must report no spill
 NO_SPILL = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
-            "approx_bool2_mma_kernel", "pack_indicator_kernel", "hits_kernel")
+            "approx_bool_mma_kernel", "approx_bool2_mma_kernel",
+            "pack_indicator_kernel", "union_rescore_kernel")
 # the card's published peaks (H100 SXM datasheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F32 = 67e12  # f32 outside the tensor cores; taken for 32-bit int ops too
@@ -306,8 +315,8 @@ def phase_device():
                              f"on every kernel of {NO_SPILL}")
     spilled = {f: n for f, n in checked.items() if n != (0, 0)}
     if spilled:
-        raise AssertionError(f"ptxas spills in B1/B2/B3/B5 kernels: {spilled}")
-    log(f"  ptxas: no spill in {len(checked)} B1/B2/B3/B5 kernel(s)")
+        raise AssertionError(f"ptxas spills in B1-B5/B7 kernels: {spilled}")
+    log(f"  ptxas: no spill in {len(checked)} B1-B5/B7 kernel(s)")
     return smi
 
 
@@ -447,6 +456,33 @@ def adversarial_bool2_inputs(rng, gen, Q, U8, D):
     return compact_batch(bank, live, cidx, roles, min_should)
 
 
+def two_role_inputs(rng, gen, Q, U8, Tq, D):
+    """A compact batch that only B4 takes: in every query one row serves two
+    roles with a count of 2 in one of them, by query in turn: SHOULD twice
+    and MUST (required and should, which a_cb cannot hold); MUST twice and
+    MUST_NOT (which no doc matches); SHOULD twice and MUST_NOT; MUST_NOT
+    twice and SHOULD. The other
+    Tq - 3 clauses take distinct rows: one FILTER, then SHOULD or (30%)
+    MUST_NOT; min_should 0 or 1 by query. The bank is half dense, so many
+    docs match."""
+    bank = 0.05 + 12.0 * torch.rand((U8, D), generator=gen, device=DEVICE)
+    bank *= torch.rand((U8, D), generator=gen, device=DEVICE) < 0.5
+    bank[0] = 0.0
+    live = (torch.rand(D, generator=gen, device=DEVICE) < 0.97).float()
+    live[SCALE_DOCS if D == SCALE_D else SERVE_DOCS:] = 0.0  # the doc pad
+    rows = np.stack([rng.choice(np.arange(1, U8), Tq - 2, replace=False)
+                     for _ in range(Q)]).astype(np.int32)
+    cidx = np.concatenate([rows[:, :1], rows[:, :1], rows], axis=1)
+    roles = np.where(rng.random((Q, Tq)) < 0.3, MUST_NOT, SHOULD)
+    roles[:, 3] = FILTER
+    roles[:, :3] = np.array([[SHOULD, SHOULD, MUST],
+                             [MUST, MUST, MUST_NOT],
+                             [SHOULD, SHOULD, MUST_NOT],
+                             [MUST_NOT, MUST_NOT, SHOULD]])[np.arange(Q) % 4]
+    min_should = ((np.arange(Q) // 4) % 2).astype(np.float32)
+    return compact_batch(bank, live, cidx, roles, min_should)
+
+
 def no_subnormals(what, *banks):
     """The phase-1 banks hold no subnormal value (0 < |x| < 2^-126): the
     exactness of B3's hits on the tensor cores assumes it."""
@@ -560,6 +596,12 @@ def phase_pruned_kernels(rs, ap, gr, counts):
                 ct = b["bank"].reshape(U8, G, 128).permute(1, 0, 2).contiguous()
                 fl = b["flags"] if boolean else None
                 gargs = (ct, b["cidx"], tsel, fl)
+                # the same pairs with each query's tiles out of ascending
+                # order: B7 takes no order from tsel
+                perm = torch.argsort(torch.rand(
+                    tsel.shape, generator=gen, device=DEVICE), dim=1)
+                sargs = (ct, b["cidx"],
+                         torch.gather(tsel, 1, perm).contiguous(), fl)
                 for rname, rtag in (("gather_rescore", "B6"),
                                     ("union_rescore", "B7")):
                     rfn = getattr(gr, rname)
@@ -576,13 +618,24 @@ def phase_pruned_kernels(rs, ap, gr, counts):
                         raise AssertionError(f"union_rescore != gather_rescore "
                                              f"at D={D} Q={Q} U8={U8} Tq={Tq}")
                     err[rname] = max(err[rname], max_abs_err(g, w))
+                    gs = counts.uncounted(rfn, *sargs)
+                    if not bits_equal(gs, rref(*sargs)):
+                        raise AssertionError(f"{rname} != plain with tsel "
+                                             f"rows shuffled at D={D} Q={Q}")
+                    if rname == "gather_rescore":
+                        g6s = gs
+                    elif not bits_equal(gs, g6s):
+                        raise AssertionError(f"union_rescore != gather_rescore"
+                                             f" with tsel rows shuffled at "
+                                             f"D={D} Q={Q} U8={U8} Tq={Tq}")
                     if family != "bool2":
                         ms = cuda_ms(lambda: counts.uncounted(rfn, *gargs),
                                      reps=10)
                         pms = cuda_ms(lambda: rref(*gargs), reps=3, warmup=1)
                         line.append(f"{rtag}/{family} {ms:.4f}/{pms:.4f}")
-                del b, args, got, want, ct, g, w, g6
-            log(f"  D={D} Q={Q} U8={U8} Tq={Tq}: sound, kernels == plain; "
+                del b, args, got, want, ct, g, w, g6, gs, g6s, sargs
+            log(f"  D={D} Q={Q} U8={U8} Tq={Tq}: sound, kernels == plain, "
+                f"B7 == B6 also with tsel rows shuffled; "
                 f"ms kernel/plain: {'; '.join(line)}")
     # B3 at its edges: U8 = MAX_ROWS, Q off the 32-query chunk, and a bank
     # made against the tensor cores' truncating accumulator
@@ -632,6 +685,34 @@ def phase_pruned_kernels(rs, ap, gr, counts):
         ms = counts.uncounted(cuda_ms, lambda: ap.approx_select_bool2(*args),
                               10)
         log(f"  B5 {kind} D={D} Q={Q} U8={U8} Tq={Tq}: sound, hits and "
+            f"feasibility == plain == exact ({int(got[1].sum())} hits); "
+            f"{ms:.4f} ms")
+        del b, args, got, want
+    # B4 at its edges: U8 up to MAX_ROWS (the indicators left in global
+    # memory), Q off the 16-query fragment, and rows in two roles
+    cases = [(KERNEL_D, Q, U8, 12, "two-role") for U8 in (32, 168, 512,
+                                                          ap.MAX_ROWS)
+             for Q in (1, 65, 820)]
+    cases += [(KERNEL_D, Q, ap.MAX_ROWS, 20, "random") for Q in (1, 65, 820)]
+    cases += [(SCALE_D, 65, 168, 12, "two-role"),
+              (SCALE_D, 820, 32, 8, "two-role")]
+    for D, Q, U8, Tq, kind in cases:
+        b = (compact_inputs(rng, gen, Q, U8, Tq, D, "bool") if kind == "random"
+             else two_role_inputs(rng, gen, Q, U8, Tq, D))
+        args = (b["a_sc"], b["a_rq"], b["a_sh"], b["a_ng"], b["bank_bf16"],
+                b["params"], b["live"])
+        got = counts.uncounted(ap.approx_select_bool, *args)
+        want = ap.approx_select_bool_reference(*args)
+        torch.cuda.synchronize()
+        name = f"approx_select_bool {kind} D={D} Q={Q} U8={U8} Tq={Tq}"
+        e = check_select(name, got, want, exact_tiles(rs, counts, b, True),
+                         True)
+        if kind == "two-role" and int(got[1].sum()) == 0:
+            raise AssertionError(f"{name}: no doc matches, the check is empty")
+        err["approx_select_bool"] = max(err["approx_select_bool"], e)
+        ms = counts.uncounted(cuda_ms, lambda: ap.approx_select_bool(*args),
+                              10)
+        log(f"  B4 {kind} D={D} Q={Q} U8={U8} Tq={Tq}: sound, hits and "
             f"feasibility == plain == exact ({int(got[1].sum())} hits); "
             f"{ms:.4f} ms")
         del b, args, got, want
@@ -890,7 +971,8 @@ def phase_scale(counts, smi):
     log(f"phase 5: scale at {SCALE_DOCS} docs")
     seg, searcher, _, _ = load_searcher(SCALE_DOCS)
     oracle = Oracle(seg)
-    mixed = mixed_query_batch(frequent_terms(searcher), 1024, phrase_share=0)
+    pool = frequent_terms(searcher)
+    mixed = mixed_query_batch(pool, 1024, phrase_share=0)
     or20_batch = [reuters_queries()["or20"]] * 1024
     counts.reset()
     batches, sent = {}, {}
@@ -901,6 +983,8 @@ def phase_scale(counts, smi):
          [0, 37, 512]),
         ("1M or20 x 1024", or20_batch, ["approx_select", "gather_rescore"],
          [0]),
+        ("1M MUST_NOT 1024", must_not_batch(pool),
+         ["approx_select_bool", "union_rescore"], [0, 511]),
     ):
         plans, dm = serve_batch(searcher, oracle, counts, batch, label,
                                 sample, need, smi, reps=5)
@@ -1133,6 +1217,18 @@ def main_path_args(ex, plans):
     return out, rows
 
 
+def split_bool_args(ex, plans):
+    """B4's arguments on the boolean subset of ``plans`` that B5 serves on
+    the main path: the same compact bank and params, with the indicators
+    a_rq, a_sh and a_ng (all zero here) in place of a_cb."""
+    split = ex._purity_split(plans)
+    c = ex._compact(split[1] if split else plans)
+    if c.a_cb_t is None:
+        raise AssertionError("the boolean subset is not B5's")
+    return (c.a_sc_t, c.a_rq_t, c.a_sh_t, c.a_ng_t, c.compact_bf16,
+            c.params_t, ex.index.live)
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -1269,16 +1365,18 @@ def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
                             ex1m, batches1m, at10m, smi):
     """Each kernel on the args the main path gives it: B1 at the deduped
     or20 plan and B2 at the mixed batch's exhaustive args (the escalation
-    shape) at 19k; B4 at the 19k MUST_NOT batch; B3, B5, B6 and B7 at the
-    1M mixed batch; B8 at the 10M phase-0 entry of the mixed batch's
-    pure-OR subset. B3-B5 are checked as in phase 3 (hits, feasibility,
-    maxima within 2^-8, soundness against B1/B2 on the compact rows), and
-    B3 and B5 again on the 10M phase-1 entries' own tensors, B2 on the
-    queries the 10M mixed batch escalates (``at10m``); B6 and B7
-    bit for bit against their plain versions and each other; B8 exactly.
-    B1 and embedding_bag are split three ways (one call, per call of 100,
-    kernel only) at the main path's args and at Q 1024, Tq 20. Returns each
-    kernel's times, error, bound and library time."""
+    shape) at 19k; B4 at the 19k MUST_NOT batch (its record), at the 1M
+    MUST_NOT batch, and on the 1M mixed batch's boolean subset beside B5;
+    B3, B5, B6 and B7 at the 1M mixed batch; B8 at the 10M phase-0 entry of
+    the mixed batch's pure-OR subset. B3-B5 are checked as in phase 3
+    (hits, feasibility, maxima within 2^-8, soundness against B1/B2 on the
+    compact rows), and B3 and B5 again on the 10M phase-1 entries' own
+    tensors, B2 on the queries the 10M mixed batch escalates (``at10m``);
+    B6 and B7 bit for bit against their plain versions and each other; B8
+    exactly. B1 and embedding_bag are split three ways (one call, per call
+    of 100, kernel only) at the main path's args and at Q 1024, Tq 20, and
+    so are B4, B7 and B6 on B7's tensors. Returns each kernel's times,
+    error, bound and library time."""
     from diagon_tpu_torch.search.row_engine import _flags
 
     log("phase 6: kernels vs plain on the main path's tensors")
@@ -1308,23 +1406,58 @@ def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
     del heavy, light, hidx, lidx, got
     neg_args, neg_rows = main_path_args(ex19, batches19["MUST_NOT 1024"])
     mixed_args, mixed_rows = main_path_args(ex1m, batches1m["1M mixed 1024"])
-    for name, args, rows in (
-        ("approx_select_bool", neg_args, neg_rows),
-        ("approx_select", mixed_args, mixed_rows),
-        ("approx_select_bool2", mixed_args, mixed_rows),
+    neg1m_args, neg1m_rows = main_path_args(ex1m,
+                                            batches1m["1M MUST_NOT 1024"])
+    for name, args, rows, what in (
+        ("approx_select_bool", neg_args, neg_rows, "19k MUST_NOT"),
+        ("approx_select", mixed_args, mixed_rows, "1M mixed"),
+        ("approx_select_bool2", mixed_args, mixed_rows, "1M mixed"),
+        ("approx_select_bool", neg1m_args, neg1m_rows, "1M MUST_NOT"),
     ):
         ms, plain, _, got, want = time_kernel(
             counts, name, getattr(ap, name), getattr(ap, name + "_reference"),
             args[name], False)
         boolean = name != "approx_select"
-        e = check_select(f"main-path {name}", got, want,
+        e = check_select(f"main-path {name} {what}", got, want,
                          exact_tiles(rs, counts, rows[name], boolean), boolean,
                          REL_TOL if boolean else BF16_STEP)
-        out[name] = (ms, plain, e)
-        at[name] = args[name]
-        log("    sound, hits and feasibility == plain and exact")
+        b_ms, b_by = kernel_bound(name, args[name])
+        log(f"    {what} (Q {args[name][0].shape[1]}, U8 "
+            f"{args[name][0].shape[0]}): sound, hits and feasibility == plain "
+            f"== exact; {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} "
+            f"ms by {b_by} [{smi}]")
+        if name in out:  # B4 at 1M: its error counts, its times are logged
+            out[name] = out[name][:2] + (max(out[name][2], e),)
+        else:
+            out[name] = (ms, plain, e)
+            at[name] = args[name]
         if name == "approx_select":
             no_subnormals("1M pure-OR entry", rows[name]["bank"], args[name][1])
+    # the cost of the general form as one number: B4 on the 1M mixed
+    # batch's boolean subset, the counts split from the same plans (a_ng
+    # 0), beside B5 on the same compact bank
+    b5 = mixed_args["approx_select_bool2"]
+    b4 = split_bool_args(ex1m, batches1m["1M mixed 1024"])
+    got4 = counts.uncounted(ap.approx_select_bool, *b4)
+    got5 = counts.uncounted(ap.approx_select_bool2, *b5)
+    torch.cuda.synchronize()
+    if not (torch.equal(got4[1], got5[1])
+            and torch.equal(got4[0] == -1.0, got5[0] == -1.0)):
+        raise AssertionError("B4 and B5 differ in hits or feasibility on the "
+                             "1M mixed boolean subset")
+    e = check_select("main-path approx_select_bool 1M mixed boolean subset",
+                     got4, ap.approx_select_bool_reference(*b4),
+                     exact_tiles(rs, counts, mixed_rows["approx_select_bool2"],
+                                 True), True)
+    out["approx_select_bool"] = out["approx_select_bool"][:2] + (
+        max(out["approx_select_bool"][2], e),)
+    ms4 = counts.uncounted(cuda_ms, lambda: ap.approx_select_bool(*b4))
+    ms5 = counts.uncounted(cuda_ms, lambda: ap.approx_select_bool2(*b5))
+    log(f"    1M mixed boolean subset (Q {b4[0].shape[1]}, U8 "
+        f"{b4[0].shape[0]}): B4 {ms4:.4f} ms beside B5 {ms5:.4f} ms on the "
+        f"same plans; hits and feasibility equal, sound; tile maxima differ "
+        f"by at most {max_abs_err(got4[0], got5[0]):.3g} [{smi}]")
+    del got4, got5, b4, b5
     for name, boolean in (("approx_select", False),
                           ("approx_select_bool2", True)):
         args10, rows10 = at10m[name]
@@ -1373,6 +1506,19 @@ def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
             f"{oms:.4f} ms")
         out[name] = (ms, plain, e)
         at[name] = mixed_args[name]
+    # the redesigned B4 and B7 split into wrapper and device time, B7 beside
+    # B6 on B7's tensors (its yardstick: no library call computes it)
+    for label, fn, args in (
+        ("B4 19k MUST_NOT", ap.approx_select_bool,
+         neg_args["approx_select_bool"]),
+        ("B4 1M MUST_NOT", ap.approx_select_bool,
+         neg1m_args["approx_select_bool"]),
+        ("B7 1M mixed", gr.union_rescore, mixed_args["union_rescore"]),
+        ("B6 on B7's tensors", gr.gather_rescore, mixed_args["union_rescore"]),
+    ):
+        w = counts.uncounted(three_ways, lambda: fn(*args), 50, 3)
+        log(f"  {label} split: one call / per call of 50 / kernels only "
+            f"{w[0]:.4f} / {w[1]:.4f} / {w[2]:.4f} ms [{smi}]")
     record = {}
     for name, (ms, plain, e) in out.items():
         b_ms, b_by = kernel_bound(name, at[name])
@@ -1460,10 +1606,10 @@ def profile_route(ex, plans, label, route, smi, counts, n=5, wall_pass=True):
         f"{100 * total / (wall * 1e3):.1f}% [{smi}]; launched {launched}")
     stray = [e.key for e in rows if "approx_select_bool" not in launched
              and any(f"(anonymous namespace)::{n}" in e.key
-                     for n in LIST_KERNELS)]
+                     for n in B4_KERNELS)]
     if stray:
         raise AssertionError(f"{label} {route}: a batch without B4 launched "
-                             f"B4's list kernels: {stray}")
+                             f"B4's kernel: {stray}")
     rows.sort(key=lambda e: -e.self_device_time_total)
     # the top rows, then the port's own kernels further down
     for i, e in enumerate(rows):
@@ -1529,6 +1675,8 @@ def main():
          batches1m["1M mixed 1024"]),
         ("1M or20 x 1024", searcher1m, sent1m["1M or20 x 1024"],
          batches1m["1M or20 x 1024"]),
+        ("1M MUST_NOT 1024", searcher1m, sent1m["1M MUST_NOT 1024"],
+         batches1m["1M MUST_NOT 1024"]),
     ], counts, smi)
     runs = (launches19, launches1m, launches10["phase1"], launches10["phase0"])
     launches = {n: sum(r[n] for r in runs) for n in kernels}
@@ -1548,15 +1696,16 @@ def main():
         "union_rescore": "diagon_tpu_torch/csrc/gather_rescore.cu",
         "bits_hits": "diagon_tpu_torch/csrc/bits_hits.cu",
     }
+    # the Pallas kernel bodies (B6: the resident form; _mk_kernel :45 too)
     replaces = {
-        "row_sum": "diagon_tpu/ops/pallas/row_sum.py:129",
-        "row_boolean": "diagon_tpu/ops/pallas/row_sum.py:76",
-        "approx_select": "diagon_tpu/ops/pallas/approx_pass.py:151",
-        "approx_select_bool": "diagon_tpu/ops/pallas/approx_pass.py:301",
-        "approx_select_bool2": "diagon_tpu/ops/pallas/approx_pass.py:248",
-        "gather_rescore": "diagon_tpu/ops/pallas/gather_rescore.py:364",
-        "union_rescore": "diagon_tpu/ops/pallas/gather_rescore.py:279",
-        "bits_hits": "diagon_tpu/ops/pallas/bits_hits.py:95",
+        "row_sum": "diagon_tpu/ops/pallas/row_sum.py:27",
+        "row_boolean": "diagon_tpu/ops/pallas/row_sum.py:42",
+        "approx_select": "diagon_tpu/ops/pallas/approx_pass.py:63",
+        "approx_select_bool": "diagon_tpu/ops/pallas/approx_pass.py:87",
+        "approx_select_bool2": "diagon_tpu/ops/pallas/approx_pass.py:196",
+        "gather_rescore": "diagon_tpu/ops/pallas/gather_rescore.py:102",
+        "union_rescore": "diagon_tpu/ops/pallas/gather_rescore.py:192",
+        "bits_hits": "diagon_tpu/ops/pallas/bits_hits.py:52",
     }
     record = {"kernels": [
         {

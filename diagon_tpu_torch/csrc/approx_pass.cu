@@ -1,39 +1,41 @@
-// Phase-1 approximate select kernels for Hopper (sm_90a): the pure-OR select
-// (B3), the general boolean select (B4) and the no-MUST_NOT boolean select in
-// two products (B5).
+// Phase-1 approximate select kernels for Hopper (sm_90a), all on the tensor
+// cores: the pure-OR select (B3), the general boolean select (B4) and the
+// no-MUST_NOT boolean select in two products (B5).
 //
-// Replaces diagon_tpu/ops/pallas/approx_pass.py: pallas_approx_select
-// (_kernel_or), pallas_approx_select_bool (_kernel_bool) and
-// pallas_approx_select_bool2 (_kernel_bool2).
+// Replaces diagon_tpu/ops/pallas/approx_pass.py: _kernel_or (:63, B3),
+// _kernel_bool (:87, B4) and _kernel_bool2 (:196, B5), the kernels of
+// pallas_approx_select, pallas_approx_select_bool and
+// pallas_approx_select_bool2.
 //
 // What they compute. The batch-compact bank holds U8 clause rows over the
 // padded doc axis in bf16 ([U8, D]); each role matrix a_t ([U8, Q], bf16)
 // says how often query q uses row u in that role. For every doc d and query q
-// a product p(q, d) = sum_u a_t[u, q] * bank[u, d] (bf16 inputs, f32
-// arithmetic: a bf16 x bf16 product is exact in f32, the sum rounds once per
-// add). Per (query, 128-doc tile) the kernels write:
+// a product p(q, d) = sum_u a_t[u, q] * bank[u, d] (bf16 inputs, f32 sums on
+// the tensor cores). Per (query, 128-doc tile) the kernels write:
 //   B3: the max of the score product over every doc of the tile (dead docs
 //       included), rounded once to bf16 (__float2bfloat16_rn, round to
 //       nearest even like XLA's cast); a doc matches iff product > 0 and live;
-//   B4: score product from a_sc; required/should/must_not counts from a_rq,
-//       a_sh, a_ng against presence = (bank > 0), derived here from the same
-//       bank; match = req == nreq, sho >= msm, neg == 0, req + sho > 0, live;
+//   B4: score product from a_sc; required/should/must_not counts rc, oc, nc
+//       from a_rq, a_sh, a_ng against presence = (bank > 0), derived here from
+//       the same bank; match = rc == nreq, oc >= msm, nc == 0, rc + oc > 0,
+//       live;
 //   B5: score product from a_sc; one count product cc from a_cb = rq*256 + sh
 //       against presence, decoded as rc = floor(cc * (1/256)), oc = cc - 256 rc;
 //       match = rc == nreq, oc >= msm, cc > 0, live.
 // B4 and B5 write the f32 tile max of the score product (no bf16 rounding)
-// where some doc of the tile matches, else -1. The counts are sums of small
-// integers below 2^24, so they and the hit counts are exact in any order.
+// where some doc of the tile matches, else -1. Every count is a sum of
+// integers below 2^24, exact under the tensor cores' truncating accumulator
+// (ops/approx_pass.py), so the matches and the hit counts are exact.
 //
 // B3 on the tensor cores (approx_or_mma_kernel). The TPU kernel is a dense
 // bf16 product on the MXU, and so is this one: P = A x B with A = a_t^T
 // ([Q, U8], the indicator) and B = the bank ([U8, docs]), bf16 in, f32 sums
-// in registers. On the CUDA cores (the list design of B4 below) B3 spent
-// one __fmul_rn and one __fadd_rn per (query, list entry, doc), ~1.65e10 of
-// each at the 1M main-path shape, and the issue rate of the f32 pipes bounded
-// it at about 1 ms whatever the schedule; the dense product is 2 Q U8 D ~
-// 2.9e11 bf16 operations there, 0.3 ms at the tensor-core peak. The bank is
-// read from HBM once in either design.
+// in registers. As a list kernel on the CUDA cores (the port's first form of
+// B3, B4 and B5) B3 spent one __fmul_rn and one __fadd_rn per (query, list
+// entry, doc), ~1.65e10 of each at the 1M main-path shape, and the issue rate
+// of the f32 pipes bounded it at about 1 ms whatever the schedule; the dense
+// product is 2 Q U8 D ~ 2.9e11 bf16 operations there, 0.3 ms at the
+// tensor-core peak. The bank is read from HBM once in either design.
 //   - Persistent blocks of one warpgroup (4 per SM) walk the 128-doc tiles;
 //     grid.y splits the queries where the tiles alone leave SMs idle. A
 //     block copies its tile's [U8, 128] bf16 slab into shared memory
@@ -58,11 +60,19 @@
 // that arithmetic. Every product is >= 0, so p > 0 iff some product is > 0
 // and the hit counts stay exact.
 //
-// B5 on the tensor cores (approx_bool2_mma_kernel). Both products are MMAs
+// B4 and B5 on the tensor cores: one body (bool_select) with the number of
+// count products as its parameter, behind two kernels (approx_bool_mma_kernel
+// for B4, approx_bool2_mma_kernel for B5). Every product is an MMA
 // (mma.sync.m16n8k16, bf16 in, f32 sums) from one staged copy of the bank
-// tile; as a list kernel on the CUDA cores it was bounded, like B3 before
-// it, by the rate of one f32 multiply and one add per (query, list entry,
-// doc), twice.
+// tile. As list kernels on the CUDA cores both were bounded, like B3 before
+// them, by the rate of one f32 multiply and one add per (query, list entry,
+// doc) and product; B4 took three launches (list compaction, the list
+// kernel, a pass over a per-tile count plane) and four such products, 8.0 ms
+// at Q 820, U8 168 over 1M docs on an H100 at 700 W (PERF.md, PR 5). B4
+// keeps its three counts as three exact
+// count products that share the presence fragments: packing them into fewer
+// is not exact in bf16 for the rows it exists for, a (row, query) pair in
+// two roles (rq * 256 + sh needs 9 significant bits where both are 1).
 //   - Persistent blocks, one or two an SM. A block owns runs of 8
 //     neighbouring tiles (x, x + gridDim.x, ...: neighbouring blocks read
 //     neighbouring runs of every bank row together) and a range of 16-query
@@ -73,48 +83,43 @@
 //     ldmatrix needs too), K padded to 16 with written zero rows; where two
 //     tiles fit, the next tile's copy runs under this tile's MMAs.
 //   - The indicators are A fragments that pack_indicator_kernel lays out in
-//     fragment order once per call. The block copies its fragments into
-//     shared memory once and keeps them for every tile: read from global
-//     memory per k-step they cost an L2 round trip each, which set the
-//     kernel's time. Only where they do not fit beside the tile (U8 of
-//     several hundred) do they stay in global memory, loaded a k-step ahead.
-//   - A warp takes whole fragments (16 queries x the tile's 128 docs, in two
-//     halves of 64 docs). Per k-step and 16 docs one ldmatrix.x4.trans gives
-//     the B fragments of the bank; presence = (bank > 0) is made from them in
-//     registers (set.gt.bf16x2) and never read from memory; the count MMA
-//     (a_cb x presence) and the score MMA (a_sc x bank) take the same
-//     fragment. The first k-step's MMAs take a zero C operand: sums that were
-//     zeroed in registers first made every tile's first MMAs wait.
-//   - Epilogue in registers. cc is an exact integer (ops/approx_pass.py), so
-//     rc == nreq && oc >= msm && cc > 0 is the range test lo <= cc <= hi with
-//     lo = max(256 nreq + ceil(msm), 1), hi = 256 nreq + 255 (empty unless
-//     nreq is an integer in [0, 255]), one subtract and one compare per doc;
-//     the matches become bits that a popcount takes against the tile's live
-//     bits. The f32 tile max is reduced with two shuffles over the 4 lanes of
-//     a row.
+//     fragment order once per call (B5: a_sc, a_cb; B4: a_sc, a_rq, a_sh,
+//     a_ng). The block copies its fragments into shared memory once and
+//     keeps them for every tile: read from global memory per k-step they
+//     cost an L2 round trip each, which set B5's first time. Only where they
+//     do not fit beside the tile (U8 of several hundred) do they stay in
+//     global memory, loaded a k-step ahead.
+//   - A warp takes whole fragments (16 queries x the tile's 128 docs) in
+//     passes that hold 64 sums a thread: B5 in two passes of 64 docs (score
+//     and cc, 32 sums each), B4 in four of 32 docs (score and three counts,
+//     16 sums each), so four products fit the registers of two; B4's four A
+//     fragments a k-step still take it past 128 registers, so an SM runs 12
+//     of its warps, not 16. Per k-step
+//     and 16 docs one ldmatrix.x4.trans gives the B fragments of the bank;
+//     presence = (bank > 0) is made from them in registers (set.gt.bf16x2),
+//     never read from memory, and feeds every count product; the score
+//     product takes the same fragments. The first k-step's MMAs take a zero
+//     C operand: sums zeroed in registers first made every tile's first MMAs
+//     wait.
+//   - Epilogue in registers. B5: cc is an exact integer, so rc == nreq && oc
+//     >= msm && cc > 0 is the range test lo <= cc <= hi (match_range), one
+//     subtract and one compare per doc. B4: rc == nreq && oc >= lo && nc == 0
+//     on its three exact counts (match_counts; lo folds rc + oc > 0 into
+//     msm). The matches become bits that a popcount takes against the tile's
+//     live bits. The f32 tile max is reduced with two shuffles over the 4
+//     lanes of a row.
 //   - The tile maxima of a run wait in a [queries, 8] slab in shared memory
 //     and leave as 32 contiguous bytes per query; hits add up per (block,
 //     query) in shared memory and go out with one integer atomicAdd each
 //     (pack_indicator_kernel zeroes hits): exact in any order. There is no
 //     per-tile count plane and no pass over one.
-// What bounds B5: the rate of mma.sync (below wgmma's) and the fragments'
-// way through the shared-memory pipe (192 bytes per MMA) where U8 is in the
-// hundreds; the epilogue, the per-tile barriers and the [Q, D/128] stores
-// where U8 is a few tens.
-//
-// B4 uses the list design. Each indicator column holds at most
-// Tq nonzeros while U8 may be hundreds, so a first kernel compacts every
-// role matrix into per-query lists of (row, value) in ascending row order,
-// and the select kernel sums only the listed rows (adding an exact zero
-// product changes no f32 sum). A block of 8 warps owns one 128-doc tile and
-// a slice of the queries: it stages the tile's [U8, 128] bf16 slab in
-// shared memory once, then each warp walks its own queries (q = warp,
-// warp + 8, ...) with no further barrier. A lane owns 4 neighbouring docs,
-// so each list entry feeds 4 independent f32 adds from one 8-byte shared
-// read, and per query the warp reduces its tile with 5 shuffles (max) and
-// one integer reduction (match count), written by lane 0; hits_kernel sums
-// the per-tile counts. The rate of the f32 adds and the latency of the list
-// loads bound it, not HBM.
+// What bounds them: the rate of mma.sync (below wgmma's) and the fragments'
+// way through the shared-memory pipe (192 bytes per MMA in either form) where
+// U8 is in the hundreds; the epilogue, the per-tile barriers and the
+// [Q, D/128] stores where U8 is a few tens. B4 does twice B5's MMAs per tile
+// and loads its A fragments once per pass, four times a tile; at U8 168 its
+// fragments take 22.5 KB of shared memory each, so a block holds 8 of them
+// beside the tile and an SM runs one block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,141 +130,7 @@
 namespace {
 
 constexpr int kLane = 128;  // docs per tile
-constexpr int kThreads = 256;  // 8 warps; a lane owns 4 docs of the tile
-constexpr int kWarps = kThreads / 32;
-constexpr int kMinBlocks = 264;  // 2 blocks per SM on a 132-SM card
 constexpr int kMaxGridY = 65535;
-
-struct Lists {
-  const int32_t* idx;  // [Q, U8] row of the j-th nonzero of column q
-  const float* val;    // [Q, U8] its value
-  const int32_t* cnt;  // [Q] nonzeros of column q
-};
-
-// One thread per query: rows of column q in ascending order. Threads of a
-// warp read neighbouring columns of one row, so the reads coalesce.
-__global__ void compact_lists_kernel(const __nv_bfloat16* __restrict__ a_t,
-                                     int U8, int Q, int32_t* __restrict__ idx,
-                                     float* __restrict__ val,
-                                     int32_t* __restrict__ cnt) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= Q) return;
-  int32_t* iq = idx + (int64_t)q * U8;
-  float* vq = val + (int64_t)q * U8;
-  int n = 0;
-  for (int u = 0; u < U8; ++u) {
-    const float v = __bfloat162float(a_t[(int64_t)u * Q + q]);
-    if (v != 0.f) {
-      iq[n] = u;
-      vq[n] = v;
-      ++n;
-    }
-  }
-  cnt[q] = n;
-}
-
-// acc[i] = sum over the listed rows of value * bank (or * presence) at doc
-// 4 * lane + i of the staged tile: exact products, one f32 add each,
-// ascending rows. bf16 -> f32 is exact: the bf16 bits are the high half.
-__device__ __forceinline__ void list_dot4(const Lists& L, int q, int U8,
-                                          const __nv_bfloat16* s_bank,
-                                          int lane, bool presence,
-                                          float acc[4]) {
-  const int n = __ldg(L.cnt + q);
-  const int32_t* iq = L.idx + (int64_t)q * U8;
-  const float* vq = L.val + (int64_t)q * U8;
-  acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
-  for (int j = 0; j < n; ++j) {
-    const float v = __ldg(vq + j);
-    const uint2 raw = *reinterpret_cast<const uint2*>(
-        s_bank + __ldg(iq + j) * kLane + 4 * lane);
-    float b[4] = {__uint_as_float(raw.x << 16),
-                  __uint_as_float(raw.x & 0xffff0000u),
-                  __uint_as_float(raw.y << 16),
-                  __uint_as_float(raw.y & 0xffff0000u)};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float x = presence ? (b[i] > 0.f ? 1.f : 0.f) : b[i];
-      acc[i] = __fadd_rn(acc[i], __fmul_rn(v, x));
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) approx_select_kernel(
-    const __nv_bfloat16* __restrict__ bank, const float* __restrict__ live,
-    const float* __restrict__ params, Lists l0, Lists l1, Lists l2, Lists l3,
-    float* __restrict__ tmax, int32_t* __restrict__ tcnt, int U8, int Q,
-    int q_per_block, int64_t D) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* s_bank = reinterpret_cast<__nv_bfloat16*>(smem);
-
-  const int64_t S = D / kLane;
-  const int64_t g = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  // stage the tile: U8 rows of 128 bf16 (256 bytes = 16 x 16-byte loads)
-  const uint4* src = reinterpret_cast<const uint4*>(bank);
-  uint4* dst = reinterpret_cast<uint4*>(s_bank);
-  for (int i = threadIdx.x; i < U8 * 16; i += kThreads) {
-    const int64_t u = i >> 4;
-    dst[i] = __ldg(src + (u * D + g * kLane) / 8 + (i & 15));
-  }
-  const float4 lv = __ldg(reinterpret_cast<const float4*>(live + g * kLane) + lane);
-  const bool alive[4] = {lv.x > 0.f, lv.y > 0.f, lv.z > 0.f, lv.w > 0.f};
-  __syncthreads();
-
-  for (int ys = blockIdx.y; (int64_t)ys * q_per_block < Q; ys += gridDim.y) {
-    const int q_end = min(Q, (ys + 1) * q_per_block);
-    for (int q = ys * q_per_block + warp; q < q_end; q += kWarps) {
-      float ap[4];
-      list_dot4(l0, q, U8, s_bank, lane, false, ap);
-      bool match[4];
-      const float nreq = __ldg(params + q);
-      const float msm = __ldg(params + Q + q);
-      float rc[4], oc[4], nc[4];
-      list_dot4(l1, q, U8, s_bank, lane, true, rc);
-      list_dot4(l2, q, U8, s_bank, lane, true, oc);
-      list_dot4(l3, q, U8, s_bank, lane, true, nc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        match[i] = rc[i] == nreq && oc[i] >= msm && nc[i] == 0.f &&
-                   __fadd_rn(rc[i], oc[i]) > 0.f && alive[i];
-      }
-      float mx = fmaxf(fmaxf(ap[0], ap[1]), fmaxf(ap[2], ap[3]));
-      int c = (int)match[0] + (int)match[1] + (int)match[2] + (int)match[3];
-      for (int o = 16; o > 0; o >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      }
-      c = __reduce_add_sync(0xffffffffu, c);
-      if (lane == 0) {
-        const int64_t o = (int64_t)q * S + g;
-        tmax[o] = c > 0 ? mx : -1.f;
-        tcnt[o] = c;
-      }
-    }
-  }
-}
-
-// hits[q] = sum over tiles of the per-tile match counts, in a fixed order
-__global__ void __launch_bounds__(256) hits_kernel(
-    const int32_t* __restrict__ tcnt, int64_t S, int Q,
-    int32_t* __restrict__ hits) {
-  __shared__ int part[256];
-  for (int q = blockIdx.x; q < Q; q += gridDim.x) {
-    const int32_t* row = tcnt + (int64_t)q * S;
-    int acc = 0;
-    for (int64_t i = threadIdx.x; i < S; i += 256) acc += row[i];
-    part[threadIdx.x] = acc;
-    __syncthreads();
-    for (int w = 128; w > 0; w >>= 1) {
-      if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) hits[q] = part[0];
-    __syncthreads();
-  }
-}
 
 // ---------------------------------------------------------------------------
 // B3: the pure-OR select on the tensor cores
@@ -279,31 +150,42 @@ constexpr int kAtomBytes = 1024;  // 8 rows x 64 docs, 128-byte swizzle
 constexpr int kKGroupBytes = 2 * kAtomBytes;  // 8 rows of the tile
 static_assert(kWgThreads == kLane, "a thread stages one doc's live flag");
 
+
+// The indicator matrices a select packs, in packing order: B3 a_t; B5 a_sc,
+// a_cb; B4 a_sc, a_rq, a_sh, a_ng.
+struct Indicators {
+  const __nv_bfloat16* mat[4];
+  int n;
+};
+
 // The m16k16 A fragments (row-major, 16 queries x 16 rows) in the order the
 // kernels load them: packed[((i * MF + m) * KS + ks) * 32 + lane] holds
-// lane's four registers of fragment (m, ks) of matrix i (a_t, then a_t2
-// where it is not null). With g = lane / 4, t = lane % 4 and
-// A(q, k) = a_t[k, q] (zero past Q or U8), the registers are
+// lane's four registers of fragment (m, ks) of matrix i. With g = lane / 4,
+// t = lane % 4 and A(q, k) = a_t[k, q] (zero past Q or U8), the registers are
 // (A(g, 2t), A(g, 2t+1)), (A(g+8, 2t), ..), (A(g, 2t+8), ..),
 // (A(g+8, 2t+8), ..), each pair low half first, q and k relative to the
 // fragment's origin (16 m, 16 ks). B3: warp w of the warpgroup takes fragment
-// m = 4 * chunk + w. B5: a warp takes fragment m of both matrices. The
+// m = 4 * chunk + w. B4 and B5: a warp takes fragment m of every matrix. The
 // kernel also zeroes hits[0..Q), which the select kernels add into.
-__global__ void pack_indicator_kernel(const __nv_bfloat16* __restrict__ a_t,
-                                      const __nv_bfloat16* __restrict__ a_t2,
-                                      int U8, int Q, int MF, int KS,
-                                      uint4* __restrict__ packed,
+__global__ void pack_indicator_kernel(Indicators ind, int U8, int Q, int MF,
+                                      int KS, uint4* __restrict__ packed,
                                       int32_t* __restrict__ hits) {
   const int64_t per = (int64_t)MF * KS * 32;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < Q) hits[i] = 0;  // MF * 16 >= Q: the grid covers every query
-  if (i >= (a_t2 ? 2 : 1) * per) return;
+  if (i >= ind.n * per) return;
   const int lane = (int)(i & 31);
   const int64_t f = (i % per) >> 5;
   const int m = (int)(f / KS), ks = (int)(f % KS);
   const int g = lane >> 2, t = lane & 3;
-  const unsigned short* raw =
-      reinterpret_cast<const unsigned short*>(i < per ? a_t : a_t2);
+  const int64_t mi = i / per;
+  // a select, not an index: a dynamic index into a kernel parameter would
+  // copy the struct to local memory
+  const __nv_bfloat16* a_t = mi == 0   ? ind.mat[0]
+                             : mi == 1 ? ind.mat[1]
+                             : mi == 2 ? ind.mat[2]
+                                       : ind.mat[3];
+  const unsigned short* raw = reinterpret_cast<const unsigned short*>(a_t);
   auto at = [&](int q, int k) -> uint32_t {
     return (q < Q && k < U8) ? raw[(int64_t)k * Q + q] : 0u;
   };
@@ -314,6 +196,7 @@ __global__ void pack_indicator_kernel(const __nv_bfloat16* __restrict__ a_t,
   packed[i] = make_uint4(pair(q0, k0), pair(q0 + 8, k0), pair(q0, k0 + 8),
                          pair(q0 + 8, k0 + 8));
 }
+
 
 // d (+)= A x B for 64 queries x 128 docs x 16 rows on the tensor cores
 // (wgmma, asynchronous): A from registers (lane's m16k16 A fragment, warp w
@@ -603,19 +486,35 @@ __global__ void __launch_bounds__(kWgThreads) approx_or_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// B5: the two-product boolean select on the tensor cores
+// B4 and B5: the boolean selects on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kB5MaxWarps = 16;  // an SM's warps at 128 registers a thread
-constexpr int kB5StreamWarps = 8;  // with the indicators left in global memory
+constexpr int kBoolStreamWarps = 8;  // the indicators left in global memory
 constexpr int kRun = 8;  // tiles whose maxima leave together: 32 bytes a query
 constexpr int kFragQ = 16;  // queries per m16 fragment
 // a block's shared memory per fragment: its slab of maxima, its counts and
-// its queries' match ranges
+// its queries' match parameters
 constexpr int kFragBytes = kFragQ * (kRun + 3) * 4;
-constexpr int kFragABytes = 2 * 32 * 16;  // per k-step: both indicators' A
+constexpr int kMatABytes = 32 * 16;  // per k-step: one matrix's A fragment
 
-// The match test rc == nreq && oc >= msm && cc > 0 on an exact integer cc
+// The two forms of bool_select. B5 (kCounts 1): the score product and the
+// combined count product cc, over two passes of 64 docs. B4 (kCounts 3): the
+// score product and the required, should and must_not counts, over four
+// passes of 32 docs. Either way a thread holds 64 sums. An SM runs at most
+// kMaxWarps of them with the indicators in shared memory: 16 at B5's 127
+// registers a thread; B4's four A fragments a k-step need more than 128
+// (ptxas spilled there), so 12, at up to 168.
+template <int kCounts>
+struct BoolForm {
+  static constexpr int kMaxWarps = kCounts == 1 ? 16 : 12;
+  static constexpr int kMats = 1 + kCounts;  // a_sc, then the counts
+  static constexpr int kPass = kCounts == 1 ? 64 : 32;  // docs a pass
+  static constexpr int kNF = kPass / 8;  // n8 fragments a pass
+  static constexpr int kSums = 4 * kNF;  // sums a thread and product
+  static constexpr int kWords = kPass / 32;  // live words a pass
+};
+
+// B5's match test rc == nreq && oc >= msm && cc > 0 on an exact integer cc
 // (rc = floor(cc / 256), oc = cc - 256 rc) as |cc - mid| <= half: the range
 // [max(256 nreq + max(ceil(msm), 0), 1), 256 nreq + 255], empty (half < 0)
 // unless nreq is an integer in [0, 255]. Every value is a small integer or
@@ -634,44 +533,66 @@ __device__ __forceinline__ float2 match_range(const float* params, int Q,
                      ok ? __fmul_rn(0.5f, __fsub_rn(hi, lo)) : -1.f);
 }
 
-// Block (x, y), 4 to 16 warps, owns the runs x, x + gridDim.x, ... of `run`
-// neighbouring tiles and the 16-query fragments [y * mf_per_y, ...). With
-// A_SMEM it first copies its fragments of both packed indicators into shared
-// memory, where they stay for every tile (from global memory each A fragment
-// is an L2 round trip per k-step and sets the kernel's time); the launcher
-// leaves them in global memory only where they do not fit beside the tile,
-// and the kernel then loads them a k-step ahead. Per tile the block
-// stages the [U8, 128] slab (cp.async; with nbuf = 2 the next tile's copy
-// runs under this tile's MMAs), and each warp takes fragments warp,
-// warp + warps, ... of the block's range: per half of 64 docs, the count
-// product cc = a_cb x (bank > 0) and the score product ap = a_sc x bank from
-// the same B fragments, 32 sums each in registers; then the matches
-// (match_range) as bits against the live bits of the lane's columns, and the
-// f32 max of ap. tmax[q, tile] = max over the tile's docs of ap[q, d] where a
-// live doc of the tile matches, else -1, through the block's [queries, kRun]
-// slab; hits[q] (zeroed by pack_indicator_kernel) += the block's matches of
-// q, one integer atomicAdd per (block, query).
+// B4's match test rc == nreq && oc >= msm && nc == 0 && rc + oc > 0 on exact
+// integer counts as rc == nreq && oc >= lo && nc == 0: where rc == nreq,
+// rc + oc > 0 fails only for nreq 0 with oc 0, so lo = ceil(msm), at least 1
+// where nreq is 0; +inf where msm is NaN, which nothing matches.
+// Returns (nreq, lo) of query q; no count matches a query past Q (rc >= 0).
+__device__ __forceinline__ float2 match_counts(const float* params, int Q,
+                                               int q) {
+  if (q >= Q) return make_float2(-1.f, 0.f);
+  const float nreq = __ldg(params + q), msm = __ldg(params + Q + q);
+  float lo = msm == msm ? ceilf(msm) : __int_as_float(0x7f800000);
+  if (nreq == 0.f) lo = fmaxf(lo, 1.f);
+  return make_float2(nreq, lo);
+}
+
+// Sum i of a pass against query parameters rg (match_range or match_counts).
+template <int kCounts, int N>
+__device__ __forceinline__ bool matches(const float (&cnt)[kCounts][N], int i,
+                                        float2 rg) {
+  if constexpr (kCounts == 1) {
+    return fabsf(__fsub_rn(cnt[0][i], rg.x)) <= rg.y;
+  } else {
+    return cnt[0][i] == rg.x && cnt[1][i] >= rg.y && cnt[2][i] == 0.f;
+  }
+}
+
+// Block (x, y), 4 to kMaxWarps warps, owns the runs x, x + gridDim.x, ...
+// of `run` neighbouring tiles and the 16-query fragments [y * mf_per_y,
+// ...). With A_SMEM it first copies its fragments of every packed indicator
+// into shared memory, where they stay for every tile (from global memory
+// each A fragment is an L2 round trip per k-step); the launcher leaves them
+// in global memory only where they do not fit beside the tile, and the
+// kernel then loads them a k-step ahead. Per tile the block stages the [U8, 128] slab (cp.async;
+// with nbuf = 2 the next tile's copy runs under this tile's MMAs), and each
+// warp takes fragments warp, warp + warps, ... of the block's range: per pass
+// of the tile's docs, the count products (the counts' A x (bank > 0)) and the
+// score product ap = a_sc x bank from the same B fragments, 64 sums a thread
+// in registers; then the matches (matches) as bits against the live bits of
+// the lane's columns, and the f32 max of ap. tmax[q, tile] = max over the
+// tile's docs of ap[q, d] where a live doc of the tile matches, else -1,
+// through the block's [queries, kRun] slab; hits[q] (zeroed by
+// pack_indicator_kernel) += the block's matches of q, one integer atomicAdd
+// per (block, query).
 //
 // Dynamic shared memory: nbuf tiles of KS * 16 rows x 256 bytes
-// (core_offset); with A_SMEM mf_per_y * KS * kFragABytes of A fragments,
-// [fragment][k-step][matrix][lane]; 4 words of live bits; mf_per_y * 16 *
-// kRun maxima; mf_per_y * 16 counts; mf_per_y * 16 match ranges (mid, half).
-template <bool A_SMEM>
-__global__ void __launch_bounds__(32 * (A_SMEM ? kB5MaxWarps : kB5StreamWarps),
-                                  1)
-    approx_bool2_mma_kernel(const __nv_bfloat16* __restrict__ bank,
-                            const float* __restrict__ live,
-                            const float* __restrict__ params,
-                            const uint4* __restrict__ packed,
-                            float* __restrict__ tmax,
-                            int32_t* __restrict__ hits, int U8, int Q, int KS,
-                            int MF, int mf_per_y, int nbuf, int run,
-                            int64_t D) {
+// (core_offset); with A_SMEM mf_per_y * KS * kMats * kMatABytes of A
+// fragments, [fragment][k-step][matrix][lane]; 4 words of live bits;
+// mf_per_y * 16 * kRun maxima; mf_per_y * 16 counts; mf_per_y * 16 match
+// parameters.
+template <int kCounts, bool A_SMEM>
+__device__ __forceinline__ void bool_select(
+    const __nv_bfloat16* __restrict__ bank, const float* __restrict__ live,
+    const float* __restrict__ params, const uint4* __restrict__ packed,
+    float* __restrict__ tmax, int32_t* __restrict__ hits, int U8, int Q,
+    int KS, int MF, int mf_per_y, int nbuf, int run, int64_t D) {
+  using F = BoolForm<kCounts>;
   extern __shared__ __align__(1024) unsigned char s_mem[];
   const uint32_t s_tile = (uint32_t)__cvta_generic_to_shared(s_mem);
   const int tile_bytes = KS * 16 * kLane * 2;
   uint4* s_a = reinterpret_cast<uint4*>(s_mem + nbuf * tile_bytes);
-  const int a_bytes = A_SMEM ? mf_per_y * KS * kFragABytes : 0;
+  const int a_bytes = A_SMEM ? mf_per_y * KS * F::kMats * kMatABytes : 0;
   uint32_t* s_live =
       reinterpret_cast<uint32_t*>(s_mem + nbuf * tile_bytes + a_bytes);
   float* s_max = reinterpret_cast<float*>(s_live + 4);
@@ -695,8 +616,10 @@ __global__ void __launch_bounds__(32 * (A_SMEM ? kB5MaxWarps : kB5StreamWarps),
   float lv = threadIdx.x < kLane
                  ? __ldg(live + (int64_t)tile * kLane + threadIdx.x) : 0.f;
   for (int i = threadIdx.x; i < mf_per_y * kFragQ; i += blockDim.x) {
+    const int q = mf_begin * kFragQ + i;
     s_cnt[i] = 0;
-    s_range[i] = match_range(params, Q, mf_begin * kFragQ + i);
+    s_range[i] = kCounts == 1 ? match_range(params, Q, q)
+                              : match_counts(params, Q, q);
   }
   // the zero rows that pad K to KS * 16, in every buffer
   for (int b = 0; b < nbuf; ++b) {
@@ -708,23 +631,26 @@ __global__ void __launch_bounds__(32 * (A_SMEM ? kB5MaxWarps : kB5StreamWarps),
   }
   if (A_SMEM) {
     const int per_mat = (mf_end - mf_begin) * KS * 32;
-    for (int i = threadIdx.x; i < 2 * per_mat; i += blockDim.x) {
+    for (int i = threadIdx.x; i < F::kMats * per_mat; i += blockDim.x) {
       // r = (fragment * KS + k-step) * 32 + lane
       const int mat = i / per_mat, r = i % per_mat;
-      s_a[(r / 32 * 2 + mat) * 32 + r % 32] =
+      s_a[(r / 32 * F::kMats + mat) * 32 + r % 32] =
           __ldg(packed + ((int64_t)(mat * MF + mf_begin) * KS) * 32 + r);
     }
   }
-  // lane's A fragments of (fragment mf, k-step ks): a_sc, then a_cb
-  auto load_a = [&](int mf, int ks, uint4& a_sc, uint4& a_cb) {
+  // lane's A fragments of (fragment mf, k-step ks): a_sc, then the counts
+  auto load_a = [&](int mf, int ks, uint4 (&a)[F::kMats]) {
     if (A_SMEM) {
-      const uint4* f = s_a + ((mf - mf_begin) * KS + ks) * 64 + lane;
-      a_sc = f[0];
-      a_cb = f[32];
+      const uint4* f =
+          s_a + ((mf - mf_begin) * KS + ks) * (32 * F::kMats) + lane;
+#pragma unroll
+      for (int m = 0; m < F::kMats; ++m) a[m] = f[32 * m];
     } else {
       const uint4* f = packed + ((int64_t)mf * KS + ks) * 32 + lane;
-      a_sc = __ldg(f);
-      a_cb = __ldg(f + (int64_t)MF * KS * 32);
+#pragma unroll
+      for (int m = 0; m < F::kMats; ++m) {
+        a[m] = __ldg(f + (int64_t)m * MF * KS * 32);
+      }
     }
   };
   // ldmatrix.x4.trans: lanes 8i..8i+7 address the 8 rows of matrix i; matrices
@@ -762,64 +688,70 @@ __global__ void __launch_bounds__(32 * (A_SMEM ? kB5MaxWarps : kB5StreamWarps),
 
     for (int mf = mf_begin + warp; mf < mf_end; mf += warps) {
       const int r0 = (mf - mf_begin) * kFragQ + g;  // lane's rows: r0, r0 + 8
-      const float mid0 = s_range[r0].x, half0 = s_range[r0].y;
-      const float mid1 = s_range[r0 + 8].x, half1 = s_range[r0 + 8].y;
+      const float2 rg0 = s_range[r0], rg1 = s_range[r0 + 8];
       float mx0 = 0.f, mx1 = 0.f;  // no sum is negative
       int c0 = 0, c1 = 0;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {  // docs 64 h .. 64 h + 63
-        float cc[32], ap[32];
-        uint4 a_sc, a_cb;
-        if (!A_SMEM) load_a(mf, 0, a_sc, a_cb);
+      for (int h = 0; h < kLane / F::kPass; ++h) {  // docs kPass h, ...
+        float ap[F::kSums], cnt[kCounts][F::kSums];
+        uint4 a[F::kMats];
+        if (!A_SMEM) load_a(mf, 0, a);
+        // the pass's 64-doc atom of the staged tile and its first 8-doc chunk
+        const uint32_t atom =
+            buf + lm_off + (F::kPass * h / 64) * kAtomBytes;
+        const int c_base = F::kPass * h % 64 / 8;
         // k-step ks into the sums; the first one starts them from zero
         auto k_step = [&](int ks, auto first) {
           constexpr bool kFirst = decltype(first)::value;
-          uint4 n_sc = a_sc, n_cb = a_cb;
+          uint4 nxt[F::kMats];
           if (A_SMEM) {
-            load_a(mf, ks, a_sc, a_cb);
+            load_a(mf, ks, a);
           } else if (ks + 1 < KS) {
-            load_a(mf, ks + 1, n_sc, n_cb);  // an L2 round trip: a k-step ahead
+            load_a(mf, ks + 1, nxt);  // an L2 round trip: a k-step ahead
           }
-          const uint32_t row = buf + 2 * ks * kKGroupBytes + lm_off +
-                               h * kAtomBytes;
+          const uint32_t row = atom + 2 * ks * kKGroupBytes;
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {  // 16 docs: n8 fragments 2jj, 2jj+1
+          for (int jj = 0; jj < F::kNF / 2; ++jj) {  // 16 docs: 2jj, 2jj+1
             uint32_t b0, b1, b2, b3;
-            ldmatrix_x4_trans(row + (((2 * jj + lm_chunk) ^ lm_row) << 4), b0,
-                              b1, b2, b3);
-            mma_bf16<kFirst>(cc + 8 * jj, a_cb, positive2(b0), positive2(b1));
-            mma_bf16<kFirst>(cc + 8 * jj + 4, a_cb, positive2(b2),
-                             positive2(b3));
-            mma_bf16<kFirst>(ap + 8 * jj, a_sc, b0, b1);
-            mma_bf16<kFirst>(ap + 8 * jj + 4, a_sc, b2, b3);
+            ldmatrix_x4_trans(
+                row + (((c_base + 2 * jj + lm_chunk) ^ lm_row) << 4), b0, b1,
+                b2, b3);
+            const uint32_t p0 = positive2(b0), p1 = positive2(b1);
+            const uint32_t p2 = positive2(b2), p3 = positive2(b3);
+#pragma unroll
+            for (int c = 0; c < kCounts; ++c) {
+              mma_bf16<kFirst>(cnt[c] + 8 * jj, a[1 + c], p0, p1);
+              mma_bf16<kFirst>(cnt[c] + 8 * jj + 4, a[1 + c], p2, p3);
+            }
+            mma_bf16<kFirst>(ap + 8 * jj, a[0], b0, b1);
+            mma_bf16<kFirst>(ap + 8 * jj + 4, a[0], b2, b3);
           }
-          if (!A_SMEM) {
-            a_sc = n_sc;
-            a_cb = n_cb;
+          if (!A_SMEM && ks + 1 < KS) {
+#pragma unroll
+            for (int m = 0; m < F::kMats; ++m) a[m] = nxt[m];
           }
         };
         k_step(0, std::true_type{});
         for (int ks = 1; ks < KS; ++ks) k_step(ks, std::false_type{});
-        // fragment j: docs 64 h + 8 j + 2 t + e in [4 j + e] (row g) and
-        // [4 j + 2 + e] (row g + 8)
-        uint32_t m0[2] = {0u, 0u}, m1[2] = {0u, 0u};
+        // n8 fragment j: docs kPass h + 8 j + 2 t + e in [4 j + e] (row g)
+        // and [4 j + 2 + e] (row g + 8)
+        uint32_t m0[F::kWords] = {}, m1[F::kWords] = {};
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < F::kNF; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const uint32_t bit = 1u << (8 * (j % 4) + e);
-            if (fabsf(__fsub_rn(cc[4 * j + e], mid0)) <= half0) {
-              m0[j / 4] |= bit;
-            }
-            if (fabsf(__fsub_rn(cc[4 * j + 2 + e], mid1)) <= half1) {
-              m1[j / 4] |= bit;
-            }
+            if (matches(cnt, 4 * j + e, rg0)) m0[j / 4] |= bit;
+            if (matches(cnt, 4 * j + 2 + e, rg1)) m1[j / 4] |= bit;
           }
           mx0 = fmaxf(mx0, fmaxf(ap[4 * j], ap[4 * j + 1]));
           mx1 = fmaxf(mx1, fmaxf(ap[4 * j + 2], ap[4 * j + 3]));
         }
-        c0 += __popc(m0[0] & x[2 * h]) + __popc(m0[1] & x[2 * h + 1]);
-        c1 += __popc(m1[0] & x[2 * h]) + __popc(m1[1] & x[2 * h + 1]);
+#pragma unroll
+        for (int w = 0; w < F::kWords; ++w) {
+          c0 += __popc(m0[w] & x[F::kWords * h + w]);
+          c1 += __popc(m1[w] & x[F::kWords * h + w]);
+        }
       }
 #pragma unroll
       for (int o = 1; o < 4; o <<= 1) {  // the 4 lanes of a row
@@ -858,41 +790,31 @@ __global__ void __launch_bounds__(32 * (A_SMEM ? kB5MaxWarps : kB5StreamWarps),
   }
 }
 
-// B4: compacts the four role matrices, runs the list kernel, sums the hits.
-int launch_bool(const void* const* mats, const void* bank, const float* params,
-                const float* live, int32_t* idx, float* val, int32_t* cnt,
-                float* tmax, int32_t* tcnt, int32_t* hits, int U8, int Q,
-                int64_t D, cudaStream_t stream) {
-  const int64_t list = (int64_t)Q * U8;
-  Lists lists[4];
-  for (int r = 0; r < 4; ++r) {
-    lists[r] = Lists{idx + r * list, val + r * list, cnt + (int64_t)r * Q};
-    compact_lists_kernel<<<(Q + 127) / 128, 128, 0, stream>>>(
-        reinterpret_cast<const __nv_bfloat16*>(mats[r]), U8, Q,
-        idx + r * list, val + r * list, cnt + (int64_t)r * Q);
-  }
-  const int64_t S = D / kLane;
-  const size_t smem = (size_t)U8 * kLane * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      approx_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  // split the queries over grid.y when the tiles alone cannot fill the card
-  int64_t ys = (kMinBlocks + S - 1) / S;
-  const int64_t max_ys = (Q + kWarps - 1) / kWarps;
-  if (ys > max_ys) ys = max_ys;
-  if (ys > kMaxGridY) ys = kMaxGridY;
-  if (ys < 1) ys = 1;
-  const int64_t per = (Q + ys - 1) / ys;
-  const int q_per_block = (int)(((per + kWarps - 1) / kWarps) * kWarps);
-  const dim3 grid((unsigned)S, (unsigned)ys);
-  approx_select_kernel<<<grid, kThreads, smem, stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(bank), live, params, lists[0],
-      lists[1], lists[2], lists[3], tmax, tcnt, U8, Q, q_per_block, D);
-  hits_kernel<<<Q < kMaxGridY ? Q : kMaxGridY, 256, 0, stream>>>(tcnt, S, Q,
-                                                                  hits);
-  return (int)cudaGetLastError();
+#define DIAGON_BOOL_SELECT_ARGS                                               \
+  const __nv_bfloat16 *__restrict__ bank, const float *__restrict__ live,     \
+      const float *__restrict__ params, const uint4 *__restrict__ packed,     \
+      float *__restrict__ tmax, int32_t *__restrict__ hits, int U8, int Q,    \
+      int KS, int MF, int mf_per_y, int nbuf, int run, int64_t D
+
+// B4: the score and three count products.
+template <bool A_SMEM>
+__global__ void __launch_bounds__(32 * (A_SMEM ? BoolForm<3>::kMaxWarps
+                                               : kBoolStreamWarps), 1)
+    approx_bool_mma_kernel(DIAGON_BOOL_SELECT_ARGS) {
+  bool_select<3, A_SMEM>(bank, live, params, packed, tmax, hits, U8, Q, KS,
+                         MF, mf_per_y, nbuf, run, D);
 }
+
+// B5: the score and the combined count product.
+template <bool A_SMEM>
+__global__ void __launch_bounds__(32 * (A_SMEM ? BoolForm<1>::kMaxWarps
+                                               : kBoolStreamWarps), 1)
+    approx_bool2_mma_kernel(DIAGON_BOOL_SELECT_ARGS) {
+  bool_select<1, A_SMEM>(bank, live, params, packed, tmax, hits, U8, Q, KS,
+                         MF, mf_per_y, nbuf, run, D);
+}
+
+#undef DIAGON_BOOL_SELECT_ARGS
 
 // The fewest warps (4 to `most`) that take `frags` fragments in as few rounds
 // as `most` warps would: 13 fragments run on 13 warps, not on 8 in two rounds.
@@ -902,53 +824,55 @@ int balanced_warps(int64_t frags, int most) {
   return (int)(warps < 4 ? 4 : warps);
 }
 
-template <bool A_SMEM>
-int launch_bool2_kernel(dim3 grid, int warps, size_t smem, cudaStream_t stream,
-                        const void* bank, const float* live,
-                        const float* params, const uint4* packed, float* tmax,
-                        int32_t* hits, int U8, int Q, int KS, int MF,
-                        int mf_per_y, int nbuf, int run, int64_t D) {
+template <int kCounts, bool A_SMEM>
+int launch_bool_kernel(dim3 grid, int warps, size_t smem, cudaStream_t stream,
+                       const void* bank, const float* live,
+                       const float* params, const uint4* packed, float* tmax,
+                       int32_t* hits, int U8, int Q, int KS, int MF,
+                       int mf_per_y, int nbuf, int run, int64_t D) {
+  auto* kernel = kCounts == 1 ? approx_bool2_mma_kernel<A_SMEM>
+                              : approx_bool_mma_kernel<A_SMEM>;
   static bool sized = false;  // once per instantiation: the largest block
   if (!sized) {
     cudaError_t err = cudaFuncSetAttribute(
-        approx_bool2_mma_kernel<A_SMEM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
     if (err != cudaSuccess) return (int)err;
     sized = true;
   }
-  approx_bool2_mma_kernel<A_SMEM><<<grid, warps * 32, smem, stream>>>(
+  kernel<<<grid, warps * 32, smem, stream>>>(
       reinterpret_cast<const __nv_bfloat16*>(bank), live, params, packed, tmax,
       hits, U8, Q, KS, MF, mf_per_y, nbuf, run, D);
   return (int)cudaGetLastError();
 }
 
-// B5: packs both indicators (which zeroes hits) and sizes the grid: x over
-// the runs of tiles, y over ranges of fragments. The block keeps its
-// fragments' A in shared memory beside two tile buffers, or beside one, where
-// at least min(MF, 8) fragments fit so; grid.y then splits the fragments as
-// the shared memory needs, and further where the tiles alone leave SMs idle;
-// one or two persistent blocks an SM, with as many warps as balance a
-// block's fragments. Else (U8 of several hundred) A stays in global memory:
-// 8 warps, the slab alone beside one or two tile buffers.
-int launch_bool2_mma(const void* a_sc, const void* a_cb, const void* bank,
-                     const float* params, const float* live, uint4* packed,
-                     float* tmax, int32_t* hits, int U8, int Q, int64_t D,
-                     cudaStream_t stream) {
+// B4 (kCounts 3) and B5 (kCounts 1): packs the indicators (which zeroes hits)
+// and sizes the grid: x over the runs of tiles, y over ranges of fragments.
+// The block keeps its fragments' A in shared memory beside two tile buffers,
+// or beside one, where at least min(MF, 8) fragments fit so; grid.y then
+// splits the fragments as the shared memory needs (and grid.x shrinks so
+// the grid stays one wave), and further where the tiles alone leave SMs
+// idle; one or two persistent blocks an SM, with as many warps as balance a
+// block's fragments. Else (U8 of several hundred) A
+// stays in global memory: 8 warps, the slab alone beside one or two tile
+// buffers.
+template <int kCounts>
+int launch_bool_mma(const Indicators& ind, const void* bank,
+                    const float* params, const float* live, uint4* packed,
+                    float* tmax, int32_t* hits, int U8, int Q, int64_t D,
+                    cudaStream_t stream) {
+  using F = BoolForm<kCounts>;
   const int KS = (U8 + 15) / 16;
   const int MF = (Q + kFragQ - 1) / kFragQ;
-  const int64_t n_packed = (int64_t)2 * MF * KS * 32;
+  const int64_t n_packed = (int64_t)F::kMats * MF * KS * 32;
   pack_indicator_kernel<<<(unsigned)((n_packed + 255) / 256), 256, 0,
-                          stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(a_sc),
-      reinterpret_cast<const __nv_bfloat16*>(a_cb), U8, Q, MF, KS, packed,
-      hits);
+                          stream>>>(ind, U8, Q, MF, KS, packed, hits);
   const int64_t S = D / kLane;
   const int64_t tile_bytes = (int64_t)KS * 16 * kLane * sizeof(__nv_bfloat16);
   const int64_t fixed = 16;  // the live bits
   const int64_t want = MF < 8 ? MF : 8;
   bool a_smem = true;
   int nbuf = 2;
-  int64_t per_frag = (int64_t)KS * kFragABytes + kFragBytes;
+  int64_t per_frag = (int64_t)KS * F::kMats * kMatABytes + kFragBytes;
   int64_t cap = (kMaxSmem - 2 * tile_bytes - fixed) / per_frag;
   if (cap < want) {
     nbuf = 1;
@@ -971,10 +895,14 @@ int launch_bool2_mma(const void* a_sc, const void* a_cb, const void* bank,
   int run = kRun;
   while (run > 1 && (S + run - 1) / run < blocks) run /= 2;
   const int64_t runs = (S + run - 1) / run;
-  const int64_t gx = runs < blocks ? runs : blocks;
+  // where the shared memory splits the fragments over min_ys blocks, the
+  // x-blocks shrink to match, so the grid is one wave and a block copies
+  // its fragments once for many tiles (B4 at U8 168: 8 fragments a block)
+  const int64_t min_ys = (MF + cap - 1) / cap;
+  const int64_t gx_cap = blocks / min_ys > 1 ? blocks / min_ys : 1;
+  const int64_t gx = runs < gx_cap ? runs : gx_cap;
   int64_t ys = (blocks + gx - 1) / gx;
   if (ys > MF) ys = MF;
-  const int64_t min_ys = (MF + cap - 1) / cap;
   if (ys < min_ys) ys = min_ys;
   if (ys > kMaxGridY) return (int)cudaErrorInvalidValue;
   const int mf_per_y = (int)((MF + ys - 1) / ys);
@@ -982,10 +910,10 @@ int launch_bool2_mma(const void* a_sc, const void* a_cb, const void* bank,
   const size_t smem =
       (size_t)(nbuf * tile_bytes + fixed + (int64_t)mf_per_y * per_frag);
   const dim3 grid((unsigned)gx, (unsigned)ys);
-  const int warps =
-      balanced_warps(mf_per_y, a_smem ? kB5MaxWarps / per_sm : kB5StreamWarps);
-  auto* launch =
-      a_smem ? launch_bool2_kernel<true> : launch_bool2_kernel<false>;
+  const int warps = balanced_warps(
+      mf_per_y, a_smem ? F::kMaxWarps / per_sm : kBoolStreamWarps);
+  auto* launch = a_smem ? launch_bool_kernel<kCounts, true>
+                        : launch_bool_kernel<kCounts, false>;
   return launch(grid, warps, smem, stream, bank, live, params, packed, tmax,
                 hits, U8, Q, KS, MF, mf_per_y, nbuf, run, D);
 }
@@ -998,8 +926,8 @@ int launch_or_mma(const void* a_t, const void* bank, const float* live,
   const int64_t n_packed = (int64_t)4 * chunks * KS * 32;
   pack_indicator_kernel<<<(unsigned)((n_packed + 255) / 256), 256, 0,
                           stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(a_t), nullptr, U8, Q, 4 * chunks,
-      KS, packed, hits);
+      Indicators{{reinterpret_cast<const __nv_bfloat16*>(a_t)}, 1}, U8, Q,
+      4 * chunks, KS, packed, hits);
   const int64_t S = D / kLane;
   // split the chunks over grid.y when the tiles alone leave SMs idle, or
   // when the block's counts would not fit beside the tile
@@ -1034,11 +962,10 @@ int launch_or_mma(const void* a_t, const void* bank, const float* live,
 // Preconditions, checked by the Python wrapper: all tensors contiguous on one
 // device; bank bf16 [U8, D], 16-byte aligned; live f32 [D], 16-byte aligned;
 // outputs tmax f32 [Q, D/128], hits i32 [Q]; 8 <= U8 <= 896, U8 % 8 == 0,
-// D % 128 == 0, Q >= 1.
+// D % 128 == 0, Q >= 1. Each zeroes hits and sums into it with atomics.
 
 // B3: a_t bf16 [U8, Q]; scratch packed: 4 * ceil(Q / 64) * ceil(U8 / 16) * 32
-// uint4 (16-byte aligned), the indicator in fragment order; hits is zeroed
-// here and summed with atomics (no tcnt).
+// uint4 (16-byte aligned), the indicator in fragment order.
 extern "C" int diagon_approx_select(const void* a_t, const void* bank,
                                     const float* live, void* packed,
                                     float* tmax, int32_t* hits, int U8, int Q,
@@ -1048,22 +975,27 @@ extern "C" int diagon_approx_select(const void* a_t, const void* bank,
 }
 
 // B4: a_sc, a_rq, a_sh, a_ng bf16 [U8, Q]; params f32 [8, Q] (rows 0
-// num_required, 1 min_should); scratch idx i32 and val f32 [4, Q, U8], cnt
-// i32 [4, Q]; tcnt i32 [Q, D/128] (per-tile match counts, summed in a fixed
-// order by hits_kernel).
+// num_required, 1 min_should); scratch packed: 4 * ceil(Q / 16) *
+// ceil(U8 / 16) * 32 uint4 (16-byte aligned), the four indicators in
+// fragment order.
 extern "C" int diagon_approx_select_bool(
     const void* a_sc, const void* a_rq, const void* a_sh, const void* a_ng,
-    const void* bank, const float* params, const float* live, int32_t* idx,
-    float* val, int32_t* cnt, float* tmax, int32_t* tcnt, int32_t* hits,
-    int U8, int Q, int64_t D, cudaStream_t stream) {
-  const void* mats[4] = {a_sc, a_rq, a_sh, a_ng};
-  return launch_bool(mats, bank, params, live, idx, val, cnt, tmax, tcnt, hits,
-                     U8, Q, D, stream);
+    const void* bank, const float* params, const float* live, void* packed,
+    float* tmax, int32_t* hits, int U8, int Q, int64_t D,
+    cudaStream_t stream) {
+  const Indicators ind{{static_cast<const __nv_bfloat16*>(a_sc),
+                        static_cast<const __nv_bfloat16*>(a_rq),
+                        static_cast<const __nv_bfloat16*>(a_sh),
+                        static_cast<const __nv_bfloat16*>(a_ng)},
+                       4};
+  return launch_bool_mma<3>(ind, bank, params, live,
+                            reinterpret_cast<uint4*>(packed), tmax, hits, U8,
+                            Q, D, stream);
 }
 
 // B5: a_sc, a_cb bf16 [U8, Q]; params as B4's; scratch packed: 2 *
 // ceil(Q / 16) * ceil(U8 / 16) * 32 uint4 (16-byte aligned), both indicators
-// in fragment order; hits is zeroed here and summed with atomics (no tcnt).
+// in fragment order.
 extern "C" int diagon_approx_select_bool2(const void* a_sc, const void* a_cb,
                                           const void* bank,
                                           const float* params,
@@ -1071,7 +1003,10 @@ extern "C" int diagon_approx_select_bool2(const void* a_sc, const void* a_cb,
                                           float* tmax, int32_t* hits, int U8,
                                           int Q, int64_t D,
                                           cudaStream_t stream) {
-  return launch_bool2_mma(a_sc, a_cb, bank, params, live,
-                          reinterpret_cast<uint4*>(packed), tmax, hits, U8, Q,
-                          D, stream);
+  const Indicators ind{{static_cast<const __nv_bfloat16*>(a_sc),
+                        static_cast<const __nv_bfloat16*>(a_cb)},
+                       2};
+  return launch_bool_mma<1>(ind, bank, params, live,
+                            reinterpret_cast<uint4*>(packed), tmax, hits, U8,
+                            Q, D, stream);
 }

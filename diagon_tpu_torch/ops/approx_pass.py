@@ -10,15 +10,25 @@ tensors they run the plain versions beside them, which are also what the
 kernels are held against on the card. There is no fallback: a CUDA call
 launches or raises.
 
+They replace the Pallas kernels ``_kernel_or`` (B3,
+``diagon_tpu/ops/pallas/approx_pass.py:63``), ``_kernel_bool`` (B4, :87)
+and ``_kernel_bool2`` (B5, :196). All three kernels are dense products on
+the tensor cores, as the TPU's are on its MXU: B3 on ``wgmma``, B4 and B5
+on ``mma.sync`` from one body with the number of count products as its
+parameter (csrc/approx_pass.cu says what bounds each and what its design
+does about it). B4 takes four products (score; required, should and
+must_not counts over presence = bank > 0), B5 two (score; the combined
+count rq * 256 + sh), B3 one.
+
 The bank is the batch-compact bf16 copy [U8, D] of the batch's clause
 rows; each indicator matrix [U8, Q] (bf16) counts how often query q uses
 row u in one role. Hits, the per-doc counts and so the feasibility of a
 tile (-1 or not) are exact in every version: they are sums of small
 integers. The tile maxima are an approximation and differ between
-versions by the order of the f32 adds. B3's kernel (``wgmma``) and B5's
-(``mma.sync``) sum on the tensor cores; B4's and the plain versions add in
-IEEE f32. B3 rounds each tile max once to bf16, so it and its plain
-version may land on neighbouring bf16 values; B4 and B5 keep the f32 max.
+versions by the order of the f32 adds. The kernels sum on the tensor
+cores; the plain versions add in IEEE f32. B3 rounds each tile max once to
+bf16, so it and its plain version may land on neighbouring bf16 values; B4
+and B5 keep the f32 max.
 
 Why ``_APPROX_RELEPS`` = 2^-7 still bounds the error of this arithmetic
 (``row_engine._APPROX_RELEPS``; the caller inflates every tile max by
@@ -31,14 +41,14 @@ real sum; u = 2^-24 is the f32 unit roundoff.
 - The bank holds bf16(c_t) >= c_t (1 - 2^-9) (round to nearest even,
   8 significant bits). Each product with a small integer indicator value
   is exact in f32; at most T of them are nonzero.
-- B4 and the plain versions add the nonnegative products in IEEE f32:
+- The plain versions add the nonnegative products in IEEE f32:
   p >= S (1 - 2^-9) (1 - (T-1) u), whatever the order of the adds.
-- B3 (``wgmma``) and B5 (``mma.sync``) add them on the tensor cores (bf16
-  in, f32 out), whose
-  accumulator is not IEEE. Take it at its worst: per k-group of products
-  (k undocumented; 8, 16 or 32), it aligns the group's terms and the
-  running sum to the largest exponent among them, truncates each to 24
-  bits at that exponent, adds exactly, and truncates the sum to 24 bits.
+- B3 (``wgmma``), B4 and B5 (``mma.sync``) add them on the tensor cores
+  (bf16 in, f32 out), whose accumulator is not IEEE. Take it at its
+  worst: per k-group of products (k undocumented; 8, 16 or 32), it aligns
+  the group's terms and the running sum to the largest exponent among
+  them, truncates each to 24 bits at that exponent, adds exactly, and
+  truncates the sum to 24 bits.
   Every term is >= 0, so each truncation loses less than 2^-23 of the
   group's exact sum; a zero term loses nothing, and a group of zero
   products passes the sum through unchanged. A group with m nonzero
@@ -54,7 +64,8 @@ So s / tmax <= (1 + (T-1) u) / ((1 - 2^-9)^2 (1 - delta))
 (``tile_error_bound``), which for T <= 896 is below 1 + 2^-8 + 2^-11
 < 1 + 2^-7 for any k (1 + 2^-7.93 at k = 8): the bound holds with a
 margin of 1.8x. B5 on the tensor cores is B3 without the last bf16
-rounding, so the same closed form covers it with room to spare. The f32
+rounding, so the same closed form covers it and B4's score product (the
+same MMAs in the same k order) with room to spare. The f32
 IEEE sums take delta = (T-1) u and give 1 + 2^-8 + 2^-12. ``tests/test_torch_approx_bound.py`` emulates the
 truncating accumulator on adversarial inputs and pins this bound.
 
@@ -76,6 +87,19 @@ rc, the feasibility of every tile and the hits are exact; the bf16
 indicator holds rq * 256 and sh exactly (8 significant bits cover 1..255
 and 256 times them). ``tests/test_torch_approx_bound.py`` pins this on
 adversarial a_cb columns.
+
+B4's counts rc, oc, nc are three separate products, a_rq, a_sh and a_ng x
+(bank > 0), by the same argument: every entry is a count of clauses, an
+integer the bf16 indicator holds exactly below 256, so every product and
+every sum is an integer below 2^24 and the truncating accumulator keeps it.
+B4 does not pack them: it exists for the batches B5 cannot take, where a
+(row, query) pair serves two roles, and there a packed entry such as
+rq * 256 + sh = 257 needs 9 significant bits, which bf16 does not have.
+The match test rc == nreq, oc >= msm, nc == 0, rc + oc > 0 is taken on the
+exact counts as rc == nreq, oc >= lo, nc == 0 with lo = ceil(msm), at least
+1 where nreq is 0 (csrc/approx_pass.cu match_counts; a numpy twin in
+``tests/test_torch_approx_pass.py``); ``tests/test_torch_approx_bound.py``
+pins the three counts on adversarial columns with rows in two roles.
 """
 
 from __future__ import annotations
@@ -107,8 +131,41 @@ def tile_error_bound(T: int = MAX_ROWS, U8: int = MAX_ROWS, k: int = 8,
     return (1 + (T - 1) * u) / ((1 - 2.0 ** -9) ** 2 * (1 - delta)) - 1
 
 
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
 def _check(mats: dict, bank, live, params=None):
-    """Raise on anything the kernels do not take; returns (U8, Q, D)."""
+    """(U8, Q, D) of arguments the kernels take, checked in one pass (the
+    wrapper's host time is part of every call); ``_diagnose`` raises the
+    error that names anything else."""
+    dev = bank.device
+    a0 = next(iter(mats.values()))
+    if (
+        bank.dtype == _BF16 and live.dtype == _F32 and bank.dim() == 2
+        and live.dim() == 1 and a0.dim() == 2 and bank.is_contiguous()
+        and live.is_contiguous() and dev.type in ("cpu", "cuda")
+        and live.device == dev
+        and all(m.dtype == _BF16 and m.shape == a0.shape and m.device == dev
+                and m.is_contiguous() for m in mats.values())
+        and (params is None
+             or (params.dtype == _F32 and params.device == dev
+                 and params.is_contiguous()
+                 and params.shape == (8, a0.shape[1])))
+    ):
+        U8, D = bank.shape
+        Q = a0.shape[1]
+        if (a0.shape[0] == U8 and live.shape[0] == D and 0 < D
+                and D % LANE == 0 and 8 <= U8 <= MAX_ROWS and U8 % 8 == 0
+                and Q >= 1
+                and (dev.type == "cpu" or (bank.data_ptr() % 16 == 0
+                                           and live.data_ptr() % 16 == 0))):
+            return U8, Q, D
+    _diagnose(mats, bank, live, params)
+    raise ValueError("approx select refused its inputs")  # _diagnose raises
+
+
+def _diagnose(mats: dict, bank, live, params):
+    """Raise the error that names what the kernels do not take."""
     dev = bank.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"approx select runs on cpu or cuda tensors, not {dev}")
@@ -145,7 +202,6 @@ def _check(mats: dict, bank, live, params=None):
         raise ValueError(f"params_t shape {tuple(params.shape)} != {(8, Q)}")
     if dev.type == "cuda" and (bank.data_ptr() % 16 or live.data_ptr() % 16):
         raise ValueError("bank and live must be 16-byte aligned")
-    return U8, Q, D
 
 
 def _chunks(Q: int, D: int):
@@ -226,25 +282,29 @@ def packed_indicator_shape(U8: int, Q: int, matrices: int = 1,
     16-byte row per lane and 16 x 16 fragment; csrc/approx_pass.cu
     pack_indicator_kernel), F the 16-query fragments of Q padded to a
     multiple of ``pad_q``: B3 (one matrix) pads to its 64-query chunks, B5
-    (a_sc, then a_cb) to one fragment."""
+    (a_sc, then a_cb) and B4 (a_sc, a_rq, a_sh, a_ng) to one fragment."""
     frags = -(-Q // pad_q) * (pad_q // MMA_FRAG_Q)
     return (matrices * frags * -(-U8 // MMA_K) * 32, 4)
 
 
+_launchers = {}  # launcher name -> ctypes function, looked up once
+
+
 def _tensor_core_select(name, mats, bank, params, live, U8, Q, D, pad_q):
-    """Launch B3 or B5: (tile max f32 [Q, D/128], hits i32 [Q])."""
-    dev = bank.device
-    packed = torch.empty(packed_indicator_shape(U8, Q, len(mats), pad_q),
-                         dtype=torch.int32, device=dev)
-    tmax = torch.empty((Q, D // LANE), dtype=torch.float32, device=dev)
-    hits = torch.empty(Q, dtype=torch.int32, device=dev)
+    """Launch B3, B4 or B5: (tile max f32 [Q, D/128], hits i32 [Q])."""
+    fn = _launchers.get(name)
+    if fn is None:
+        fn = _launchers[name] = getattr(_build.library(), name)
+    packed = bank.new_empty(packed_indicator_shape(U8, Q, len(mats), pad_q),
+                            dtype=torch.int32)
+    tmax = bank.new_empty((Q, D // LANE), dtype=_F32)
+    hits = bank.new_empty(Q, dtype=torch.int32)
     ptrs = [m.data_ptr() for m in mats] + [bank.data_ptr()]
     if params is not None:
         ptrs.append(params.data_ptr())
-    rc = getattr(_build.library(), name)(
-        *ptrs, live.data_ptr(), packed.data_ptr(), tmax.data_ptr(),
-        hits.data_ptr(), U8, Q, D, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    rc = fn(*ptrs, live.data_ptr(), packed.data_ptr(), tmax.data_ptr(),
+            hits.data_ptr(), U8, Q, D,
+            torch._C._cuda_getCurrentRawStream(bank.get_device()))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     return tmax, hits
@@ -264,33 +324,18 @@ def approx_select(a_t, bank, live):
 
 def approx_select_bool(a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank, params_t,
                        live):
-    """B4, general boolean phase 1: (feasibility-gated tile max f32
-    [Q, D/128], exact hits i32 [Q])."""
+    """B4, general boolean phase 1 in four products on the tensor cores:
+    (feasibility-gated tile max f32 [Q, D/128], exact hits i32 [Q])."""
     mats = {"a_sc_t": a_sc_t, "a_rq_t": a_rq_t, "a_sh_t": a_sh_t,
             "a_ng_t": a_ng_t}
     U8, Q, D = _check(mats, bank, live, params_t)
     if bank.device.type == "cpu":
         return approx_select_bool_reference(
             a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank, params_t, live)
-    dev = bank.device
-    S = D // LANE
-    idx = torch.empty((4, Q, U8), dtype=torch.int32, device=dev)
-    val = torch.empty((4, Q, U8), dtype=torch.float32, device=dev)
-    cnt = torch.empty((4, Q), dtype=torch.int32, device=dev)
-    tmax = torch.empty((Q, S), dtype=torch.float32, device=dev)
-    tcnt = torch.empty((Q, S), dtype=torch.int32, device=dev)
-    hits = torch.empty(Q, dtype=torch.int32, device=dev)
-    rc = _build.library().diagon_approx_select_bool(
-        *(m.data_ptr() for m in mats.values()), bank.data_ptr(),
-        params_t.data_ptr(), live.data_ptr(), idx.data_ptr(), val.data_ptr(),
-        cnt.data_ptr(), tmax.data_ptr(), tcnt.data_ptr(), hits.data_ptr(),
-        U8, Q, D, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"diagon_approx_select_bool launch failed: cudaError {rc}")
+    out = _tensor_core_select("diagon_approx_select_bool", list(mats.values()),
+                              bank, params_t, live, U8, Q, D, MMA_FRAG_Q)
     approx_select_bool.launches += 1
-    return tmax, hits
+    return out
 
 
 def approx_select_bool2(a_sc_t, a_cb_t, bank, params_t, live):

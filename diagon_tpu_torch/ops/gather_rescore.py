@@ -16,13 +16,23 @@ every version is bit-identical to the JAX kernel and the oracle. With
 scoring rows add to the score, and the presence (row > 0) of the other
 roles is counted into three more lanes.
 
-The two share that contract. B7 walks the (query, tile) pairs sorted by
-tile (a stable sort of the flattened ``tsel``), so the pairs of one tile
-are rescored together and the rows they share are read once; the row
-engine routes to it where the JAX package routes to its union kernel.
+The two share that contract. B7 is the JAX union kernel's counterpart
+(``diagon_tpu/ops/pallas/gather_rescore.py:192``), which sorts the pairs
+by tile so each distinct tile's slab is read once; the row engine routes
+to it where the JAX package routes to its union kernel. On this card its
+pairs reach the blocks without a sort: block (x, y) of ``union_plan``
+owns a range of tiles and a slice of the queries, finds its pairs in
+``tsel`` itself and rescores each with one warp, so a call is one launch
+with no scratch and no torch op in the wrapper (csrc/gather_rescore.cu
+says why this and not a counting sort). What bounds B7 at the main
+path's shapes is latency, not the bytes it must move: a block stages its
+queries' ``cidx`` and ``flags`` while it loads ``tsel``, and a pair then
+waits on its clause rows.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -33,10 +43,44 @@ LANE = 128
 # a 2048-query pair word), kept so both packages route the same batches
 UNION_MAX_PAIRS = 64 << 10
 UNION_MAX_Q = 2048
+# B7's grid (union_plan): ranges of tiles along x, and slices of the
+# queries along y up to about 4 blocks of 8 warps an SM of a 132-SM card
+UNION_RANGES = 32
+UNION_BLOCKS = 528
+UNION_STAGED = 4096  # clause entries a B7 block stages (16 KB, 32 with flags)
+MAX_GRID_Y = 65535
+
+
+_F32, _I32 = torch.float32, torch.int32
 
 
 def _check(compact_t, cidx, tsel, flags):
-    """Raise on anything the kernel does not take; returns (G, U8, Q, Tq, B)."""
+    """(G, U8, Q, Tq, B) of arguments the kernels take, checked in one pass
+    (the wrapper's host time is part of every call); ``_diagnose`` raises
+    the error that names anything else."""
+    dev = compact_t.device
+    if (
+        compact_t.dtype == _F32 and cidx.dtype == _I32 and tsel.dtype == _I32
+        and compact_t.dim() == 3 and cidx.dim() == 2 and tsel.dim() == 2
+        and compact_t.is_contiguous() and cidx.is_contiguous()
+        and tsel.is_contiguous() and dev.type in ("cpu", "cuda")
+        and cidx.device == dev and tsel.device == dev
+        and (flags is None
+             or (flags.dtype == _I32 and flags.shape == cidx.shape
+                 and flags.is_contiguous() and flags.device == dev))
+    ):
+        G, U8, lanes = compact_t.shape
+        Q, Tq = cidx.shape
+        B = tsel.shape[1]
+        if (lanes == LANE and tsel.shape[0] == Q and G >= 1 and U8 >= 1
+                and Q >= 1 and Tq >= 1 and B >= 1):
+            return G, U8, Q, Tq, B
+    _diagnose(compact_t, cidx, tsel, flags)
+    raise ValueError("rescore refused its inputs")  # _diagnose raises first
+
+
+def _diagnose(compact_t, cidx, tsel, flags):
+    """Raise the error that names what the kernels do not take."""
     dev = compact_t.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"gather rescore runs on cpu or cuda tensors, not {dev}")
@@ -64,7 +108,6 @@ def _check(compact_t, cidx, tsel, flags):
         raise ValueError(f"flags shape {tuple(flags.shape)} != {(Q, Tq)}")
     if min(G, U8, Q, Tq, B) < 1:
         raise ValueError(f"empty operand: G, U8, Q, Tq, B = {(G, U8, Q, Tq, B)}")
-    return G, U8, Q, Tq, B
 
 
 def gather_rescore_reference(compact_t, cidx, tsel, flags=None):
@@ -90,20 +133,25 @@ def gather_rescore_reference(compact_t, cidx, tsel, flags=None):
     return acc[0] if flags is None else tuple(acc)
 
 
+_gather_fn = None  # the launchers, looked up once
+_union_fn = None
+
+
 def gather_rescore(compact_t, cidx, tsel, flags=None):
     """B6: scores f32 [Q, B, 128]; with ``flags`` a tuple of four lanes
     (score, required, should, must_not count)."""
     G, U8, Q, Tq, B = _check(compact_t, cidx, tsel, flags)
     if compact_t.device.type == "cpu":
         return gather_rescore_reference(compact_t, cidx, tsel, flags)
-    n = 1 if flags is None else 4
-    out = torch.empty((n, Q, B, LANE), dtype=torch.float32,
-                      device=compact_t.device)
-    stream = torch.cuda.current_stream(compact_t.device).cuda_stream
-    rc = _build.library().diagon_gather_rescore(
+    global _gather_fn
+    if _gather_fn is None:
+        _gather_fn = _build.library().diagon_gather_rescore
+    out = compact_t.new_empty((1 if flags is None else 4, Q, B, LANE))
+    rc = _gather_fn(
         compact_t.data_ptr(), cidx.data_ptr(), tsel.data_ptr(),
         None if flags is None else flags.data_ptr(), out.data_ptr(),
-        U8, Q, Tq, B, stream,
+        U8, Q, Tq, B, torch._C._cuda_getCurrentRawStream(
+            compact_t.get_device()),
     )
     if rc != 0:
         raise RuntimeError(f"diagon_gather_rescore launch failed: cudaError {rc}")
@@ -118,16 +166,32 @@ def union_rescore_supported(Q: int, B: int) -> bool:
     return Q * B <= UNION_MAX_PAIRS and Q <= UNION_MAX_Q
 
 
-def _pair_order(tsel):
-    """i64 [Q * B]: the pairs' flat indices sorted by tile, stably."""
-    return torch.sort(tsel.reshape(-1), stable=True).indices
+@functools.lru_cache(maxsize=256)
+def union_plan(Q: int, B: int, G: int, Tq: int):
+    """B7's blocks, (tiles a block owns, queries a block owns): block
+    (x, y) of the ceil(G / tpb) x ceil(Q / qpb) grid rescores exactly the
+    pairs (q, b) with x * tpb <= tsel[q, b] < (x + 1) * tpb and y * qpb <= q
+    < (y + 1) * qpb, so every pair falls in one block whatever the order of
+    ``tsel``. At most UNION_RANGES ranges of tiles, and as many slices of
+    the queries as make about UNION_BLOCKS blocks, or more where a block
+    would stage more than UNION_STAGED clause entries; a block scans qpb * B
+    entries of ``tsel``."""
+    tpb = -(-G // min(G, UNION_RANGES))
+    ranges = -(-G // tpb)
+    slices = max(1, min(Q, -(-UNION_BLOCKS // ranges)))
+    qpb = min(-(-Q // slices), max(1, UNION_STAGED // Tq))
+    return tpb, max(qpb, -(-Q // MAX_GRID_Y))
 
 
 def union_rescore_reference(compact_t, cidx, tsel, flags=None):
-    """Plain PyTorch B7: B6's results, computed over the pairs sorted by
-    tile and written back to their own positions."""
+    """Plain PyTorch B7: B6's results, computed over the pairs in the order
+    of ``union_plan``'s blocks and written back to their own positions."""
     G, U8, Q, Tq, B = _check(compact_t, cidx, tsel, flags)
-    order = _pair_order(tsel)
+    tpb, qpb = union_plan(Q, B, G, Tq)
+    pairs = torch.arange(Q * B, device=compact_t.device)
+    block = ((tsel.reshape(-1).long() // tpb) * (-(-Q // qpb))
+             + (pairs // B) // qpb)
+    order = torch.argsort(block, stable=True)
     q = order // B
     base = tsel.reshape(-1)[order].long() * U8  # [P] sorted tiles
     rows_of = compact_t.reshape(G * U8, LANE)
@@ -154,19 +218,22 @@ def union_rescore_reference(compact_t, cidx, tsel, flags=None):
 
 
 def union_rescore(compact_t, cidx, tsel, flags=None):
-    """B7: ``gather_rescore``'s results from the pairs sorted by tile."""
+    """B7: ``gather_rescore``'s results, each block of ``union_plan``
+    finding its own pairs in ``tsel`` (one launch, no scratch)."""
     G, U8, Q, Tq, B = _check(compact_t, cidx, tsel, flags)
     if compact_t.device.type == "cpu":
         return union_rescore_reference(compact_t, cidx, tsel, flags)
-    order = _pair_order(tsel).int()
-    n = 1 if flags is None else 4
-    out = torch.empty((n, Q, B, LANE), dtype=torch.float32,
-                      device=compact_t.device)
-    stream = torch.cuda.current_stream(compact_t.device).cuda_stream
-    rc = _build.library().diagon_union_rescore(
+    if compact_t.data_ptr() % 16:
+        raise ValueError("compact_t must be 16-byte aligned")
+    global _union_fn
+    if _union_fn is None:
+        _union_fn = _build.library().diagon_union_rescore
+    out = compact_t.new_empty((1 if flags is None else 4, Q, B, LANE))
+    rc = _union_fn(
         compact_t.data_ptr(), cidx.data_ptr(), tsel.data_ptr(),
-        None if flags is None else flags.data_ptr(), order.data_ptr(),
-        out.data_ptr(), U8, Q, Tq, B, stream,
+        None if flags is None else flags.data_ptr(), out.data_ptr(),
+        G, U8, Q, Tq, B, *union_plan(Q, B, G, Tq),
+        torch._C._cuda_getCurrentRawStream(compact_t.get_device()),
     )
     if rc != 0:
         raise RuntimeError(f"diagon_union_rescore launch failed: cudaError {rc}")

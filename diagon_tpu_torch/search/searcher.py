@@ -120,7 +120,13 @@ class IndexSearcher:
 
     ``query_cache``: replay the phase-1 state of a re-issued identical batch
     on segments of ``batch_only_min_docs`` or more (the JAX searcher's
-    option and default; benchmarks pass False so each batch is rescored)."""
+    option and default; benchmarks pass False so each batch is rescored).
+
+    The JAX searcher's tier-manager branches are not ported: it takes no
+    ``hbm_budget``, has no ``_ensure_resident``, and ``dispatch_batch``
+    raises no ``MemoryError`` for segments that are not resident
+    (``diagon_tpu/search/searcher.py:773-780``); every segment is placed on
+    ``device`` when the searcher is built."""
 
     def __init__(self, segments, device="cuda", query_cache: bool = True):
         # a DirectoryReader, or its leaves() contexts

@@ -13,7 +13,10 @@ form of ``diagon_tpu_torch/ops/approx_pass.py``'s docstring:
   form stays below 2^-7;
 - B5's count product cc = a_cb x presence, a sum of integers below 2^15,
   comes out of that accumulator exactly, so its decode, the feasibility of
-  a tile and the hits are exact on the tensor cores.
+  a tile and the hits are exact on the tensor cores;
+- B4's three count products (a_rq, a_sh, a_ng x presence) come out of it
+  exactly too, also where one row serves two roles, the case B4 exists
+  for, and a packed entry such as rq * 256 + sh would not be bf16-exact.
 """
 
 import numpy as np
@@ -212,3 +215,55 @@ def test_bf16_holds_every_combined_count_entry(rq):
     bits, which bf16 has."""
     vals = np.array([rq, rq * 256.0], np.float32)
     np.testing.assert_array_equal(bf16(vals), vals)
+
+
+TWO_ROLE_LAYOUTS = ["must_and_must_not", "should_and_must_not",
+                    "must_and_should", "every_role_twice", "sparse_presence"]
+
+
+def role_columns(layout, rng, T=128):
+    """(a_rq, a_sh, a_ng values [T], presence [DOCS, T]) for T compact rows
+    of one query at the largest counts the row engine sends to B4: every
+    row holds one role or two, with multiplicities up to 3 in a role."""
+    counts = rng.integers(1, 4, (3, T)).astype(np.float64)
+    on = {
+        "must_and_must_not": ([True, False, True], [True, False, False]),
+        "should_and_must_not": ([False, True, True], [False, True, False]),
+        "must_and_should": ([True, True, False], [True, False, False]),
+        "every_role_twice": ([True, True, True], [True, True, False]),
+        "sparse_presence": ([True, True, True], [False, True, True]),
+    }[layout]
+    # even rows take the first role set, odd rows the second
+    roles = np.where(np.arange(T)[None, :] % 2 == 0,
+                     np.asarray(on[0])[:, None], np.asarray(on[1])[:, None])
+    a_rq, a_sh, a_ng = counts * roles
+    density = 0.3 if layout == "sparse_presence" else 0.97
+    presence = (rng.random((DOCS, T)) < density).astype(np.float64)
+    presence[0] = 1.0  # a doc that holds every row: the largest counts
+    presence[1] = 0.0  # and one that holds none
+    return (a_rq, a_sh, a_ng), presence
+
+
+@pytest.mark.parametrize("k", [8, 16, 32])
+@pytest.mark.parametrize("layout", TWO_ROLE_LAYOUTS)
+def test_truncating_accumulator_keeps_separate_counts_exact(layout, k):
+    """B4's counts are three products from one presence tile; each is a sum
+    of integers, exact whatever rows share roles."""
+    rng = np.random.default_rng([20261017, TWO_ROLE_LAYOUTS.index(layout), k])
+    mats, presence = role_columns(layout, rng)
+    two = np.sum([m > 0 for m in mats], axis=0) >= 2
+    assert two.any()  # some row really serves two roles
+    for a in mats:
+        np.testing.assert_array_equal(bf16(a), a)  # the indicator is exact
+        products = presence * a
+        exact = products.sum(axis=1)
+        assert exact.max() < 2.0 ** 24
+        np.testing.assert_array_equal(truncating_sum(products, k), exact)
+
+
+@pytest.mark.parametrize("rq, sh", [(1, 1), (3, 1), (1, 3), (2, 5)])
+def test_a_packed_two_role_entry_is_not_bf16(rq, sh):
+    """Why B4 keeps its counts apart: rq * 256 + sh for a row both required
+    and should needs more than bf16's 8 significant bits."""
+    v = np.float32(rq * 256.0 + sh)
+    assert bf16(v) != v

@@ -221,10 +221,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
     (152, 200, 2, 2 * 13 * 10 * 32),  # B5 at the 1M mixed batch
     (896, 1, 2, 2 * 1 * 56 * 32),     # MAX_ROWS, one query
     (8, 17, 2, 2 * 2 * 1 * 32),       # U8 below one k-step pads to 16 rows
+    (168, 1024, 4, 4 * 64 * 11 * 32),  # B4 at the 19k MUST_NOT batch
+    (168, 820, 4, 4 * 52 * 11 * 32),  # ragged Q: 820 = 51 * 16 + 4
+    (896, 65, 4, 4 * 5 * 56 * 32),    # MAX_ROWS, one query past a fragment
+    (8, 1, 4, 4 * 1 * 1 * 32),        # one query, one k-step
 ])
 def test_packed_indicator_scratch_shape(U8, Q, matrices, rows):
     """One 16-byte row per lane and 16 x 16 fragment: B3 pads the queries
-    to its 64-query chunks, B5 packs a_sc then a_cb in 16-query fragments."""
+    to its 64-query chunks, B5 packs a_sc then a_cb and B4 a_sc, a_rq,
+    a_sh, a_ng in 16-query fragments."""
     pad_q = ap.MMA_CHUNK_Q if matrices == 1 else ap.MMA_FRAG_Q
     assert ap.packed_indicator_shape(U8, Q, matrices, pad_q) == (rows, 4)
     if matrices == 1:
@@ -259,6 +264,110 @@ def test_bool2_range_test_equals_the_decode(nreq, msm):
         mid, half = _match_range(nreq, msm)
         got = np.abs(cc - mid) <= half
     np.testing.assert_array_equal(got, want)
+
+
+# one row in two roles, a count of 2 in one of them: the batches the row
+# engine sends to B4 (a_cb cannot hold them)
+TWO_ROLES = {
+    "must_twice_must_not": (MUST, MUST, MUST_NOT),
+    "should_twice_must_not": (SHOULD, SHOULD, MUST_NOT),
+    "must_not_twice_should": (MUST_NOT, MUST_NOT, SHOULD),
+    "should_twice_must": (SHOULD, SHOULD, MUST),
+    "filter_twice_should": (FILTER, FILTER, SHOULD),
+}
+
+
+def _two_role_batch(Q, U8, D, seed, kind):
+    """Every query: three clauses on one row in the roles of ``kind``, one
+    FILTER row, and SHOULD or MUST_NOT rows; min_should 0, 1 or 2 by query;
+    a half-dense bank so that docs match."""
+    rng = np.random.default_rng(seed + 31 * Q + U8)
+    bank = (rng.random((U8, D), dtype=np.float32) * 12
+            * (rng.random((U8, D)) < 0.5)).astype(np.float32)
+    bank[0] = 0.0
+    live = (rng.random(D) < 0.85).astype(np.float32)
+    live[D - 200:] = 0.0
+    Tq = 7
+    rows = np.stack([rng.choice(np.arange(1, U8), Tq - 2, replace=False)
+                     for _ in range(Q)])
+    cidx = np.concatenate([rows[:, :1], rows[:, :1], rows], axis=1)
+    roles = np.where(rng.random((Q, Tq)) < 0.3, MUST_NOT, SHOULD)
+    roles[:, :3] = TWO_ROLES[kind]
+    roles[:, 3] = FILTER
+    a = {r: np.zeros((U8, Q), np.float32) for r in ("sc", "rq", "sh", "ng")}
+    qgrid = np.broadcast_to(np.arange(Q)[:, None], cidx.shape)
+    for r, m in (("sc", (roles == MUST) | (roles == SHOULD)),
+                 ("rq", (roles == MUST) | (roles == FILTER)),
+                 ("sh", roles == SHOULD), ("ng", roles == MUST_NOT)):
+        np.add.at(a[r], (cidx[m], qgrid[m]), 1.0)
+    params = np.zeros((8, Q), np.float32)
+    params[0] = a["rq"].sum(axis=0)
+    params[1] = np.arange(Q) % 3
+    assert ((a["rq"] > 0) & (a["sh"] > 0)).any() or a["ng"].any()
+    return bank, live, a, params
+
+
+@pytest.mark.parametrize("kind", sorted(TWO_ROLES))
+def test_approx_select_bool_reference_matches_pallas_with_rows_in_two_roles(
+        kind):
+    bank, live, a, params = _two_role_batch(19, 40, 1024, 9, kind)
+    mats = [a[r] for r in ("sc", "rq", "sh", "ng")]
+    want = pallas_approx_select_bool(
+        *[_jx(m, True) for m in mats], _jx(bank, True), _jx(params),
+        _jx(live), interpret=True)
+    got = ap.approx_select_bool_reference(
+        *[_th(m, True) for m in mats], _th(bank, True), _th(params),
+        _th(live))
+    _assert_close(got, want, gated=True)
+    if kind != "must_twice_must_not":  # that one can match no doc
+        assert (got[1] > 0).any()
+
+
+def _match_counts(nreq, msm):
+    """csrc/approx_pass.cu match_counts in numpy f32: (nreq, lo) such that
+    rc == nreq, oc >= lo, nc == 0 is B4's match test on integer counts."""
+    f = np.float32
+    nreq, msm = f(nreq), f(msm)
+    lo = np.ceil(msm) if not np.isnan(msm) else f(np.inf)
+    if nreq == 0:
+        lo = np.maximum(lo, f(1))
+    return nreq, lo
+
+
+@pytest.mark.parametrize("nreq", [0, 1, 2, 63, 64, 1.5, -1, float("nan")])
+@pytest.mark.parametrize("msm", [0, 1, 2, 60, 64, 0.5, -3, float("inf"),
+                                 float("-inf"), float("nan")])
+def test_bool_match_test_equals_the_reference(nreq, msm):
+    """B4's folded test (match_counts) and the plain version's five-term
+    test agree on every count triple up to 70 required and should clauses
+    and 2 must_not ones."""
+    rc, oc, nc = np.meshgrid(*(np.arange(n, dtype=np.float32)
+                               for n in (71, 71, 3)), indexing="ij")
+    with np.errstate(invalid="ignore"):
+        want = ((rc == np.float32(nreq)) & (oc >= np.float32(msm))
+                & (nc == 0) & ((rc + oc) > 0))
+        x, lo = _match_counts(nreq, msm)
+        got = (rc == x) & (oc >= lo) & (nc == 0)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(TWO_ROLES))
+def test_bool_kernel_matches_plain_with_rows_in_two_roles_on_the_card(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    bank, live, a, params = _two_role_batch(130, 40, 2048, 10, kind)
+    args = ([_th(a[r], True).to(dev) for r in ("sc", "rq", "sh", "ng")]
+            + [_th(bank, True).to(dev), _th(params).to(dev),
+               _th(live).to(dev)])
+    got = ap.approx_select_bool(*args)
+    want = ap.approx_select_bool_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0] == -1, want[0] == -1)
+    scale = torch.maximum(got[0].abs(), want[0].abs())
+    assert ((got[0] - want[0]).abs() <= REL * scale).all()
 
 
 @pytest.mark.cuda

@@ -110,6 +110,93 @@ def test_union_rescore_reference_matches_gather_reference(shape, boolean):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+def _shuffled(shape, boolean, seed=11):
+    """``_both``'s inputs with each query's tiles out of ascending order and
+    drawn from a few hot tiles, so tiles repeat within and across queries."""
+    G, U8, Q, Tq, B = shape
+    bank, cidx, _, flags = _inputs(*shape)
+    rng = np.random.default_rng(seed + Q)
+    hot = rng.choice(G, min(G, 3), replace=False)
+    tsel = hot[rng.integers(0, len(hot), (Q, B))].astype(np.int32)
+    tsel[:, :2] = [G - 1, 0]  # descending where B allows
+    tsel = np.ascontiguousarray(tsel[:, :B])
+    assert not (np.diff(tsel, axis=1) >= 0).all()
+    return bank, cidx, tsel, (flags if boolean else None)
+
+
+# (G, U8, Q, Tq, B): the JAX union kernel's grid needs 8 | Q * B
+SHUFFLED_SHAPES = [(6, 16, 8, 5, 4), (24, 16, 64, 5, 8), (40, 8, 70, 8, 4)]
+
+
+@pytest.mark.parametrize("boolean", [False, True])
+@pytest.mark.parametrize("shape", SHUFFLED_SHAPES)
+def test_union_reference_matches_pallas_and_gather_with_tiles_out_of_order(
+        shape, boolean):
+    """B7 takes no order from tsel: its plain version equals the JAX union
+    kernel and B6's plain version bit for bit with each query's tiles
+    unsorted and repeated."""
+    bank, cidx, tsel, fl = _shuffled(shape, boolean)
+    want = pallas_union_rescore(
+        jnp.asarray(bank), jnp.asarray(cidx), jnp.asarray(tsel),
+        None if fl is None else jnp.asarray(fl), interpret=True)
+    targs = tuple(torch.from_numpy(a) for a in (bank, cidx, tsel))
+    tfl = None if fl is None else torch.from_numpy(fl)
+    got = gr.union_rescore_reference(*targs, tfl)
+    b6 = gr.gather_rescore_reference(*targs, tfl)
+    if not boolean:
+        want, got, b6 = (want,), (got,), (b6,)
+    for x, y, z in zip(got, want, b6):
+        np.testing.assert_array_equal(_bits(x.numpy()), _bits(y))
+        np.testing.assert_array_equal(_bits(z.numpy()), _bits(y))
+
+
+def _plan_blocks(Q, B, G, Tq, tsel):
+    """csrc/gather_rescore.cu union_rescore_kernel's selection in numpy:
+    for every block (x, y) of the grid, the flat pairs its warps take."""
+    tpb, qpb = gr.union_plan(Q, B, G, Tq)
+    gx, gy = -(-G // tpb), -(-Q // qpb)
+    flat = tsel.reshape(-1)
+    taken = []
+    for y in range(gy):
+        p0, p1 = y * qpb * B, min(Q, (y + 1) * qpb) * B
+        g = flat[p0:p1]
+        for x in range(gx):
+            mine = (g >= x * tpb) & (g < (x + 1) * tpb)
+            taken.append(p0 + np.nonzero(mine)[0])
+    return gx, gy, taken, qpb
+
+
+@pytest.mark.parametrize("Q,B,G,Tq", [(1, 1, 1, 4), (3, 8, 8, 20),
+                                      (200, 24, 7840, 4), (1024, 24, 152, 8),
+                                      (2048, 32, 78144, 8), (70, 4, 40, 8),
+                                      (65, 24, 33, 64), (5000, 3, 64, 100),
+                                      (3, 2, 5, 5000)])
+def test_union_plan_takes_every_pair_exactly_once(Q, B, G, Tq):
+    rng = np.random.default_rng(Q * 31 + G)
+    hot = rng.integers(0, G, max(1, G // 50))
+    tsel = np.where(rng.random((Q, B)) < 0.5, hot[rng.integers(0, len(hot),
+                                                               (Q, B))],
+                    rng.integers(0, G, (Q, B))).astype(np.int32)
+    gx, gy, taken, qpb = _plan_blocks(Q, B, G, Tq, tsel)
+    assert gx <= gr.UNION_RANGES and gy <= gr.MAX_GRID_Y
+    assert qpb * Tq <= max(Tq, gr.UNION_STAGED)  # what a block stages
+    hits = np.bincount(np.concatenate(taken), minlength=Q * B)
+    np.testing.assert_array_equal(hits, np.ones(Q * B, np.int64))
+
+
+@pytest.mark.parametrize("Q,B,G", [(200, 24, 7840), (1024, 24, 152),
+                                   (2048, 32, 78144), (1, 1, 1)])
+def test_union_plan_grid(Q, B, G):
+    """About UNION_BLOCKS blocks where the batch allows (Tq 8, the routed
+    class), and a block scans no more than its slice of the queries'
+    pairs."""
+    tpb, qpb = gr.union_plan(Q, B, G, 8)
+    gx, gy = -(-G // tpb), -(-Q // qpb)
+    assert tpb == -(-G // min(G, gr.UNION_RANGES)) and gx <= gr.UNION_RANGES
+    assert gy == min(Q, -(-gr.UNION_BLOCKS // gx))
+    assert (gy - 1) * qpb < Q <= gy * qpb
+
+
 @pytest.mark.parametrize("Q,B", [(64, 24), (1024, 24), (2048, 32), (2056, 8),
                                  (4096, 16), (8, 24), (2728, 24), (2000, 40)])
 def test_union_rescore_supported_matches_jax(Q, B):
@@ -181,6 +268,28 @@ def test_kernel_matches_plain_version_on_the_card(boolean):
         got, want = (got,), (want,)
     for x, y in zip(got, want):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boolean", [False, True])
+@pytest.mark.parametrize("shape", SHUFFLED_SHAPES)
+def test_union_kernel_matches_plain_with_tiles_out_of_order_on_the_card(
+        shape, boolean):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    arrays = _shuffled(shape, boolean)
+    args = [None if a is None else torch.from_numpy(a).to(dev)
+            for a in arrays]
+    got = gr.union_rescore(*args)
+    want = gr.union_rescore_reference(*args)
+    b6 = gr.gather_rescore(*args)
+    torch.cuda.synchronize()
+    if not boolean:
+        got, want, b6 = (got,), (want,), (b6,)
+    for x, y, z in zip(got, want, b6):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+        assert torch.equal(z.view(torch.int32), y.view(torch.int32))
 
 
 @pytest.mark.cuda
