@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Time B6 (gather_rescore) and B7 (union_rescore) of this checkout against
+the same wrappers of another checkout of the port, on the tensors the main
+path hands them, in one process on one CUDA card.
+
+    python3 chip_ab.py OTHER_ROOT
+
+OTHER_ROOT is the root of another checkout, say the parent commit unpacked
+with ``git archive`` into a directory that .gitignore lists. Its
+``diagon_tpu_torch`` is imported first and its kernels built into its own
+build directory; its wrapper functions keep their modules when the package
+is dropped from ``sys.modules`` and this checkout's is imported. The
+tensors come from chip_smoke.py's own helpers (``main_path_args``): the 1M
+mixed batch's pure-OR subset (B6's) and boolean subset (B7's), the deduped
+1M or20 batch (Q 1, B6) and the 10M mixed batch's phase-1 pure-OR entry
+(B6). Each (wrapper, tensors) must give the same bits in both checkouts,
+and is timed other, this, this, other, each time three ways
+(``chip_smoke.three_ways``: one call, per call of 50, kernel only). It
+imports nothing of JAX or of the JAX package.
+"""
+
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+
+
+def load_other(root):
+    """The other checkout's ops.gather_rescore module, its kernels built."""
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    try:
+        from diagon_tpu_torch.ops import _build
+        from diagon_tpu_torch.ops import gather_rescore as gr
+
+        if Path(gr.__file__).resolve().parents[2] != root:
+            raise SystemExit(f"chip_ab: {gr.__file__} is not under {root}")
+        _build.library()
+    finally:
+        sys.path.remove(str(root))
+        for name in [m for m in sys.modules
+                     if m.split(".")[0] == "diagon_tpu_torch"]:
+            del sys.modules[name]
+    return gr
+
+
+def plans_of(searcher, batch):
+    return [searcher._cached_query_plans(q)[1][0] for q in batch]
+
+
+def cases():
+    """(label, wrapper name, args) at the main path's B6 and B7 shapes."""
+    from diagon_tpu_torch.bench.queries import (
+        frequent_terms,
+        mixed_query_batch,
+        reuters_queries,
+    )
+
+    out = []
+    _, s1, _, _ = cs.load_searcher(cs.SCALE_DOCS)
+    ex = s1._ctx("body").row_executors[0]
+    mixed = mixed_query_batch(frequent_terms(s1), 1024, phrase_share=0)
+    args = cs.main_path_args(ex, plans_of(s1, mixed))[0]
+    q1 = cs.main_path_args(ex, plans_of(s1, [reuters_queries()["or20"]]))[0]
+    out += [("1M mixed pure-OR subset", "gather_rescore",
+             args["gather_rescore"]),
+            ("1M mixed boolean subset (B7's)", "union_rescore",
+             args["union_rescore"]),
+            ("1M mixed boolean subset (B7's)", "gather_rescore",
+             args["union_rescore"]),
+            ("1M or20 deduped, Q 1", "gather_rescore", q1["gather_rescore"])]
+    del s1, ex, args, q1
+    _, s10, _, _ = cs.load_searcher(cs.SCALE10_DOCS, query_cache=False)
+    ex = s10._ctx("body").row_executors[0]
+    mixed = mixed_query_batch(frequent_terms(s10, "body", 32), 1024,
+                              phrase_share=0)
+    args = cs.main_path_args(ex, plans_of(s10, mixed))[0]
+    out.append(("10M phase-1 entry", "gather_rescore", args["gather_rescore"]))
+    return out
+
+
+def main():
+    if len(sys.argv) != 2:
+        raise SystemExit(__doc__)
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_ab: torch.cuda.is_available() is false")
+    other = load_other(sys.argv[1])
+    smi = cs.phase_device()
+    from diagon_tpu_torch.ops import gather_rescore as this
+
+    for label, name, args in cases():
+        fns = {"other": getattr(other, name), "this": getattr(this, name)}
+        got = {side: fn(*args) for side, fn in fns.items()}
+        torch.cuda.synchronize()
+        if not cs.bits_equal(got["other"], got["this"]):
+            raise AssertionError(f"{label} {name}: the checkouts differ")
+        times = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other"):
+            times[side].append(cs.three_ways(lambda: fns[side](*args), 50,
+                                             3))
+        Q, Tq = args[1].shape
+        cs.log(f"{name} {label} (Q {Q}, Tq {Tq}, B {args[2].shape[1]}, "
+               f"{'boolean' if args[3] is not None else 'pure OR'}): "
+               "bit-equal; one call / per call of 50 / kernel only ms, "
+               "other then this, in run order [" + smi + "]")
+        for side in ("other", "this"):
+            cs.log(f"  {side}: " + "; ".join(
+                " / ".join(f"{t:.4f}" for t in w) for w in times[side]))
+
+
+if __name__ == "__main__":
+    main()

@@ -10,10 +10,10 @@ come from the port's own builder, queries from its own query sets, and the
 reference answers from its own oracle. Phases (any failure raises and the
 script exits non-zero), in the order they run:
 
-1. Device: card name and power limit; build the CUDA kernels from
+1. Device: card name and power limit, SM count and top SM clock (the
+   CUDA-core rates of the bounds); build the CUDA kernels from
    ``diagon_tpu_torch/csrc`` (one nvcc per source, all at once) and time
-   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1-B5
-   or B7.
+   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1-B8.
 2. Kernels B1 (row_sum) and B2 (row_boolean) against their plain PyTorch
    versions on the card, bit for bit (D = 19,456; Q in {1, 3, 7, 19,
    1024}; Tq in {4, 20, 24, 64, 100}; both stage 64 clauses per pass), and
@@ -44,8 +44,10 @@ script exits non-zero), in the order they run:
    out of ascending order, bit-equal to plain and to B6. Then B8
    (bits_hits) exactly equal to
    its plain version at D in {19,456, 10,002,432} x (Q, U8, Tq) in
-   {(1, 40, 20), (820, 40, 20), (200, 40, 4), (1024, 512, 4)}, every mode
-   word, dead queries and queries without a required clause included.
+   {(1, 40, 20), (820, 40, 20), (200, 40, 4), (1024, 512, 4), (64, 168,
+   40)}, every mode word, dead queries and queries without a required
+   clause included; each shape's last span ragged or not as its plan
+   falls (the plan is printed).
 4. Serving at 19,043 docs (main path, counted): solo searches of the
    Reuters families and search_batch sizes 1-7 (B1/B2), or20 x 1024
    (dedups to one plan, exhaustive on B1), mixed 1024 (pruned: B3 and B6
@@ -86,8 +88,11 @@ script exits non-zero), in the order they run:
    of one PyTorch call computing the same function where there is one.
    B1 and embedding_bag are timed three ways at Q 1, Tq 20 (the main
    path's args) and Q 1024, Tq 20: events around one call, events around
-   100 back-to-back calls / 100, and kernel-only device time from
-   torch.profiler.
+   100 back-to-back calls / 100, and kernel only: events around 100 calls
+   queued behind a device sleep, so that no host time enters. So are B6 (at the 1M mixed batch's pure-OR subset, at
+   the 10M phase-1 entry and at the deduped 1M or20 batch, Q 1, each
+   checked bit for bit, with its bound and embedding_bag's time), B8 at
+   the 10M phase-0 entry, B4, B7, and B6 on B7's tensors.
 7. Routes on the same plans: served qps of the mixed cells, 1M or20 and
    1M MUST_NOT through the pruned and the exhaustive route (pruned,
    exhaustive, exhaustive, pruned; the exhaustive route is the same
@@ -146,14 +151,20 @@ PORT_KERNELS = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
                 "union_rescore_kernel", "bits_hits_kernel")
 # B4's kernel: a batch without MUST_NOT must not launch it (B5 takes those)
 B4_KERNELS = ("approx_bool_mma_kernel",)
-# the redesigned kernels of B1-B5 and B7: ptxas must report no spill
+# the kernels of B1-B8: ptxas must report no spill
 NO_SPILL = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
             "approx_bool_mma_kernel", "approx_bool2_mma_kernel",
-            "pack_indicator_kernel", "union_rescore_kernel")
+            "pack_indicator_kernel", "gather_rescore_kernel",
+            "union_rescore_kernel", "bits_hits_kernel")
 # the card's published peaks (H100 SXM datasheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_F32 = 67e12  # f32 outside the tensor cores; taken for 32-bit int ops too
 PEAK_BF16 = 989e12  # bf16 tensor-core products
+# CUDA-core operations an SM issues a clock on compute capability 9.0 (the
+# CUDA C++ Programming Guide's table of arithmetic instruction throughput):
+# f32 add, multiply or compare on 128 lanes (the datasheet's 67 TFLOP/s
+# counts an FMA as two on those lanes), 32-bit logic on 64, popcount on 16.
+LANES = {"f32": 128, "logic": 64, "popc": 16}
+RATES = {}  # operations per second by type: LANES x SMs x top SM clock
 
 
 def log(*a):
@@ -300,6 +311,16 @@ def phase_device():
     log(f"device: {name}")
     log(f"nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+    RATES.update({k: n * sms * mhz * 1e6 for k, n in LANES.items()})
+    log(f"  {sms} SMs (torch device properties), top SM clock {mhz:.0f} MHz "
+        f"(nvidia-smi clocks.max.sm): " + ", ".join(
+            f"{k} {r / 1e12:.2f} T/s" for k, r in RATES.items()))
     t0 = time.perf_counter()
     _build.library()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
@@ -315,8 +336,8 @@ def phase_device():
                              f"on every kernel of {NO_SPILL}")
     spilled = {f: n for f, n in checked.items() if n != (0, 0)}
     if spilled:
-        raise AssertionError(f"ptxas spills in B1-B5/B7 kernels: {spilled}")
-    log(f"  ptxas: no spill in {len(checked)} B1-B5/B7 kernel(s)")
+        raise AssertionError(f"ptxas spills in B1-B8 kernels: {spilled}")
+    log(f"  ptxas: no spill in {len(checked)} B1-B8 kernel(s)")
     return smi
 
 
@@ -764,13 +785,14 @@ def phase_bits_kernel(bh, counts):
     """B8 against its plain version, exactly, at the 19k and 10M doc axes
     and the main path's (Q, U8, Tq) shapes."""
     log("phase 3b: B8 (bits_hits) vs plain on the card, exact")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(8)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(8)
     for D in (KERNEL_D, SCALE10_D):
         line = []
         for Q, U8, Tq in ((1, 40, 20), (820, 40, 20), (200, 40, 4),
-                          (1024, 512, 4)):
+                          (1024, 512, 4), (64, 168, 40)):
             args = bits_inputs(rng, gen, Q, U8, Tq, D)
             got = counts.uncounted(bh.bits_hits, *args)
             want = bh.bits_hits_reference(*args)
@@ -781,7 +803,10 @@ def phase_bits_kernel(bh, counts):
             ms = cuda_ms(lambda: counts.uncounted(bh.bits_hits, *args), reps=10)
             pms = cuda_ms(lambda: bh.bits_hits_reference(*args), reps=3,
                           warmup=1)
-            line.append(f"({Q}, {U8}, {Tq}) {ms:.4f}/{pms:.4f}")
+            V, span, qg, gy = bh.bits_plan(U8, D // 32, Q, Tq, sms)
+            line.append(f"({Q}, {U8}, {Tq}) {ms:.4f}/{pms:.4f} [V {V}, span "
+                        f"{span}{', ragged' if (D // 32) % span else ''}, "
+                        f"groups of {qg}, gy {gy}]")
             del args, got, want
         log(f"  D={D}: B8 == plain at every shape, every mode word; "
             f"ms kernel/plain: {'; '.join(line)}")
@@ -1042,8 +1067,8 @@ def phase_scale10(counts, smi):
     (B3/B5, then B6/B7), (b) use_phase0 (phase 0 and B8, then B6/B7).
     Returns the launches of each route and, for phase 6, the kernels' own
     tensors there: B8's phase-0 arguments, B3's and B5's phase-1 entries
-    (with their f32 rows) and B2's arguments for the queries the mixed batch
-    escalates."""
+    (with their f32 rows), B6's at the pure-OR subset's phase-1 entry, and
+    B2's arguments for the queries the mixed batch escalates."""
     from diagon_tpu_torch.bench.queries import (
         frequent_terms,
         mixed_query_batch,
@@ -1097,6 +1122,7 @@ def phase_scale10(counts, smi):
                                           plans["10M mixed 1024"])
             at10m = {n: (args[n], rows[n])
                      for n in ("approx_select", "approx_select_bool2")}
+            at10m["gather_rescore"] = args["gather_rescore"]
             del args, rows
             at10m["row_boolean"] = counts.uncounted(
                 escalation_args, ex, plans["10M mixed 1024"])
@@ -1237,11 +1263,16 @@ def kernel_bound(name, args):
     """(bound_ms, bound_by): the least time the card could take for the
     work of one call on ``args``, the larger of the bytes it must move
     (each input row it reads once, each output once) over HBM_BYTES_PER_S
-    and the operations these inputs need over the peak of their type:
-    f32 adds / compares for B1, B2, B6, B7; bf16 multiply-adds of the
-    indicator nonzeros for B3-B5 (the listed rows only); 32-bit integer
-    logic for B8 (one op per role clause and word, two more per word for
-    the mode mask and the popcount, dead queries none), at the f32 rate."""
+    and the operations these inputs need over the rate of their type:
+    f32 adds / compares for B1, B2, B6, B7 (RATES["f32"]); bf16
+    multiply-adds of the indicator nonzeros for B3-B5 (the listed rows
+    only, PEAK_BF16); for B8 per live query and word a popcount
+    (RATES["popc"]) and the 3-input logic ops (LOP3, RATES["logic"]) that
+    fold its k role rows into one match word, k // 2 of them (each folds
+    two more rows in; none where k <= 1: the popcount of ~x is 32 minus
+    that of x), the slower of the two pipes setting the time. A role row
+    counts where the mode word uses its role (required under MODE_REQ,
+    should under MODE_SHO, must_not always)."""
     if name in ("row_sum", "row_boolean"):
         heavy, light, hidx, lidx = args[:4]
         D = heavy.shape[1]
@@ -1250,8 +1281,7 @@ def kernel_bound(name, args):
                 + torch.unique(lidx[hidx < 0]).numel())
         outs = 1 if name == "row_sum" else 4
         byts = rows * D * 4 + nbytes(*args[2:]) + outs * Q * D * 4
-        ops = Q * D * ((Tq - 1) if name == "row_sum" else 5 * Tq)
-        peak = PEAK_F32
+        t_ops = Q * D * ((Tq - 1) if name == "row_sum" else 5 * Tq) / RATES["f32"]
     elif name.startswith("approx_select"):
         bank = args[{"approx_select": 1, "approx_select_bool": 4,
                      "approx_select_bool2": 2}[name]]
@@ -1259,8 +1289,7 @@ def kernel_bound(name, args):
         D = bank.shape[1]
         Q = inds[0].shape[1]
         byts = nbytes(*args) + Q * (D // 128) * 4 + Q * 4
-        ops = 2 * D * sum(int((a != 0).sum()) for a in inds)
-        peak = PEAK_BF16
+        t_ops = 2 * D * sum(int((a != 0).sum()) for a in inds) / PEAK_BF16
     elif name in ("gather_rescore", "union_rescore"):
         ct, cidx, tsel, flags = args
         U8 = ct.shape[1]
@@ -1270,10 +1299,10 @@ def kernel_bound(name, args):
                              + cidx.long()[:, None, :]).numel()
         outs = 1 if flags is None else 4
         byts = lanes * 128 * 4 + nbytes(cidx, tsel, flags) + outs * Q * B * 512
-        ops = Q * B * 128 * Tq * (1 if flags is None else 5)
-        peak = PEAK_F32
+        t_ops = Q * B * 128 * Tq * (1 if flags is None else 5) / RATES["f32"]
     else:  # bits_hits
-        from diagon_tpu_torch.ops.bits_hits import MODE_DEAD
+        from diagon_tpu_torch.ops.bits_hits import (MODE_DEAD, MODE_REQ,
+                                                     MODE_SHO)
 
         bits, cidx, cflags, qmode = args
         W = bits.shape[1]
@@ -1281,35 +1310,79 @@ def kernel_bound(name, args):
         rows = torch.unique(cidx[role]).numel()
         byts = rows * W * 4 + nbytes(cidx, cflags, qmode) + qmode.numel() * 4
         alive = (qmode & MODE_DEAD) == 0
-        ops = W * int(((role.sum(dim=1) + 2) * alive).sum())
-        peak = PEAK_F32
+        mode = qmode[:, None]
+        k = ((((cflags & 2) != 0) & ((mode & MODE_REQ) != 0)).sum(dim=1)
+             + (((cflags & 4) != 0) & ((mode & MODE_SHO) != 0)).sum(dim=1)
+             + ((cflags & 8) != 0).sum(dim=1))
+        logic = W * int(((k // 2) * alive).sum())
+        popc = W * int(alive.sum())
+        t_ops = max(logic / RATES["logic"], popc / RATES["popc"])
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
+    t_ops *= 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rescore_bags(args):
+    """B6's pure-OR function as ``embedding_bag(mode="sum")`` arguments:
+    the bank as [G * U8, 128] rows and one bag of Tq rows
+    tsel[q, b] * U8 + cidx[q, t] a pair."""
+    ct, cidx, tsel, _ = args
+    G, U8, lanes = ct.shape
+    bags = (tsel.long()[:, :, None] * U8 + cidx.long()[:, None, :])
+    return bags.reshape(-1, cidx.shape[1]), ct.view(G * U8, lanes)
 
 
 def library_ms(name, args):
     """One PyTorch call computing the same function on the same inputs,
     timed: B1's row sums are ``embedding_bag(mode="sum")`` over the heavy
-    bank when every clause reads it (in another add order); no single call
-    computes B2-B8's outputs (B3-B5's product alone is a matmul, without
-    the tile maxima or the hits)."""
+    bank when every clause reads it, and so is B6's pure-OR rescore over
+    the compact bank's lane rows (``rescore_bags``), each in another add
+    order (timing only: the port never calls it); no single call computes
+    B2-B5's, B6's boolean form's, B7's or B8's outputs (B3-B5's product
+    alone is a matmul, without the tile maxima or the hits)."""
     if name == "row_sum":
         heavy, _, hidx, _ = args
         if bool((hidx >= 0).all()):
             idx = hidx.long()
             return cuda_ms(lambda: torch.nn.functional.embedding_bag(
                 idx, heavy, mode="sum"))
+    if name == "gather_rescore" and args[3] is None:
+        bags, rows = rescore_bags(args)
+        return cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            bags, rows, mode="sum"))
     return None
+
+
+def queued_ms(fn, n):
+    """Device ms per call of n calls of ``fn`` queued behind a device-side
+    sleep that outlasts their launches: the calls then run back to back, so
+    the time holds their kernels and the device's gaps between them but no
+    host time. The sleep is lengthened until it does outlast them; NaN
+    (not measured) where even 134 ms do not, as when ``fn`` waits on the
+    device."""
+    cycles = 1 << 24  # about 8 ms at 2 GHz
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        dry = a.query()  # the sleep ended before the last launch
+        b.synchronize()
+        if not dry:
+            return a.elapsed_time(b) / n
+        cycles *= 4
+    return float("nan")
 
 
 def three_ways(fn, n=100, reps=5):
     """Three times of one call of ``fn``, ms: CUDA events around one call
-    (median of 20), events around n back-to-back calls divided by n (median
-    of ``reps``), and the device time of its kernels per call from
-    torch.profiler (the host's share is the gap between them)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    (median of 20), events around n back-to-back calls divided by n, and
+    the device time per call of n calls queued behind a device sleep
+    (``queued_ms``: kernel only; the host's share is the gap between the
+    last two), each a median of ``reps``."""
     one = cuda_ms(fn)
     batch = []
     for _ in range(reps):
@@ -1321,13 +1394,9 @@ def three_ways(fn, n=100, reps=5):
         b.record()
         b.synchronize()
         batch.append(a.elapsed_time(b) / n)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    dev = sum(e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA) / n / 1e3
+    queued = [queued_ms(fn, n) for _ in range(reps)]
+    dev = (statistics.median(queued) if all(t == t for t in queued)
+           else float("nan"))  # t != t: NaN
     return one, statistics.median(batch), dev
 
 
@@ -1375,8 +1444,10 @@ def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
     B6 and B7 bit for bit against their plain versions and each other; B8
     exactly. B1 and embedding_bag are split three ways (one call, per call
     of 100, kernel only) at the main path's args and at Q 1024, Tq 20, and
-    so are B4, B7 and B6 on B7's tensors. Returns each kernel's times,
-    error, bound and library time."""
+    so are B4, B7 and B6 on B7's tensors; B6 and embedding_bag also at the
+    1M mixed pure-OR subset, the 10M phase-1 entry and the deduped 1M or20
+    batch (Q 1), B6 checked bit for bit at each; B8 at the 10M phase-0
+    entry. Returns each kernel's times, error, bound and library time."""
     from diagon_tpu_torch.search.row_engine import _flags
 
     log("phase 6: kernels vs plain on the main path's tensors")
@@ -1506,8 +1577,9 @@ def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
             f"{oms:.4f} ms")
         out[name] = (ms, plain, e)
         at[name] = mixed_args[name]
-    # the redesigned B4 and B7 split into wrapper and device time, B7 beside
-    # B6 on B7's tensors (its yardstick: no library call computes it)
+    # the redesigned B4, B7, B6 and B8 split into wrapper and device time,
+    # B7 beside B6 on B7's tensors (no library call computes B7's boolean
+    # form)
     for label, fn, args in (
         ("B4 19k MUST_NOT", ap.approx_select_bool,
          neg_args["approx_select_bool"]),
@@ -1515,10 +1587,40 @@ def phase_main_path_kernels(rs, ap, gr, bh, counts, searcher19, batches19,
          neg1m_args["approx_select_bool"]),
         ("B7 1M mixed", gr.union_rescore, mixed_args["union_rescore"]),
         ("B6 on B7's tensors", gr.gather_rescore, mixed_args["union_rescore"]),
+        ("B8 10M phase-0 entry", bh.bits_hits, at["bits_hits"]),
     ):
         w = counts.uncounted(three_ways, lambda: fn(*args), 50, 3)
-        log(f"  {label} split: one call / per call of 50 / kernels only "
+        log(f"  {label} split: one call / per call of 50 / kernel only "
             f"{w[0]:.4f} / {w[1]:.4f} / {w[2]:.4f} ms [{smi}]")
+    # B6 beside embedding_bag (the same pure-OR function, another add
+    # order) at the main path's three B6 shapes, each checked bit for bit
+    q1 = main_path_args(ex1m, batches1m["1M or20 x 1024"][:1])[0]
+    for label, args in (("1M mixed pure-OR subset",
+                         mixed_args["gather_rescore"]),
+                        ("10M phase-1 entry", at10m["gather_rescore"]),
+                        ("1M or20 deduped, Q 1", q1["gather_rescore"])):
+        _, _, e, got, _ = time_kernel(counts, "gather_rescore",
+                                      gr.gather_rescore,
+                                      gr.gather_rescore_reference, args, True)
+        out["gather_rescore"] = out["gather_rescore"][:2] + (
+            max(out["gather_rescore"][2], e),)
+        bags, rows = rescore_bags(args)
+        lib = torch.nn.functional.embedding_bag(bags, rows, mode="sum")
+        lib_err = max_abs_err(lib.view(got.shape), got)
+        w6 = counts.uncounted(three_ways, lambda: gr.gather_rescore(*args),
+                              50, 3)
+        wl = three_ways(lambda: torch.nn.functional.embedding_bag(
+            bags, rows, mode="sum"), 50, 3)
+        b_ms, b_by = kernel_bound("gather_rescore", args)
+        Q, Tq = args[1].shape
+        log(f"  B6 {label} (Q {Q}, Tq {Tq}, B {args[2].shape[1]}, U8 "
+            f"{args[0].shape[1]}): bit-exact; one call / per call of 50 / "
+            f"kernel only: B6 {w6[0]:.4f} / {w6[1]:.4f} / {w6[2]:.4f} ms, "
+            f"embedding_bag {wl[0]:.4f} / {wl[1]:.4f} / {wl[2]:.4f} ms "
+            f"(max |diff| {lib_err:.3g}); bound {b_ms:.4f} ms by {b_by} "
+            f"[{smi}]")
+        del bags, rows, lib, got
+    del q1
     record = {}
     for name, (ms, plain, e) in out.items():
         b_ms, b_by = kernel_bound(name, at[name])

@@ -19,29 +19,47 @@
 // should / must_not lanes for bits 1, 2 and 3 (add_clause, shared by both
 // kernels).
 //
-// B6 layout. A block owns one (query, selected tile) pair, one thread per
-// lane: each clause is one coalesced 512-byte read, and the lane's sums stay
-// in registers. grid.x walks the selected tiles, grid.y the queries (strided,
-// so any Q fits the 65535 limit on gridDim.y). The TPU kernel's VMEM slab
-// ring, double buffering and B-chunking have no counterpart: L1/L2 serve the
-// repeated reads of a hot tile.
+// One pair body for both: a warp a pair. Lane l holds lanes 4l..4l+3 of the
+// tile, one 16-byte load per clause row, and a warp walks a stream of pairs
+// with up to 8 clause rows in flight: it issues the loads of the next 8
+// rows, of this pair or of the next one, before it adds the current 8, so
+// loads stay in flight across pairs (rescore_pairs_warp). The clause rows
+// and flags come from the block's staged copy in shared memory (one
+// broadcast read a row). The two kernels differ only in how a block finds
+// its pairs.
 //
-// Bound: bytes. Q * B * Tq * 512 bytes of reads and Q * B * 512 bytes of
-// writes (x4 boolean); at Q = 1024, B = 24, Tq = 20 that is 252 MB of reads,
-// much of it L2 hits because a batch selects the same hot tiles many times.
-// Counted once per distinct (tile, row), as the bound does, it is a few MB.
+// B6 layout (gather_rescore_kernel). Block k of ops/gather_rescore.py
+// gather_plan owns the run of ppb pairs [k * ppb, (k + 1) * ppb) of the
+// flat (query, selected tile) order: one query's tiles, or the tail of one
+// and the head of the next few. It stages that run's tsel slice and its
+// queries' cidx (and flags) rows in shared memory once, and its 4 warps
+// take the run's pairs in a strided loop. ppb is sized from the SM count so
+// that about 4 blocks an SM hold the whole batch in one wave (no tail): 38
+// pairs a block at Q 824, B 24 (521 blocks), one pair a block at Q 1, B 24
+// (24 warps on 24 SMs). The TPU kernel's VMEM slab ring, double buffering
+// and B-chunking have no counterpart: L1/L2 serve the repeated reads of a
+// hot tile.
 //
-// B7 layout: blocks own ranges of tiles and find their pairs themselves.
-// Block (x, y) owns the tiles [x * tiles_per_block, ...) and the queries
-// [y * q_per_block, ...) (ops/gather_rescore.py union_plan); it stages its
-// queries' clause rows and flags in shared memory while its warps load their
-// slices of the flat tsel (coalesced, L2-resident), ballot the pairs whose
-// tile falls in the block's range, and rescore each such pair with the whole
-// warp: lane l holds lanes 4l..4l+3 of the tile (one 16-byte load per clause
-// row), up to 8 of the pair's rows are in flight before their adds, and the
-// adds and stores are those of B6. Every pair
-// falls in exactly one block, whatever the order of tsel, and is written to
-// its own slot, so no order and no un-permute pass are needed.
+// Bound: bytes, and in practice L2 reads. Each pair reads Tq rows of 512
+// bytes and writes 512 (x4 boolean): at Q 824, B 24, Tq 20 that is 202 MB
+// of row reads, of which about 80 MB are distinct (tile, row) lanes, above
+// the 50 MB L2; the bound counts the distinct ones once. The design keeps
+// enough rows in flight on every SM for the L2 and HBM rates (4 blocks of 4
+// warps, 8-16 rows of 512 bytes each a warp) and no block waits on a
+// clause index in global memory. At the 10M entry (Q 811, B 152) the 1.26
+// GB of row reads from the L2 set the time (about 5 TB/s); taking the pairs
+// b-major, or by tile ranges as B7 does, found no reuse in L1 (PERF.md
+// section 6).
+//
+// B7 layout (union_rescore_kernel): blocks own ranges of tiles and find
+// their pairs themselves. Block (x, y) owns the tiles [x * tiles_per_block,
+// ...) and the queries [y * q_per_block, ...) (ops/gather_rescore.py
+// union_plan); it stages its queries' clause rows and flags in shared
+// memory while its warps load their slices of the flat tsel (coalesced,
+// L2-resident), ballot the pairs whose tile falls in the block's range, and
+// feed each such pair to the shared warp body. Every pair falls in exactly
+// one block, whatever the order of tsel, and is written to its own slot, so
+// no order and no un-permute pass are needed.
 // Why this and not a counting sort of the pairs by tile (a histogram, a scan
 // and a scatter on the device, then the rescore): that is four launches and
 // a memset, several microseconds of launch gaps in a call of about ten, to
@@ -49,17 +67,10 @@
 // from HBM once and from the L2 (50 MB, far above a batch's touched rows)
 // after that, whichever block reads them. The ranges keep the tiles a block
 // touches together; grid.y splits the queries, so a tile that every query
-// selects is spread over grid.y blocks instead of serialising one. The
-// earlier B7 (one thread a lane, 8 sorted pairs a block in series, one
-// 4-byte load a clause) took 0.020 ms of kernel and ~0.185 ms of torch.sort
-// and casts in its wrapper at Q 200, Tq 4, B 24 over 1M docs on an H100 at
-// 700 W (PERF.md, PR 5).
-// What bounds B7 now: latency, not bytes. A block's first pair waits for its
-// slice of tsel and its staged clause rows (loaded together), then for the
-// pair's rows; a warp takes the pairs of its slice one after another, so a
-// block whose tile range a batch selects often finishes last. B6, one block
-// a pair, has no such tail: at the main-path shape its kernel alone is the
-// faster of the two, and B7's whole call the faster (PERF.md, PR 6).
+// selects is spread over grid.y blocks instead of serialising one.
+// What bounds B7: latency, not bytes. A warp takes the pairs of its slices
+// one after another, so a block whose tile range a batch selects often
+// finishes last (PERF.md section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,8 +79,9 @@ namespace {
 
 constexpr int kLane = 128;
 constexpr int kMaxGridY = 65535;
+constexpr int kGatherWarps = 4;  // B6: warps a block
 constexpr int kUnionWarps = 8;  // B7: warps a block
-constexpr int kRowsInFlight = 8;  // B7: clause rows a warp loads before adding
+constexpr int kRowsInFlight = 8;  // clause rows a warp loads before adding
 constexpr int64_t kDefaultSmem = 48 * 1024;  // a block's without opting in
 constexpr int64_t kMaxSmem = 232448;  // a block's dynamic shared memory, max
 
@@ -85,106 +97,153 @@ __device__ __forceinline__ void add_clause(float& s, float& r, float& o,
   n = __fadd_rn(n, (fl & 8) ? pres : 0.f);
 }
 
-// The exact rescore of one (query q, tile g) pair at lane l, written to pair
-// slot p of the [Q * B, 128] output planes: sequential f32 adds in clause
-// order from 0.0.
-template <bool BOOL>
-__device__ __forceinline__ void rescore_pair(
-    const float* __restrict__ compact_t, const int32_t* __restrict__ cidx,
-    const int32_t* __restrict__ flags, float* __restrict__ out, int64_t q,
-    int64_t g, int64_t p, int64_t plane, int l, int U8, int Tq) {
-  const float* slab = compact_t + g * U8 * kLane + l;
-  const int32_t* cq = cidx + q * Tq;
-  float s = 0.f, r = 0.f, o = 0.f, n = 0.f;
-  for (int t = 0; t < Tq; ++t) {
-    const float row = __ldg(slab + (int64_t)__ldg(cq + t) * kLane);
-    if (BOOL) {
-      add_clause(s, r, o, n, row, __ldg(flags + q * Tq + t));
-    } else {
-      s = __fadd_rn(s, row);
-    }
-  }
-  const int64_t at = p * kLane + l;
-  out[at] = s;
-  if (BOOL) {
-    out[plane + at] = r;
-    out[2 * plane + at] = o;
-    out[3 * plane + at] = n;
-  }
-}
+// A (query, tile) pair as the warp body takes it: tile g, output slot p of
+// the [Q * B, 128] planes, and the query's clause rows and flags in the
+// block's shared memory.
+struct Pair {
+  int64_t g;
+  int64_t p;
+  const int32_t* cq;
+  const int32_t* fq;
+};
 
-// rescore_pair with a warp: lane holds lanes 4 lane .. 4 lane + 3, one
-// float4 of each clause row; the pair's clause rows cq and flags fq (the
-// block's staged copy) come into the lanes 32 at a time and go round by
-// shuffles, and kRowsInFlight rows are loaded before their adds. The adds per
-// lane are rescore_pair's.
-template <bool BOOL>
-__device__ __forceinline__ void rescore_pair_warp(
-    const float* __restrict__ compact_t, const int32_t* cq, const int32_t* fq,
-    float* __restrict__ out, int64_t g, int64_t p, int64_t plane, int lane,
-    int U8, int Tq) {
+// Loads clause rows t1 .. t1 + kRowsInFlight - 1 (those below Tq) of pair
+// pr at the warp's lane: one float4 of each row.
+__device__ __forceinline__ void load_rows(float4 (&row)[kRowsInFlight],
+                                          const float* __restrict__ compact_t,
+                                          const Pair& pr, int t1, int lane,
+                                          int U8, int Tq) {
   const float4* slab =
-      reinterpret_cast<const float4*>(compact_t + g * U8 * kLane) + lane;
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f), r = s, o = s, n = s;
-  for (int t0 = 0; t0 < Tq; t0 += 32) {
-    const int nt = min(32, Tq - t0);  // the same in every lane
-    const int ci = lane < nt ? cq[t0 + lane] : 0;
-    const int fi = BOOL && lane < nt ? fq[t0 + lane] : 0;
-    for (int t1 = 0; t1 < nt; t1 += kRowsInFlight) {
-      float4 row[kRowsInFlight];
+      reinterpret_cast<const float4*>(compact_t + pr.g * U8 * kLane) + lane;
 #pragma unroll
-      for (int i = 0; i < kRowsInFlight; ++i) {
-        const int c = __shfl_sync(0xffffffffu, ci, t1 + i);
-        if (t1 + i < nt) row[i] = __ldg(slab + (int64_t)c * (kLane / 4));
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsInFlight; ++i) {
-        const int fl = __shfl_sync(0xffffffffu, fi, t1 + i);
-        if (t1 + i >= nt) break;
-        if (BOOL) {
-          add_clause(s.x, r.x, o.x, n.x, row[i].x, fl);
-          add_clause(s.y, r.y, o.y, n.y, row[i].y, fl);
-          add_clause(s.z, r.z, o.z, n.z, row[i].z, fl);
-          add_clause(s.w, r.w, o.w, n.w, row[i].w, fl);
-        } else {
-          s.x = __fadd_rn(s.x, row[i].x);
-          s.y = __fadd_rn(s.y, row[i].y);
-          s.z = __fadd_rn(s.z, row[i].z);
-          s.w = __fadd_rn(s.w, row[i].w);
-        }
-      }
-    }
-  }
-  float4* at = reinterpret_cast<float4*>(out + p * kLane) + lane;
-  at[0] = s;
-  if (BOOL) {
-    at[plane / 4] = r;
-    at[2 * (plane / 4)] = o;
-    at[3 * (plane / 4)] = n;
+  for (int i = 0; i < kRowsInFlight; ++i) {
+    if (t1 + i < Tq) row[i] = __ldg(slab + (int64_t)pr.cq[t1 + i] * (kLane / 4));
   }
 }
 
+// Adds the loaded rows t1 .. of pair pr to the lane's sums, in clause
+// order, as sequential f32 adds.
 template <bool BOOL>
-__global__ void __launch_bounds__(kLane) gather_rescore_kernel(
+__device__ __forceinline__ void add_rows(const float4 (&row)[kRowsInFlight],
+                                         const Pair& pr, int t1, int Tq,
+                                         float4& s, float4& r, float4& o,
+                                         float4& n) {
+#pragma unroll
+  for (int i = 0; i < kRowsInFlight; ++i) {
+    if (t1 + i >= Tq) break;
+    if (BOOL) {
+      const int fl = pr.fq[t1 + i];
+      add_clause(s.x, r.x, o.x, n.x, row[i].x, fl);
+      add_clause(s.y, r.y, o.y, n.y, row[i].y, fl);
+      add_clause(s.z, r.z, o.z, n.z, row[i].z, fl);
+      add_clause(s.w, r.w, o.w, n.w, row[i].w, fl);
+    } else {
+      s.x = __fadd_rn(s.x, row[i].x);
+      s.y = __fadd_rn(s.y, row[i].y);
+      s.z = __fadd_rn(s.z, row[i].z);
+      s.w = __fadd_rn(s.w, row[i].w);
+    }
+  }
+}
+
+// The exact rescore, with one warp, of every pair that next(Pair&) yields
+// (warp-uniform; false ends the stream): sequential f32 adds in clause
+// order from 0.0, written to the pair's slot with streaming float4 stores.
+// The rows go by in chunks of kRowsInFlight; the next chunk's loads (the
+// pair's next rows or the next pair's first ones) are issued before the
+// current chunk's adds.
+template <bool BOOL, class Next>
+__device__ __forceinline__ void rescore_pairs_warp(
+    const float* __restrict__ compact_t, float* __restrict__ out,
+    int64_t plane, int lane, int U8, int Tq, Next&& next) {
+  Pair cur;
+  if (!next(cur)) return;
+  float4 row[kRowsInFlight];
+  load_rows(row, compact_t, cur, 0, lane, U8, Tq);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 s = zero, r = zero, o = zero, n = zero;
+  for (int t1 = 0;;) {
+    Pair nxt = cur;
+    int u1 = t1 + kRowsInFlight;
+    const bool last = u1 >= Tq;  // the pair's last chunk
+    bool more = true;
+    if (last) {
+      more = next(nxt);
+      u1 = 0;
+    }
+    float4 ahead[kRowsInFlight];
+    if (more) load_rows(ahead, compact_t, nxt, u1, lane, U8, Tq);
+    add_rows<BOOL>(row, cur, t1, Tq, s, r, o, n);
+    if (last) {
+      float4* at = reinterpret_cast<float4*>(out + cur.p * kLane) + lane;
+      __stcs(at, s);
+      if (BOOL) {
+        __stcs(at + plane / 4, r);
+        __stcs(at + 2 * (plane / 4), o);
+        __stcs(at + 3 * (plane / 4), n);
+      }
+      s = r = o = n = zero;
+    }
+    if (!more) break;
+    cur = nxt;
+    t1 = u1;
+#pragma unroll
+    for (int i = 0; i < kRowsInFlight; ++i) row[i] = ahead[i];
+  }
+}
+
+// Block k rescores the flat pairs [k * ppb, k * ppb + n) of the [Q, B]
+// selection (n = ppb but in the last block). It stages the run's tsel slice
+// and the cidx rows (and flags) of the queries the run touches, then warp w
+// takes the run's pairs w, w + kGatherWarps, ...
+//
+// Dynamic shared memory: nq * Tq clause rows, (boolean) nq * Tq flags, then
+// ppb tiles, where nq <= ceil((ppb - 1) / B) + 1 is the number of queries
+// the run touches.
+template <bool BOOL>
+__global__ void __launch_bounds__(32 * kGatherWarps, 4) gather_rescore_kernel(
     const float* __restrict__ compact_t, const int32_t* __restrict__ cidx,
     const int32_t* __restrict__ tsel, const int32_t* __restrict__ flags,
-    float* __restrict__ out, int U8, int Q, int Tq, int B) {
-  const int b = blockIdx.x;
-  const int64_t plane = (int64_t)Q * B * kLane;
-  for (int q = blockIdx.y; q < Q; q += gridDim.y) {
-    const int64_t p = (int64_t)q * B + b;
-    rescore_pair<BOOL>(compact_t, cidx, flags, out, q, __ldg(tsel + p), p,
-                       plane, threadIdx.x, U8, Tq);
+    float* __restrict__ out, int U8, int Q, int Tq, int B, int ppb) {
+  extern __shared__ int32_t s_meta[];
+  const int lane = threadIdx.x & 31;
+  const int64_t P = (int64_t)Q * B;
+  const int64_t p0 = (int64_t)blockIdx.x * ppb;
+  const int n = (int)(P - p0 < ppb ? P - p0 : ppb);
+  const int64_t qa = p0 / B;  // the run's first query
+  const int nq = (int)((p0 + n - 1) / B - qa + 1);
+  int32_t* s_flags = s_meta + nq * Tq;
+  int32_t* s_tsel = s_flags + (BOOL ? nq * Tq : 0);
+  for (int i = threadIdx.x; i < nq * Tq; i += blockDim.x) {
+    s_meta[i] = __ldg(cidx + qa * Tq + i);
+    if (BOOL) s_flags[i] = __ldg(flags + qa * Tq + i);
   }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    s_tsel[i] = __ldg(tsel + p0 + i);
+  }
+  __syncthreads();
+  int i = threadIdx.x >> 5;
+  rescore_pairs_warp<BOOL>(
+      compact_t, out, P * kLane, lane, U8, Tq, [&](Pair& pr) {
+        if (i >= n) return false;
+        const int64_t p = p0 + i;
+        const int row = (int)(p / B - qa) * Tq;
+        pr.g = s_tsel[i];
+        pr.p = p;
+        pr.cq = s_meta + row;
+        pr.fq = s_flags + row;
+        i += kGatherWarps;
+        return true;
+      });
 }
 
 // Block (x, y) rescores the pairs (q, b) with tsel[q, b] in [x * tpb,
 // (x + 1) * tpb) and q in [y * qpb, (y + 1) * qpb). It stages its queries'
 // clause rows (and flags) in shared memory while each warp loads its first
 // 32-pair slice of tsel, so a pair then waits on one global load, its rows.
-// Warp w scans the slices w, w + kUnionWarps, ... of the block's pairs, loads
-// the next slice before it rescores the pairs its ballot found in this one,
-// and takes those in slice order.
+// Warp w scans the slices w, w + kUnionWarps, ... of the block's pairs: it
+// ballots a slice, loads the next one at once, and hands the pairs its
+// ballot found to the warp body in slice order.
 //
 // Dynamic shared memory: qpb * Tq clause rows, then (boolean) qpb * Tq flags.
 template <bool BOOL>
@@ -202,28 +261,35 @@ __global__ void __launch_bounds__(32 * kUnionWarps) union_rescore_kernel(
   const int nq = (int)(q0 + qpb < Q ? qpb : Q - q0);
   const int64_t p_end = (q0 + nq) * B;
   int32_t* s_flags = s_meta + qpb * Tq;
-  int64_t base = q0 * B + 32 * warp;
-  int g = base + lane < p_end ? __ldg(tsel + base + lane) : -1;
+  int64_t nb = q0 * B + 32 * warp;  // the slice g holds
+  int g = nb + lane < p_end ? __ldg(tsel + nb + lane) : -1;
   for (int i = threadIdx.x; i < nq * Tq; i += blockDim.x) {
     s_meta[i] = __ldg(cidx + q0 * Tq + i);
     if (BOOL) s_flags[i] = __ldg(flags + q0 * Tq + i);
   }
   __syncthreads();
-  for (; base < p_end; base += 32 * kUnionWarps) {
-    unsigned mine = __ballot_sync(0xffffffffu, g >= g0 && g < g0 + tpb);
-    const int gp = g;
-    const int64_t nb = base + 32 * kUnionWarps;
-    g = nb + lane < p_end ? __ldg(tsel + nb + lane) : -1;
-    while (mine) {
-      const int j = __ffs(mine) - 1;
-      mine &= mine - 1;
-      const int64_t pj = base + j;
-      const int row = (int)(pj / B - q0) * Tq;
-      rescore_pair_warp<BOOL>(compact_t, s_meta + row, s_flags + row, out,
-                              __shfl_sync(0xffffffffu, gp, j), pj, plane,
-                              lane, U8, Tq);
-    }
-  }
+  unsigned mine = 0;  // the block's pairs of the slice at base, not taken
+  int64_t base = 0;
+  int gp = -1;
+  rescore_pairs_warp<BOOL>(
+      compact_t, out, plane, lane, U8, Tq, [&](Pair& pr) {
+        while (!mine) {
+          if (nb >= p_end) return false;
+          mine = __ballot_sync(0xffffffffu, g >= g0 && g < g0 + tpb);
+          gp = g;
+          base = nb;
+          nb += 32 * kUnionWarps;
+          g = nb + lane < p_end ? __ldg(tsel + nb + lane) : -1;
+        }
+        const int j = __ffs(mine) - 1;
+        mine &= mine - 1;
+        pr.g = __shfl_sync(0xffffffffu, gp, j);
+        pr.p = base + j;
+        const int row = (int)(pr.p / B - q0) * Tq;
+        pr.cq = s_meta + row;
+        pr.fq = s_flags + row;
+        return true;
+      });
 }
 
 }  // namespace
@@ -232,32 +298,45 @@ __global__ void __launch_bounds__(32 * kUnionWarps) union_rescore_kernel(
 // allocates nothing, returns cudaGetLastError() (0 = launched).
 //
 // Preconditions, checked by the Python wrapper: all tensors contiguous on one
-// device; compact_t f32 [G, U8, 128]; cidx i32 [Q, Tq] with 0 <= cidx < U8;
-// tsel i32 [Q, B] with 0 <= tsel < G; flags i32 [Q, Tq] or null for the
-// pure-OR form; out f32 [Q, B, 128], or [4, Q, B, 128] (score, required,
-// should, must_not) with flags; Q, Tq, B >= 1.
+// device; compact_t f32 [G, U8, 128] and out 16-byte aligned; cidx i32
+// [Q, Tq] with 0 <= cidx < U8; tsel i32 [Q, B] with 0 <= tsel < G; flags
+// i32 [Q, Tq] or null for the pure-OR form; out f32 [Q, B, 128], or
+// [4, Q, B, 128] (score, required, should, must_not) with flags; Q, Tq,
+// B >= 1.
+//
+// B6: ppb pairs a block (ops/gather_rescore.py gather_plan), so
+// ceil(Q * B / ppb) blocks, and the run's staged rows and tiles within a
+// block's shared memory.
 extern "C" int diagon_gather_rescore(const float* compact_t,
                                      const int32_t* cidx,
                                      const int32_t* tsel,
                                      const int32_t* flags, float* out, int U8,
-                                     int Q, int Tq, int B,
+                                     int Q, int Tq, int B, int ppb,
                                      cudaStream_t stream) {
-  const dim3 grid((unsigned)B, (unsigned)(Q < kMaxGridY ? Q : kMaxGridY));
-  if (flags == nullptr) {
-    gather_rescore_kernel<false><<<grid, kLane, 0, stream>>>(
-        compact_t, cidx, tsel, flags, out, U8, Q, Tq, B);
-  } else {
-    gather_rescore_kernel<true><<<grid, kLane, 0, stream>>>(
-        compact_t, cidx, tsel, flags, out, U8, Q, Tq, B);
+  if (ppb < 1) return (int)cudaErrorInvalidValue;
+  const int64_t P = (int64_t)Q * B;
+  const int64_t nq = (ppb - 1 + (int64_t)B - 1) / B + 1;
+  const int64_t smem =
+      (nq * Tq * (flags == nullptr ? 1 : 2) + ppb) * (int64_t)sizeof(int32_t);
+  const int64_t blocks = (P + ppb - 1) / ppb;
+  if (smem > kMaxSmem || blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  auto* kernel = flags == nullptr ? gather_rescore_kernel<false>
+                                  : gather_rescore_kernel<true>;
+  if (smem > kDefaultSmem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  kernel<<<(unsigned)blocks, 32 * kGatherWarps, (size_t)smem, stream>>>(
+      compact_t, cidx, tsel, flags, out, U8, Q, Tq, B, ppb);
   return (int)cudaGetLastError();
 }
 
-// B7 launcher: the preconditions of diagon_gather_rescore, plus compact_t and
-// out 16-byte aligned, and the plan of ops/gather_rescore.py union_plan: tpb
-// tiles and qpb queries a block, so ceil(G / tpb) x ceil(Q / qpb) blocks, at
-// most 65535 along y, and qpb * Tq clause entries a block stages (twice with
-// flags) within its shared memory. One launch, no scratch.
+// B7 launcher: the preconditions above, plus the plan of
+// ops/gather_rescore.py union_plan: tpb tiles and qpb queries a block, so
+// ceil(G / tpb) x ceil(Q / qpb) blocks, at most 65535 along y, and qpb * Tq
+// clause entries a block stages (twice with flags) within its shared
+// memory. One launch, no scratch.
 extern "C" int diagon_union_rescore(const float* compact_t,
                                     const int32_t* cidx, const int32_t* tsel,
                                     const int32_t* flags, float* out, int G,

@@ -43,9 +43,9 @@ _SIGNATURES = {
     "diagon_approx_select": [_P] * 6 + [_I, _I, _I64, _P],
     "diagon_approx_select_bool": [_P] * 10 + [_I, _I, _I64, _P],
     "diagon_approx_select_bool2": [_P] * 8 + [_I, _I, _I64, _P],
-    "diagon_gather_rescore": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "diagon_gather_rescore": [_P] * 5 + [_I] * 5 + [_P],
     "diagon_union_rescore": [_P] * 5 + [_I] * 7 + [_P],
-    "diagon_bits_hits": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    "diagon_bits_hits": [_P] * 5 + [_I, _I64] + [_I] * 6 + [_P],
 }
 
 _lib = None

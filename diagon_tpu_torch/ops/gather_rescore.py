@@ -28,6 +28,14 @@ says why this and not a counting sort). What bounds B7 at the main
 path's shapes is latency, not the bytes it must move: a block stages its
 queries' ``cidx`` and ``flags`` while it loads ``tsel``, and a pair then
 waits on its clause rows.
+
+Both kernels rescore a pair with one warp, through one pair body that
+keeps clause rows in flight across a warp's pairs; they differ in how a
+block finds its pairs. B6's blocks each own a run of the flat (query,
+tile) order (``gather_plan``): the run's ``tsel`` slice and its queries'
+``cidx`` and ``flags`` rows are staged once in shared memory, and the
+run's length is set from the SM count so that the whole batch is one wave
+of blocks.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import functools
 import torch
 
 from diagon_tpu_torch.ops import _build
+from diagon_tpu_torch.ops.row_sum import _sm_count
 
 LANE = 128
 # the JAX package's union-kernel limits (its SMEM scalar-prefetch budget and
@@ -49,6 +58,12 @@ UNION_RANGES = 32
 UNION_BLOCKS = 528
 UNION_STAGED = 4096  # clause entries a B7 block stages (16 KB, 32 with flags)
 MAX_GRID_Y = 65535
+# B6's grid (gather_plan): blocks of GATHER_WARPS warps, GATHER_BLOCKS_PER_SM
+# of them on an SM at once (the kernel's launch bounds hold it to 128
+# registers a thread for that)
+GATHER_WARPS = 4
+GATHER_BLOCKS_PER_SM = 4
+MAX_SMEM = 232448  # a block's dynamic shared memory on sm_90, max
 
 
 _F32, _I32 = torch.float32, torch.int32
@@ -133,6 +148,30 @@ def gather_rescore_reference(compact_t, cidx, tsel, flags=None):
     return acc[0] if flags is None else tuple(acc)
 
 
+def gather_smem(ppb: int, B: int, Tq: int, boolean: bool) -> int:
+    """Bytes of shared memory a B6 block of ``ppb`` pairs stages: the cidx
+    rows (and flags) of the at most ceil((ppb - 1) / B) + 1 queries its run
+    touches, and its ``ppb`` tiles."""
+    nq = -(-(ppb - 1) // B) + 1
+    return 4 * (nq * Tq * (2 if boolean else 1) + ppb)
+
+
+@functools.lru_cache(maxsize=256)
+def gather_plan(Q: int, B: int, Tq: int, sms: int, boolean: bool) -> int:
+    """B6's pairs a block, ppb: block k of the ceil(Q * B / ppb) blocks
+    rescores the flat pairs [k * ppb, (k + 1) * ppb) of the [Q, B]
+    selection (pair q * B + b), its warps taking them in turn. As few pairs
+    a block as put the batch in one wave of GATHER_BLOCKS_PER_SM blocks on
+    each of ``sms`` SMs, so no block starts late; halved where a block's
+    staged rows would not fit its shared memory."""
+    ppb = -(-(Q * B) // (sms * GATHER_BLOCKS_PER_SM))
+    while gather_smem(ppb, B, Tq, boolean) > MAX_SMEM:
+        if ppb == 1:
+            raise ValueError(f"Tq ({Tq}) too large for B6's shared memory")
+        ppb //= 2
+    return ppb
+
+
 _gather_fn = None  # the launchers, looked up once
 _union_fn = None
 
@@ -143,15 +182,18 @@ def gather_rescore(compact_t, cidx, tsel, flags=None):
     G, U8, Q, Tq, B = _check(compact_t, cidx, tsel, flags)
     if compact_t.device.type == "cpu":
         return gather_rescore_reference(compact_t, cidx, tsel, flags)
+    if compact_t.data_ptr() % 16:
+        raise ValueError("compact_t must be 16-byte aligned")
     global _gather_fn
     if _gather_fn is None:
         _gather_fn = _build.library().diagon_gather_rescore
+    dev = compact_t.get_device()
     out = compact_t.new_empty((1 if flags is None else 4, Q, B, LANE))
     rc = _gather_fn(
         compact_t.data_ptr(), cidx.data_ptr(), tsel.data_ptr(),
         None if flags is None else flags.data_ptr(), out.data_ptr(),
-        U8, Q, Tq, B, torch._C._cuda_getCurrentRawStream(
-            compact_t.get_device()),
+        U8, Q, Tq, B, gather_plan(Q, B, Tq, _sm_count(dev), flags is not None),
+        torch._C._cuda_getCurrentRawStream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"diagon_gather_rescore launch failed: cudaError {rc}")

@@ -19,7 +19,7 @@ from diagon_tpu_torch.ops import gather_rescore as gr
 # (G, U8, Q, Tq, B): one query, every tile selected, many queries over
 # shared tiles (the union kernel's shape class)
 SHAPES = [(8, 8, 1, 4, 3), (6, 16, 5, 9, 6), (24, 16, 64, 5, 8),
-          (32, 40, 9, 20, 24)]
+          (32, 40, 9, 20, 24), (160, 40, 1, 33, 152)]
 # shapes the JAX union kernel takes (8 | Q * B): a wider clause list, the
 # routed class (Q >= 64, Tq <= 8) with every tile repeated across queries,
 # and a sparse selection (SHAPES[2] is held against it below)
@@ -63,6 +63,24 @@ def test_gather_rescore_reference_matches_pallas(shape, boolean):
     assert len(got) == len(want)
     for x, y in zip(got, want):
         np.testing.assert_array_equal(_bits(x.numpy()), _bits(y))
+
+
+@pytest.mark.parametrize("shape", [SHAPES[1], SHAPES[3]])
+def test_gather_rescore_reference_matches_pallas_with_every_flag_bit(shape):
+    """The boolean form where every clause carries all four flag bits
+    (scoring, required, should and must_not at once)."""
+    bank, cidx, tsel, _ = _inputs(*shape)
+    flags = np.full(cidx.shape, 15, np.int32)
+    want = pallas_gather_rescore(jnp.asarray(bank), jnp.asarray(cidx),
+                                 jnp.asarray(tsel), jnp.asarray(flags),
+                                 interpret=True)
+    got = gr.gather_rescore_reference(
+        *(torch.from_numpy(a) for a in (bank, cidx, tsel, flags)))
+    assert len(got) == len(want) == 4
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(_bits(x.numpy()), _bits(y))
+    # the three count lanes see the same rows
+    assert torch.equal(got[1], got[2]) and torch.equal(got[1], got[3])
 
 
 @pytest.mark.parametrize("boolean", [False, True])
@@ -197,6 +215,69 @@ def test_union_plan_grid(Q, B, G):
     assert (gy - 1) * qpb < Q <= gy * qpb
 
 
+def _gather_blocks(Q, B, Tq, sms, boolean):
+    """csrc/gather_rescore.cu gather_rescore_kernel's selection in numpy:
+    for every block, its pairs (flat q * B + b) by warp, and the queries
+    whose clause rows it stages."""
+    ppb = gr.gather_plan(Q, B, Tq, sms, boolean)
+    P = Q * B
+    blocks = -(-P // ppb)
+    p0 = np.arange(blocks, dtype=np.int64) * ppb
+    n = np.minimum(ppb, P - p0)
+    qa = p0 // B
+    nq = (p0 + n - 1) // B - qa + 1
+    return ppb, blocks, p0, n, qa, nq
+
+
+@pytest.mark.parametrize("boolean", [False, True])
+@pytest.mark.parametrize("Q,B,Tq", [(1, 24, 20), (1, 152, 20), (824, 24, 20),
+                                    (811, 152, 20), (200, 24, 4),
+                                    (70000, 3, 4), (66000, 24, 8),
+                                    (3, 2, 5000)])
+def test_gather_plan_takes_every_pair_exactly_once(Q, B, Tq, boolean):
+    """Every pair falls in exactly one block's run and is taken by exactly
+    one of its warps, whatever Q (no grid.y: the runs are flat), and each
+    run's staged query rows hold the queries of its pairs within the
+    shared memory the launcher sizes."""
+    sms = 132
+    ppb, blocks, p0, n, qa, nq = _gather_blocks(Q, B, Tq, sms, boolean)
+    assert blocks <= 0x7FFFFFFF and (n >= 1).all()
+    nq_max = -(-(ppb - 1) // B) + 1
+    assert (nq <= nq_max).all()
+    assert gr.gather_smem(ppb, B, Tq, boolean) <= gr.MAX_SMEM
+    hits = np.zeros(Q * B, np.int64)
+    for w in range(gr.GATHER_WARPS):  # warp w takes i = w, w + 4, ...
+        i = np.arange(w, ppb, gr.GATHER_WARPS)
+        p = (p0[:, None] + i[None, :])[i[None, :] < n[:, None]]
+        np.add.at(hits, p, 1)
+        q = p // B
+        blk = np.repeat(np.arange(blocks), ((n[:, None] > i[None, :])
+                                            .sum(axis=1)))
+        assert ((q >= qa[blk]) & (q < qa[blk] + nq[blk])).all()
+    np.testing.assert_array_equal(hits, np.ones(Q * B, np.int64))
+
+
+@pytest.mark.parametrize("Q,B", [(1, 24), (1, 152), (824, 24), (811, 152),
+                                 (200, 24), (4096, 16)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_gather_plan_grid(Q, B, sms):
+    """One wave: the blocks fit GATHER_BLOCKS_PER_SM an SM at once, with as
+    few pairs a block as that allows (a pair a block where the batch has
+    fewer pairs than the card has block slots)."""
+    ppb = gr.gather_plan(Q, B, 20, sms, True)
+    blocks = -(-(Q * B) // ppb)
+    slots = sms * gr.GATHER_BLOCKS_PER_SM
+    assert blocks <= slots
+    assert ppb == 1 or -(-(Q * B) // (ppb - 1)) > slots
+    if Q * B <= slots:
+        assert ppb == 1 and blocks == Q * B
+
+
+def test_gather_plan_refuses_clause_lists_past_shared_memory():
+    with pytest.raises(ValueError):
+        gr.gather_plan(1, 24, 40000, 132, True)
+
+
 @pytest.mark.parametrize("Q,B", [(64, 24), (1024, 24), (2048, 32), (2056, 8),
                                  (4096, 16), (8, 24), (2728, 24), (2000, 40)])
 def test_union_rescore_supported_matches_jax(Q, B):
@@ -254,10 +335,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("boolean", [False, True])
-def test_kernel_matches_plain_version_on_the_card(boolean):
+@pytest.mark.parametrize("shape", [SHAPES[3], SHAPES[4], (64, 40, 824, 20, 24),
+                                   (8, 16, 300, 40, 3)])
+def test_kernel_matches_plain_version_on_the_card(shape, boolean):
+    """B6 bit for bit at one query over 152 tiles with 33 clauses, at the
+    1M main path's (Q, Tq, B), and with runs that span several queries."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    _, targs, fl = _both(SHAPES[3], boolean)
+    _, targs, fl = _both(shape, boolean)
     dev = torch.device("cuda")
     targs = tuple(t.to(dev) for t in targs)
     fl = None if fl is None else torch.from_numpy(fl).to(dev)

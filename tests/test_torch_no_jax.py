@@ -1,6 +1,6 @@
 """diagon_tpu_torch imports with JAX and the JAX package unavailable, no
-module of it (nor chip_smoke.py) imports either, and chip_smoke.py refuses
-to run without a CUDA card."""
+module of it (nor chip_smoke.py, nor chip_ab.py) imports either, and
+chip_smoke.py refuses to run without a CUDA card."""
 
 import ast
 import json
@@ -93,7 +93,8 @@ def _imported_modules(path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                              ROOT / "chip_ab.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_or_the_jax_package(path):
     names = _imported_modules(path)
