@@ -49,18 +49,34 @@ script exits non-zero), in the order they run:
    clause included; each shape's last span ragged or not as its plan
    falls (the plan is printed).
 4. Serving at 19,043 docs (main path, counted): solo searches of the
-   Reuters families and search_batch sizes 1-7 (B1/B2), or20 x 1024
-   (dedups to one plan, exhaustive on B1), mixed 1024 (pruned: B3 and B6
-   for the pure-OR subset, B5 and B7 for the boolean one) and a
-   1024-query MUST_NOT batch (pruned: B4, B7), through dispatch_batch +
-   collect_many. Sampled queries are oracle-exact, and over each whole
-   batch the pruned route's finalize equals the exhaustive route's bit
-   for bit.
+   Reuters families, the five phrases included (a solo phrase runs the
+   position intersection in torch ops, no kernel of B1-B8), and
+   search_batch sizes 1-7 (B1/B2), or20 x 1024 (dedups to one plan,
+   exhaustive on B1), bench.py's mixed 1024 with phrase_share 5 (pruned:
+   B3 and B6 for the pure-OR subset, phrases included, B5 and B7 for the
+   boolean one), a 1024-query MUST_NOT batch (pruned: B4, B7) and
+   bench.py's phrase batch of 1024 over 32 texts (dedups to 32 plans,
+   pruned: B3, B6), through dispatch_batch + collect_many. Sampled
+   queries, every phrase text among them, are oracle-exact, and over each
+   whole batch the pruned route's finalize equals the exhaustive route's
+   bit for bit. Solo phrase latency, and the phrase batch's plans built
+   cold under torch.profiler (host against device time).
 5. Scale at 1,000,000 docs (main path, counted): mixed 1024 (B3, B5, B6,
    B7), or20 x 1024 (dedups to Q = 1, forced onto the batch route:
-   B3 + B6) and a 1024-query MUST_NOT batch over the segment's frequent
-   terms (B4, B7), pruned equal to exhaustive over each whole batch, 6
-   queries oracle-exact, escalation counts printed.
+   B3 + B6), a 1024-query MUST_NOT batch over the segment's frequent
+   terms (B4, B7), then the positions' decode and upload (seconds,
+   bytes), the five solo phrases and the phrase batch (B3, B6), pruned
+   equal to exhaustive over each whole batch, samples oracle-exact,
+   escalation counts printed.
+9. Sparse vectors at 1,000,000 docs (main path, counted):
+   benchmarks/sparse_bench.py's corpus (vocab 30,000, Zipf 1.05, 30-120
+   draws a doc, values U(0.05, 2.05), seed 5; built vectorised) and 256
+   queries of 8-23 Zipf terms: corpus and index build seconds, the solo
+   search (B1), search_batch (pruned: B5, B6; every clause a light row)
+   and search_rerank_batch; search_oracle bit-equal on a sample of 8,
+   search_rerank and search_rerank_batch equal to search_exact there,
+   pruned equal to exhaustive over the whole batch, served qps and a
+   torch.profiler pass over each route.
 8. Scale at 10,000,000 docs, bench.py's 10M tier (main path, counted per
    route): a segment of 4M+ docs holds no resident bank (on-demand mode).
    or20 x 1024, then mixed 1024 over the 32 most frequent terms, with
@@ -93,16 +109,18 @@ script exits non-zero), in the order they run:
    the 10M phase-1 entry and at the deduped 1M or20 batch, Q 1, each
    checked bit for bit, with its bound and embedding_bag's time), B8 at
    the 10M phase-0 entry, B4, B7, and B6 on B7's tensors.
-7. Routes on the same plans: served qps of the mixed cells, 1M or20 and
-   1M MUST_NOT through the pruned and the exhaustive route (pruned,
+7. Routes on the same plans: served qps of the mixed cells, the phrase
+   batches, 1M or20 and 1M MUST_NOT through the pruned and the exhaustive
+   route (pruned,
    exhaustive, exhaustive, pruned; the exhaustive route is the same
    dispatch with the pruning floor raised past the segment), then a
    torch.profiler pass over each route: device time by kernel and the
    card's busy share. A profiled window that launched no B4 must hold no
    row of B4's kernel (approx_bool_mma_kernel): B5 serves those batches.
 
-Launch counters are set to 0 just before each main-path phase (4, 5, and
-each route of 8) and read just after it; comparisons with plain versions
+Phases run in the order 1, 2, 3, 3b, 4, 5, 9, 8, 6, 7. Launch counters
+are set to 0 just before each main-path phase (4, 5, 9 and each route of
+8) and read just after it; comparisons with plain versions
 and with the exhaustive route, and phases 6-7, do not count. Each kernel
 must launch on a path where it has to run.
 
@@ -135,6 +153,13 @@ KERNEL_D = 19456  # SERVE_DOCS padded to the 1024-doc granule
 SCALE_D = 1003520  # SCALE_DOCS padded to the 4096-doc granule
 SCALE10_DOCS = 10_000_000  # bench.py's 10M tier (benchmarks/scale_bench.py)
 SCALE10_D = 10002432  # SCALE10_DOCS padded to the 4096-doc granule
+# benchmarks/sparse_bench.py's corpus shape, at 1M docs
+SPARSE_DOCS = 1_000_000
+SPARSE_VOCAB = 30000
+# what the sparse batch must launch: every plan is padded to one clause
+# bucket with zero-weight clauses, so none is pure OR (B5), and its
+# partition groups hold fewer than 64 queries (B6)
+SPARSE_NEED = ["approx_select_bool2", "gather_rescore"]
 K = 10
 B_TILES = 24  # PRUNE_B0: the main path's tile budget at these sizes
 REL_TOL = 2.0 ** -8  # kernel vs plain tile maxima (two f32 add orders)
@@ -227,7 +252,9 @@ def same_topdocs(a, b):
 
 
 class Oracle:
-    """The host oracle with its answers memoised per query object."""
+    """The host oracle with its answers memoised per query object, and per
+    text for phrases (equal texts have one answer; the oracle takes seconds
+    per phrase at 1M docs)."""
 
     def __init__(self, seg):
         from diagon_tpu_torch.search.oracle import OracleSearcher
@@ -236,9 +263,12 @@ class Oracle:
         self.memo = {}
 
     def check(self, query, got, what):
-        want = self.memo.get(id(query))
+        from diagon_tpu_torch.search.query import PhraseQuery
+
+        key = repr(query) if isinstance(query, PhraseQuery) else id(query)
+        want = self.memo.get(key)
         if want is None:
-            want = self.memo[id(query)] = (query, self.searcher.search(query, K))
+            want = self.memo[key] = (query, self.searcher.search(query, K))
         if not same_topdocs(got, want[1]):
             raise AssertionError(
                 f"{what}: port differs from the oracle for {query!r}:\n"
@@ -933,21 +963,87 @@ def load_searcher(n_docs, **kw):
     return seg, searcher, t_build, t_load
 
 
+def phrase_sample(batch, every=32, others=None):
+    """Indices of every ``every``-th query and of every phrase query,
+    ascending (the oracle answers each phrase text once); with ``others``
+    set, of the first queries of the reference's five phrase texts and of
+    the first ``others`` other texts only."""
+    from diagon_tpu_torch.bench.queries import PHRASES
+    from diagon_tpu_torch.search.query import PhraseQuery
+
+    first = {}
+    for i, q in enumerate(batch):
+        if isinstance(q, PhraseQuery):
+            first.setdefault(tuple(q.terms), []).append(i)
+    if others is None:
+        picked = [i for idx in first.values() for i in idx]
+    else:
+        fixed = {tuple(p) for p in PHRASES}
+        picked = ([idx[0] for t, idx in first.items() if t in fixed]
+                  + sorted(idx[0] for t, idx in first.items()
+                           if t not in fixed)[:others])
+    return sorted(set(range(0, len(batch), every)) | set(picked))
+
+
+def solo_phrase_ms(searcher, queries, label, smi, reps=10):
+    """Host ms of a solo phrase search (plan cached: the position
+    intersection, top-k and one copy back), median of ``reps``."""
+    from diagon_tpu_torch.search.query import PhraseQuery
+
+    out = []
+    for name, q in queries.items():
+        if not isinstance(q, PhraseQuery):
+            continue
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            searcher.search(q, K)
+            times.append(time.perf_counter() - t0)
+        out.append(f"{name.split(':')[1]} {statistics.median(times) * 1e3:.3f}")
+    log(f"  {label} solo phrase ms (median of {reps}): {', '.join(out)} "
+        f"[{smi}]")
+
+
+def phrase_plan_split(searcher, batch, label, smi):
+    """The batch's plans built cold, under torch.profiler: host wall against
+    device time. A phrase text's plan is its ``score_row``: the host
+    conjunction, the position intersection on the card, one copy of its C
+    scores back and the host row; equal texts share one plan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    texts = len({tuple(q.terms) for q in batch if hasattr(q, "terms")})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for q in batch:
+            searcher._cached_query_plans(q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    log(f"  {label} plans, cold: {wall * 1e3:.3f} ms host for {len(batch)} "
+        f"queries ({texts} phrase texts), device {dev:.3f} ms "
+        f"({100 * dev / (wall * 1e3):.1f}%) [{smi}]")
+
+
 def phase_serve(counts, smi):
     from diagon_tpu_torch.bench.queries import (
         frequent_terms,
         mixed_query_batch,
+        phrase_query_batch,
         reuters_queries,
     )
-    from diagon_tpu_torch.search.query import PhraseQuery
 
     log(f"phase 4: serving at {SERVE_DOCS} docs")
     seg, searcher, _, _ = load_searcher(SERVE_DOCS)
     oracle = Oracle(seg)
-    queries = {n: q for n, q in reuters_queries().items()
-               if not isinstance(q, PhraseQuery)}
+    queries = reuters_queries()  # the five phrase families included
     pool = frequent_terms(searcher)
-    mixed = mixed_query_batch(pool, 1024, phrase_share=0)
+    # bench.py's batches: the mixed headline with phrase_share 5
+    # (bench.py:412-415) and the phrase_qps batch (bench.py:446)
+    mixed = mixed_query_batch(pool, 1024, seed=42, phrase_share=5)
+    phrases = phrase_query_batch(pool, 1024, seed=43)
     neg = must_not_batch(pool)
     or20_batch = [queries["or20"]] * 1024
     sample = list(range(0, 1024, 32))
@@ -963,33 +1059,58 @@ def phase_serve(counts, smi):
         for q, r in zip(batch, searcher.search_batch(batch, K)):
             oracle.check(q, r, f"search_batch({n})")
     counts.require(before, ["row_sum", "row_boolean"], "solo + small batches")
-    log(f"  solo search ({len(queries)} families) and search_batch sizes "
-        f"1..7 ({pos} queries) oracle-exact")
+    log(f"  solo search ({len(queries)} families, the five phrases included) "
+        f"and search_batch sizes 1..7 ({pos} queries) oracle-exact")
+    solo_phrase_ms(searcher, queries, "19k", smi)
     batches, sent = {}, {}
-    for label, batch, need, pruned in (
-        ("or20 x 1024", or20_batch, ["row_sum"], False),
+    for label, batch, need, pruned, smp in (
+        ("or20 x 1024", or20_batch, ["row_sum"], False, sample),
         ("mixed 1024", mixed,
          ["approx_select", "approx_select_bool2", "gather_rescore",
-          "union_rescore"], True),
-        ("MUST_NOT 1024", neg, ["approx_select_bool", "union_rescore"], True),
+          "union_rescore"], True, phrase_sample(mixed)),
+        ("MUST_NOT 1024", neg, ["approx_select_bool", "union_rescore"], True,
+         sample),
+        ("phrase 1024", phrases, ["approx_select", "gather_rescore"], True,
+         phrase_sample(phrases)),
     ):
+        if label == "phrase 1024":
+            phrase_plan_split(searcher, batch, label, smi)
         plans, dm = serve_batch(searcher, oracle, counts, batch, label,
-                                sample, need, smi, reps=10)
+                                smp, need, smi, reps=5)
         if pruned and dm["pruned"] < 1:
             raise AssertionError(f"{label}: search.pruned_dispatches did not move")
         batches[label] = plans
         sent[label] = batch
     launches = counts.read()
     ex = searcher._ctx("body").row_executors[0]
-    for label in ("mixed 1024", "MUST_NOT 1024"):
+    for label in ("mixed 1024", "MUST_NOT 1024", "phrase 1024"):
         pruned_equals_exhaustive(ex, counts, batches[label], label, True)
     return searcher, batches, sent, launches
 
 
+def positions_upload(searcher, smi):
+    """Decode (host) and upload (card) of the body field's positions, the
+    first phrase use's set-up: seconds of each and the bytes on the card."""
+    f = searcher.device_segments[0].fields["body"]
+    t0 = time.perf_counter()
+    f._pos_pp.ensure_positions()
+    t_dec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f.ensure_positions()
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    byts = nbytes(f.pos_start, f.positions)
+    log(f"  positions: host decode {t_dec:.3f} s, upload {t_up:.3f} s, "
+        f"{f.positions.numel()} positions + {f.pos_start.numel()} entry "
+        f"offsets = {byts / 2**20:.1f} MiB on the card [{smi}]")
+
+
 def phase_scale(counts, smi):
     from diagon_tpu_torch.bench.queries import (
+        PHRASES,
         frequent_terms,
         mixed_query_batch,
+        phrase_query_batch,
         reuters_queries,
     )
 
@@ -997,8 +1118,11 @@ def phase_scale(counts, smi):
     seg, searcher, _, _ = load_searcher(SCALE_DOCS)
     oracle = Oracle(seg)
     pool = frequent_terms(searcher)
+    # the scale tiers keep phrase_share 0 (bench.py:412-414)
     mixed = mixed_query_batch(pool, 1024, phrase_share=0)
-    or20_batch = [reuters_queries()["or20"]] * 1024
+    queries = reuters_queries()
+    or20_batch = [queries["or20"]] * 1024
+    phrases = phrase_query_batch(pool, 1024, seed=43)
     counts.reset()
     batches, sent = {}, {}
     for label, batch, need, sample in (
@@ -1012,16 +1136,188 @@ def phase_scale(counts, smi):
          ["approx_select_bool", "union_rescore"], [0, 511]),
     ):
         plans, dm = serve_batch(searcher, oracle, counts, batch, label,
-                                sample, need, smi, reps=5)
+                                sample, need, smi, reps=3)
         if dm["pruned"] < 1:
             raise AssertionError(f"{label}: search.pruned_dispatches did not move")
         batches[label] = plans
         sent[label] = batch
+    # phrases at 1M: the five families solo, then bench.py's phrase batch
+    # (the oracle takes seconds a phrase here: the sample holds the five
+    # reference texts, already checked solo, and one other)
+    positions_upload(searcher, smi)
+    for p in PHRASES:
+        name = "phrase:" + " ".join(p)
+        oracle.check(queries[name], searcher.search(queries[name], K),
+                     f"1M solo {name}")
+    log(f"  1M solo phrases ({len(PHRASES)} families) oracle-exact")
+    solo_phrase_ms(searcher, queries, "1M", smi)
+    phrase_plan_split(searcher, phrases, "1M phrase 1024", smi)
+    plans, dm = serve_batch(searcher, oracle, counts, phrases,
+                            "1M phrase 1024", phrase_sample(phrases, 1024, 1),
+                            ["approx_select", "gather_rescore"], smi, reps=3)
+    if dm["pruned"] < 1:
+        raise AssertionError("1M phrase 1024: search.pruned_dispatches did "
+                             "not move")
+    batches["1M phrase 1024"] = plans
+    sent["1M phrase 1024"] = phrases
     launches = counts.read()
     ex = searcher._ctx("body").row_executors[0]
     for label, plans in batches.items():
         pruned_equals_exhaustive(ex, counts, plans, label, True)
     return searcher, batches, sent, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the sparse-vector searcher at 1,000,000 docs
+# ---------------------------------------------------------------------------
+
+
+def sparse_corpus(n_docs, vocab=SPARSE_VOCAB, nnz=120, seed=5):
+    """benchmarks/sparse_bench.py's SPLADE-like corpus, vectorised: doc i
+    keeps the unique ids of its first keep_n[i] of nnz Zipf(1.05) draws
+    over ``vocab``, with values U(0.05, 2.05), from the generator stream
+    sparse_bench.py's per-doc loop reads (the same vectors). Returns the
+    vectors, the generator (its queries come next) and the Zipf weights."""
+    from diagon_tpu_torch.sparse import SparseVector
+
+    rng = np.random.Generator(np.random.PCG64(seed))
+    probs = 1.0 / np.arange(1, vocab + 1) ** 1.05
+    probs /= probs.sum()
+    ids = np.searchsorted(np.cumsum(probs),
+                          rng.random((n_docs, nnz))).astype(np.int64)
+    keep_n = rng.integers(30, nnz, size=n_docs)
+    ids[np.arange(nnz)[None, :] >= keep_n[:, None]] = vocab  # dropped slots
+    ids.sort(axis=1)
+    keep = ids < vocab
+    keep[:, 1:] &= ids[:, 1:] != ids[:, :-1]
+    starts = np.zeros(n_docs + 1, np.int64)
+    np.cumsum(keep.sum(axis=1), out=starts[1:])
+    ids = ids[keep]
+    del keep
+    vals = rng.random(len(ids)).astype(np.float32) * 2 + 0.05
+    vecs = [SparseVector(ids[a:b], vals[a:b])
+            for a, b in zip(starts[:-1], starts[1:])]
+    return vecs, rng, probs
+
+
+def sparse_queries(rng, probs, n, vocab=SPARSE_VOCAB):
+    """sparse_bench.py:96-100: 8-23 Zipf draws a query, unique, weights
+    U(0, 1)."""
+    from diagon_tpu_torch.sparse import SparseVector
+
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(8, 24))
+        ids = np.unique(rng.choice(vocab, size=k, p=probs))
+        out.append(SparseVector(ids, rng.random(len(ids)).astype(np.float32)))
+    return out
+
+
+def same_triple(got, want):
+    """(scores, docids, hits) equal: f32 bits, docids, hits."""
+    return (int(got[2]) == int(want[2])
+            and np.array_equal(np.asarray(got[1]), np.asarray(want[1]))
+            and np.array_equal(np.asarray(got[0], np.float32).view(np.uint32),
+                               np.asarray(want[0], np.float32).view(np.uint32)))
+
+
+def phase_sparse(counts, smi):
+    """The sparse searcher on sparse_bench.py's corpus at 1M docs (MS
+    MARCO's 8.8M passages cut to 1M for the time limit): the solo search
+    (B1), search_batch of 256 queries (the pruned route: every clause a
+    light row) and search_rerank_batch, counted; then, uncounted,
+    search_oracle bit-equality and search_rerank == search_exact on a
+    sample of 8, pruned == exhaustive over the whole batch, served qps and
+    a torch.profiler pass over each route."""
+    from diagon_tpu_torch.sparse import SparseIndex, SparseSearcher
+
+    log(f"phase 9: sparse vectors at {SPARSE_DOCS} docs")
+    t0 = time.perf_counter()
+    vecs, rng, probs = sparse_corpus(SPARSE_DOCS)
+    t_corpus = time.perf_counter() - t0
+    nnz = sum(len(v) for v in vecs)
+    t0 = time.perf_counter()
+    index = SparseIndex.build(vecs)
+    t_build = time.perf_counter() - t0
+    del vecs
+    t0 = time.perf_counter()
+    s = SparseSearcher(index, device=DEVICE)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    pp = index.segment.fields["_sparse"].postings
+    log(f"  corpus {t_corpus:.2f} s ({nnz} postings), index build "
+        f"{t_build:.2f} s ({pp.num_terms} terms, {pp.num_blocks} blocks), "
+        f"searcher {t_load:.2f} s [{smi}]")
+    qs = sparse_queries(rng, probs, 256)
+    ex = s.executor
+    sample = list(range(0, 256, 32))
+
+    counts.reset()
+    before = counts.read()
+    solo = s.search(qs[0], K)
+    counts.require(before, ["row_sum"], "1M sparse solo")
+    before = counts.read()
+    m0 = {n: c.value() for n, c in ex.metrics.items()}
+    t0 = time.perf_counter()
+    res = s.search_batch(qs, K)
+    first = time.perf_counter() - t0
+    dm = {n: c.value() - m0[n] for n, c in ex.metrics.items()}
+    counts.require(before, SPARSE_NEED, "1M sparse 256")
+    if dm["pruned"] < 1:
+        raise AssertionError("1M sparse 256: search.pruned_dispatches did "
+                             "not move")
+    batch_launches = {n: v - before[n] for n, v in counts.read().items()
+                      if v > before[n]}
+    m1 = {n: c.value() for n, c in ex.metrics.items()}
+    t0 = time.perf_counter()
+    rr = s.search_rerank_batch(qs, K)
+    t_rr = time.perf_counter() - t0
+    drr = {n: c.value() - m1[n] for n, c in ex.metrics.items()}
+    launches = counts.read()
+
+    def checks():
+        if not same_triple(solo, s.search_oracle(qs[0], K)):
+            raise AssertionError("1M sparse solo != search_oracle")
+        for i in sample:
+            if not same_triple(res[i], s.search_oracle(qs[i], K)):
+                raise AssertionError(f"1M sparse 256 query {i} != "
+                                     "search_oracle")
+            want = s.search_exact(qs[i], K)
+            if not same_triple(s.search_rerank(qs[i], K), want):
+                raise AssertionError(f"search_rerank {i} != search_exact")
+            if not same_triple(rr[i], want):
+                raise AssertionError(f"search_rerank_batch {i} != "
+                                     "search_exact")
+
+    t0 = time.perf_counter()
+    counts.uncounted(checks)
+    log(f"  solo and {len(sample)} sampled batch queries bit-equal to "
+        f"search_oracle; search_rerank and search_rerank_batch == "
+        f"search_exact on them ({time.perf_counter() - t0:.1f} s)")
+    plans = [p for p in s._plan_batch(qs) if p is not None]
+    pruned_equals_exhaustive(ex, counts, plans, "1M sparse 256", True)
+
+    def served(n):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            s.collect_batch(s.dispatch_batch(qs, K))
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    t = counts.uncounted(served, 3)
+    log(f"  1M sparse 256: first {first * 1e3:.3f} ms (entry builds "
+        f"included), then {t * 1e3:.3f} ms/batch -> {256 / t:.1f} qps "
+        f"[{smi}]; pruned dispatches {dm['pruned']}, partitions "
+        f"{dm['partitions']}, exhaustive dispatches {dm['exhaustive']}, "
+        f"escalations {dm['escalations']}; launched {batch_launches}")
+    log(f"  1M sparse search_rerank_batch (R 1024): {t_rr * 1e3:.3f} ms, "
+        f"escalations {drr['escalations']}, pruned dispatches "
+        f"{drr['pruned']} [{smi}]")
+    for route in ("pruned", "exhaustive"):
+        counts.uncounted(profile_route, ex, plans, "1M sparse 256", route,
+                         smi, counts, 2)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1101,11 +1397,11 @@ def phase_scale10(counts, smi):
         fresh_entries(ex, route == "phase0")
         counts.reset()
         for label, batch, sample in cells:
-            # a phase-0 batch takes seconds: one timed repeat
+            # a phase-0 batch takes seconds: its first batch is its time
             plans[label], dm = serve_batch(searcher, oracle, counts, batch,
                                            f"{label} {route}", sample,
                                            need[route][label], smi,
-                                           reps=3 if route == "phase1" else 1)
+                                           reps=2 if route == "phase1" else 0)
             if dm["pruned"] < 1 or dm["phase0_ineligible"]:
                 raise AssertionError(f"{label} {route}: not on the route")
         launches[route] = counts.read()
@@ -1729,7 +2025,7 @@ def phase_routes(cells, counts, smi):
     for label, searcher, batch, plans in cells:
         ex = searcher._ctx("body").row_executors[0]
         counts.uncounted(served_both_routes, searcher, batch, label,
-                         10 if "1M" not in label else 3, smi)
+                         5 if "1M" not in label else 2, smi)
         for route in ("pruned", "exhaustive"):
             counts.uncounted(profile_route, ex, plans, label, route, smi,
                              counts)
@@ -1765,6 +2061,7 @@ def main():
     err.update(phase(phase_bits_kernel, bh, counts))
     searcher19, batches19, sent19, launches19 = phase(phase_serve, counts, smi)
     searcher1m, batches1m, sent1m, launches1m = phase(phase_scale, counts, smi)
+    launches_sp = phase(phase_sparse, counts, smi)
     launches10, at10m = phase(phase_scale10, counts, smi)
     ex1m = searcher1m._ctx("body").row_executors[0]
     times = phase(phase_main_path_kernels, rs, ap, gr, bh, counts, searcher19,
@@ -1773,17 +2070,23 @@ def main():
     phase(phase_routes, [
         ("mixed 1024", searcher19, sent19["mixed 1024"],
          batches19["mixed 1024"]),
+        ("phrase 1024", searcher19, sent19["phrase 1024"],
+         batches19["phrase 1024"]),
         ("1M mixed 1024", searcher1m, sent1m["1M mixed 1024"],
          batches1m["1M mixed 1024"]),
         ("1M or20 x 1024", searcher1m, sent1m["1M or20 x 1024"],
          batches1m["1M or20 x 1024"]),
         ("1M MUST_NOT 1024", searcher1m, sent1m["1M MUST_NOT 1024"],
          batches1m["1M MUST_NOT 1024"]),
+        ("1M phrase 1024", searcher1m, sent1m["1M phrase 1024"],
+         batches1m["1M phrase 1024"]),
     ], counts, smi)
-    runs = (launches19, launches1m, launches10["phase1"], launches10["phase0"])
+    runs = (launches19, launches1m, launches_sp, launches10["phase1"],
+            launches10["phase0"])
     launches = {n: sum(r[n] for r in runs) for n in kernels}
-    log(f"main-path launches at 19k {launches19}; at 1M {launches1m}; at "
-        f"10M phase 1 {launches10['phase1']}, phase 0 {launches10['phase0']}")
+    log(f"main-path launches at 19k {launches19}; at 1M {launches1m}; "
+        f"sparse 1M {launches_sp}; at 10M phase 1 {launches10['phase1']}, "
+        f"phase 0 {launches10['phase0']}")
     idle = [n for n, c in launches.items() if c < 1]
     if idle:
         raise AssertionError(f"the main path never launched {idle}")

@@ -176,3 +176,36 @@ def mixed_query_batch(pool, n: int = 1024, seed: int = 42,
             terms = [pool[i] for i in rng.choice(len(pool), k, replace=False)]
             out.append(_or_query(terms))
     return out
+
+
+def phrase_query_batch(pool, n: int = 1024, seed: int = 43,
+                       distinct: int = 32):
+    """``n`` phrase queries drawn from a ``distinct``-phrase vocabulary
+    (the reference's 5 fixed phrases first, reuters_benchmark.cpp, plus
+    seeded 2-3 term combinations from ``pool``). Every query is a distinct
+    object, so plan lookup and row assembly run per query, but the texts
+    are bounded, as in bench.py's ``phrase_qps`` batch (the reference's own
+    phrase benchmark uses 5 fixed phrases); equal texts share one plan."""
+    import numpy as np
+
+    rng = np.random.Generator(np.random.PCG64(seed))
+    pool = list(pool)
+    texts = [list(p) for p in PHRASES][:distinct]
+    seen = {tuple(p) for p in PHRASES}
+    tries = 0
+    while len(texts) < distinct and tries < 100 * distinct:
+        tries += 1
+        width = 2 if rng.random() < 0.8 else 3
+        terms = tuple(
+            pool[i]
+            for i in rng.choice(len(pool), min(width, len(pool)),
+                                replace=False)
+        )
+        if terms in seen:
+            continue
+        seen.add(terms)
+        texts.append(list(terms))
+    return [
+        PhraseQuery("body", texts[int(rng.integers(len(texts)))])
+        for _ in range(n)
+    ]

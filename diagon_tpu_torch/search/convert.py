@@ -3,7 +3,8 @@
 - ``segment_from_jax`` and ``query_from_jax`` rebuild a ``diagon_tpu``
   segment or query as the port's own classes, reading attributes only, so
   the same data can be searched by both packages (the port's searcher
-  takes nothing else);
+  takes nothing else); ``sparse_vector_from_jax`` and
+  ``sparse_index_from_jax`` do the same for the sparse layer;
 - ``row_field_index_from_state`` builds a port :class:`RowFieldIndex` on a
   given device from the numpy state of a ``diagon_tpu`` row index, so that
   both packages score the very same heavy bank.
@@ -29,6 +30,8 @@ from diagon_tpu_torch.index.segment import (
 )
 from diagon_tpu_torch.search import query as Q
 from diagon_tpu_torch.search.row_engine import RowFieldIndex
+from diagon_tpu_torch.sparse.index import SparseIndex
+from diagon_tpu_torch.sparse.vector import SparseVector
 
 STATE_KEYS = (
     "heavy_bank",  # f32 [H(+1), D]; a trailing scatter-dump row is dropped
@@ -97,6 +100,18 @@ def query_from_jax(q) -> Q.Query:
         raise TypeError(f"no port counterpart for query type {kind}")
     out.boost = q.boost
     return out
+
+
+def sparse_vector_from_jax(v) -> SparseVector:
+    """The port's SparseVector for a ``diagon_tpu.sparse`` one."""
+    return SparseVector(np.array(v.ids), np.array(v.values))
+
+
+def sparse_index_from_jax(index) -> SparseIndex:
+    """The port's SparseIndex over a ``diagon_tpu.sparse`` index's
+    segment, scales and exact per-term CSR (arrays shared, not copied)."""
+    return SparseIndex(segment_from_jax(index.segment), dict(index.scales),
+                       dict(index.exact))
 
 
 def row_field_index_from_state(pp, norms: np.ndarray, state: dict,

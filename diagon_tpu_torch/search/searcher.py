@@ -1,14 +1,16 @@
 """IndexSearcher on one PyTorch device.
 
-Counterpart of ``diagon_tpu/search/searcher.py`` for term, boolean, range
-and nested queries, all served by the row engine (``row_engine.py``):
-exhaustively, or through the pruned batch route where the JAX package
-routes a batch there. Per-segment top-k results merge by (score desc,
-global docid asc), the order of the reference's ``TopScoreDocCollector``.
-Queries the row planner rejects (pure MUST_NOT, unsupported types) take
-the host oracle, as in the JAX package. Phrase search is not ported yet
-and raises. Queries are the port's own classes (``search/query.py``); a
-JAX package query raises TypeError (``convert.query_from_jax`` carries one
+Counterpart of ``diagon_tpu/search/searcher.py`` for term, boolean,
+range, nested and phrase queries, served by the row engine
+(``row_engine.py``): exhaustively, or through the pruned batch route where
+the JAX package routes a batch there. A solo ``PhraseQuery`` takes the
+direct candidate path (``phrase.py``); a phrase inside a boolean, or in a
+batch, is a host row built by ``PhraseExecutor.score_row``. Per-segment
+top-k results merge by (score desc, global docid asc), the order of the
+reference's ``TopScoreDocCollector``. Queries the row planner rejects
+(pure MUST_NOT, unsupported types) take the host oracle, as in the JAX
+package. Queries are the port's own classes (``search/query.py``); a JAX
+package query raises TypeError (``convert.query_from_jax`` carries one
 across).
 """
 
@@ -30,6 +32,7 @@ from diagon_tpu_torch.search.oracle import (
     numeric_range_mask,
     point_range_mask,
 )
+from diagon_tpu_torch.search.phrase import PhraseExecutor
 from diagon_tpu_torch.search.query import (
     BooleanQuery,
     DoubleRangeQuery,
@@ -50,17 +53,12 @@ _RANGEABLE = (NumericRangeQuery, PointRangeQuery, DoubleRangeQuery,
 
 def _check_query(query: Query) -> None:
     """Raise on a query (or nested clause) that is not one of the port's
-    classes, and on phrase search, which is not ported yet."""
+    classes."""
     if not isinstance(query, Query):
         raise TypeError(
             f"{type(query).__module__}.{type(query).__name__} is not a "
             "diagon_tpu_torch query (convert.query_from_jax carries a JAX "
             "package query across)"
-        )
-    if isinstance(query, PhraseQuery):
-        raise NotImplementedError(
-            "phrase search is not ported to the PyTorch searcher yet "
-            "(ROADMAP queue A item 8)"
         )
     if isinstance(query, BooleanQuery):
         for c in query.clauses:
@@ -141,6 +139,7 @@ class IndexSearcher:
         self.enable_query_cache = query_cache
         self.sim = BM25Similarity()
         self._field_ctx: Dict[str, _FieldContext] = {}
+        self._phrase_execs: Dict[str, list] = {}
         self._idf_cache: Dict[Tuple[str, str, float], np.float32] = {}
         # LRU: plans hold O(D) host rows for range / nested clauses
         self._plan_cache: "OrderedDict[tuple, list]" = OrderedDict()
@@ -200,13 +199,17 @@ class IndexSearcher:
         """Flatten into (field, [(clause, occur)], min_should).
 
         Same-field terms become bank rows; ranges / match-all become host
-        indicator rows; nested booleans and foreign-field terms compile to
-        host (score row, match row) pairs. Standalone range / match-all
-        queries arrive as single-SHOULD booleans. Returns None when nothing
-        is indexed or nothing can match (pure MUST_NOT)."""
+        indicator rows; nested booleans, phrase clauses and foreign-field
+        terms compile to host (score row, match row) pairs. Standalone
+        phrase, range and match-all queries arrive as single-SHOULD
+        booleans (solo ``search`` sends a phrase to ``_search_phrase``
+        first). Returns None when nothing is indexed or nothing can match
+        (pure MUST_NOT)."""
         _check_query(query)
         if isinstance(query, TermQuery):
             return query.term.field, [(query, Occur.SHOULD)], 1
+        if isinstance(query, PhraseQuery):
+            return query.field, [(query, Occur.SHOULD)], 1
         if isinstance(query, _RANGEABLE):
             field = self._any_field()
             if field is None:
@@ -218,7 +221,8 @@ class IndexSearcher:
         field = None
         for c in query.clauses:
             q = c.query
-            if not isinstance(q, (TermQuery, BooleanQuery) + _RANGEABLE):
+            if not isinstance(q, (TermQuery, BooleanQuery, PhraseQuery)
+                              + _RANGEABLE):
                 return None
             if field is None and isinstance(q, TermQuery):
                 field = q.term.field
@@ -263,7 +267,8 @@ class IndexSearcher:
     def _oracle_rows(self, si: int, q: Query):
         """(masked score row f32, match row f32) of one clause on one
         segment, with the oracle's exact global-stats arithmetic: the
-        compile target of nested booleans and foreign-field terms."""
+        compile target of nested booleans, foreign-field terms and phrases
+        on another field."""
         if self._oracle is None:
             self._oracle = OracleSearcher(self._host_segments())
         scores, mask = self._oracle._score_dense(self._oracle.segments[si], q)
@@ -311,6 +316,17 @@ class IndexSearcher:
                 if isinstance(q, _RANGEABLE):
                     row = self._clause_host_row(ds.source, q)
                     return [TermPlan(-1, weight, host_row=row, **flags)]
+                if isinstance(q, PhraseQuery) and q.field == field:
+                    # the position intersection builds the clause rows,
+                    # bit-identical to the oracle's
+                    ex = self._phrase_executors(field)[si]
+                    if ex is not None:
+                        scores, match = ex.score_row(
+                            q.terms, self._phrase_idf(q), ds.num_docs
+                        )
+                        row = scores if scoring else match
+                        return [TermPlan(-1, 1.0 if scoring else 0.0,
+                                         host_row=row, **flags)]
                 scores, match = self._oracle_rows(si, q)
                 if isinstance(q, BooleanQuery):
                     # A: score at this clause's position; B: presence
@@ -319,7 +335,8 @@ class IndexSearcher:
                         plans.append(TermPlan(-1, 1.0, host_row=scores))
                     plans.append(TermPlan(-1, 0.0, host_row=match, **flags))
                     return plans
-                # foreign-field term: score > 0 iff matched, one row serves
+                # phrase / foreign-field term: score > 0 iff matched, one
+                # row serves
                 row = scores if scoring else match
                 return [TermPlan(-1, 1.0 if scoring else 0.0,
                                  host_row=row, **flags)]
@@ -376,6 +393,10 @@ class IndexSearcher:
 
     # -- public API --------------------------------------------------------
     def search(self, query: Query, k: int = 10) -> TopDocs:
+        if isinstance(query, PhraseQuery):
+            # a solo phrase takes the direct candidate path (no batch to
+            # share a row build with)
+            return self._search_phrase(query, k)
         tc = self._term_clauses(query)
         if tc is None:
             return self._fallback_search(query, k)
@@ -500,6 +521,52 @@ class IndexSearcher:
             for si, plan in enumerate(plans)
             if plan is not None
         )
+
+    # -- phrase ------------------------------------------------------------
+    def _phrase_executors(self, field: str) -> List[Optional[PhraseExecutor]]:
+        """One PhraseExecutor per segment (None where the field is absent
+        or was indexed without positions)."""
+        execs = self._phrase_execs.get(field)
+        if execs is None:
+            ctx = self._ctx(field)
+            execs = []
+            for ds in self.device_segments:
+                ex = None
+                if field in ds.fields:
+                    try:
+                        ex = PhraseExecutor(ds, field, ctx.tf_lut_host)
+                    except ValueError:  # no positions
+                        ex = None
+                execs.append(ex)
+            self._phrase_execs[field] = execs
+        return execs
+
+    def _phrase_idf(self, query: PhraseQuery) -> float:
+        """idf from the rarest member term (PhraseQuery.cpp:304-338)."""
+        min_df = self.max_doc
+        for t in query.terms:
+            df = self.term_doc_freq(query.field, t)
+            if df > 0:
+                min_df = min(min_df, df)
+        if min_df <= 0:
+            min_df = 1
+        return float(
+            self.sim.idf(min_df, self.max_doc) * np.float32(query.boost)
+        )
+
+    def _search_phrase(self, query: PhraseQuery, k: int) -> TopDocs:
+        execs = self._phrase_executors(query.field)
+        idf = self._phrase_idf(query)
+        parts: List[TopDocs] = []
+        for si, ex in enumerate(execs):
+            if ex is None:
+                continue
+            res = ex.top_k(query.terms, idf, k)
+            if res is None:
+                continue
+            scores, docs, hits = res
+            parts.append(self._to_topdocs(si, scores, docs, hits))
+        return merge_top_docs(parts, k)
 
     # -- host oracle route -------------------------------------------------
     def _host_segments(self) -> List[SegmentData]:

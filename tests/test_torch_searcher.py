@@ -215,14 +215,22 @@ def test_entry_points_match_jax(searchers, name):
     B((PhraseQuery("body", ["oil", "price"]), S), (T("w1"), S)),
     B((T("w1"), M), (B((PhraseQuery("body", ["w2", "w3"]), S),), N)),
 ])
-def test_phrase_is_not_ported(searchers, query):
-    ts = searchers[0]
-    query = query_from_jax(query)
-    for call in (lambda: ts.search(query, 10), lambda: ts.count(query),
-                 lambda: ts.search_batch([query], 10),
-                 lambda: ts.dispatch_batch([query], 10)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+def test_phrase_parity(searchers, query):
+    """A solo phrase, a phrase SHOULD clause and a phrase in a MUST_NOT
+    subtree, through search, count, search_batch and dispatch_batch +
+    collect_many: equal to the JAX searcher and the oracle over deletes
+    and two segments."""
+    ts, js, oracle = searchers
+    p = query_from_jax(query)
+    want = oracle.search(query, 10)
+    _assert_same(ts.search(p, 10), want, "search vs oracle")
+    _assert_same(ts.search(p, 10), js.search(query, 10), "search vs jax")
+    assert ts.count(p) == oracle.count(query) == js.count(query)
+    _assert_same(ts.search_batch([p], 10)[0], want, "search_batch")
+    _assert_same(js.search_batch([query], 10)[0], want, "jax search_batch")
+    (got,) = ts.collect_many([ts.dispatch_batch([p, p], 10)])
+    for g in got:
+        _assert_same(g, want, "collect_many")
 
 
 def test_kernel_launch_counters_stay_zero_on_cpu(searchers):
