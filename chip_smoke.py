@@ -13,7 +13,8 @@ script exits non-zero), in the order they run:
 1. Device: card name and power limit, SM count and top SM clock (the
    CUDA-core rates of the bounds); build the CUDA kernels from
    ``diagon_tpu_torch/csrc`` (one nvcc per source, all at once) and time
-   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1-B8.
+   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1-B8 or
+   X1.
 2. Kernels B1 (row_sum) and B2 (row_boolean) against their plain PyTorch
    versions on the card, bit for bit (D = 19,456; Q in {1, 3, 7, 19,
    1024}; Tq in {4, 20, 24, 64, 100}; both stage 64 clauses per pass), and
@@ -67,12 +68,19 @@ script exits non-zero), in the order they run:
    terms (B4, B7), then the positions' decode and upload (seconds,
    bytes), the five solo phrases and the phrase batch (B3, B6), pruned
    equal to exhaustive over each whole batch, samples oracle-exact,
-   escalation counts printed.
+   escalation counts printed. Then the small-batch tile-UB route, the
+   default for fewer than 8 pure-OR plans here: six solo pure-OR queries
+   (or20, ORs of 2-5 frequent terms, one with a rare term) and a batch of
+   3, oracle-exact, [Q, 2k+2] rows outside batch mode, finalize equal to
+   the exhaustive route's bit for bit, escalations (onto B1), and each solo
+   query's search latency on both routes (median of 10, in turns), its
+   dispatch's device time and device operations.
 9. Sparse vectors at 1,000,000 docs (main path, counted):
    benchmarks/sparse_bench.py's corpus (vocab 30,000, Zipf 1.05, 30-120
    draws a doc, values U(0.05, 2.05), seed 5; built vectorised) and 256
    queries of 8-23 Zipf terms: corpus and index build seconds, the solo
-   search (B1), search_batch (pruned: B5, B6; every clause a light row)
+   search (the tile-UB route, B1 on escalation; equal to the exhaustive
+   route), search_batch (pruned: B5, B6; every clause a light row)
    and search_rerank_batch; search_oracle bit-equal on a sample of 8,
    search_rerank and search_rerank_batch equal to search_exact there,
    pruned equal to exhaustive over the whole batch, served qps and a
@@ -109,6 +117,19 @@ script exits non-zero), in the order they run:
    the 10M phase-1 entry and at the deduped 1M or20 batch, Q 1, each
    checked bit for bit, with its bound and embedding_bag's time), B8 at
    the 10M phase-0 entry, B4, B7, and B6 on B7's tensors.
+10. The columnar engine (X1, ``range_agg``) on
+   benchmarks/columnar_bench.py's table (same columns, distributions and
+   seed) at 1,000,000 and 10,000,000 rows (ClickBench's ~100M-row hits
+   table cut for the time limit), through DeviceTable on the card (main
+   path, counted): the bench's six queries through range_agg with
+   host_fast False (X1) and True, and its range_group_agg (region, 4096
+   groups, agg duration), counts exact against the numpy int64 scan; X1
+   against its plain version on each (counts, min, max, granules and int
+   sums bit for bit, f32 sums within relative 1e-5, group counts exact);
+   32 chained dispatch_range_agg calls with no host sync (torch's sync
+   debug mode "error", all enqueued behind a device sleep); per query the
+   branch (pruned or full), chained, kernel-only, one-call and plain
+   times, the bound and the host BULK path's time.
 7. Routes on the same plans: served qps of the mixed cells, the phrase
    batches, 1M or20 and 1M MUST_NOT through the pruned and the exhaustive
    route (pruned,
@@ -118,9 +139,9 @@ script exits non-zero), in the order they run:
    card's busy share. A profiled window that launched no B4 must hold no
    row of B4's kernel (approx_bool_mma_kernel): B5 serves those batches.
 
-Phases run in the order 1, 2, 3, 3b, 4, 5, 9, 8, 6, 7. Launch counters
-are set to 0 just before each main-path phase (4, 5, 9 and each route of
-8) and read just after it; comparisons with plain versions
+Phases run in the order 1, 2, 3, 3b, 10, 4, 5, 9, 8, 6, 7. Launch
+counters are set to 0 just before each main-path phase (10 at each table
+size, 4, 5, 9 and each route of 8) and read just after it; comparisons with plain versions
 and with the exhaustive route, and phases 6-7, do not count. Each kernel
 must launch on a path where it has to run.
 
@@ -160,6 +181,13 @@ SPARSE_VOCAB = 30000
 # bucket with zero-weight clauses, so none is pure OR (B5), and its
 # partition groups hold fewer than 64 queries (B6)
 SPARSE_NEED = ["approx_select_bool2", "gather_rescore"]
+# columnar_bench.py's table at its default size, and ClickBench's ~100M-row
+# hits table cut to 10M for the time limit
+COLUMNAR_ROWS = (1_000_000, 10_000_000)
+# X1's int operations a scanned row costs (valid test, the 48-bit value
+# rebuilt and compared twice, the aggregate's adds, min and max): an
+# estimate for its bound, far below its bytes
+X1_OPS_PER_ROW = 16
 K = 10
 B_TILES = 24  # PRUNE_B0: the main path's tile budget at these sizes
 REL_TOL = 2.0 ** -8  # kernel vs plain tile maxima (two f32 add orders)
@@ -173,14 +201,13 @@ DEVICE = torch.device("cuda")
 PORT_KERNELS = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
                 "approx_bool_mma_kernel", "approx_bool2_mma_kernel",
                 "pack_indicator_kernel", "gather_rescore_kernel",
-                "union_rescore_kernel", "bits_hits_kernel")
+                "union_rescore_kernel", "bits_hits_kernel",
+                "range_skip_kernel", "range_scan_kernel",
+                "range_combine_kernel")
 # B4's kernel: a batch without MUST_NOT must not launch it (B5 takes those)
 B4_KERNELS = ("approx_bool_mma_kernel",)
-# the kernels of B1-B8: ptxas must report no spill
-NO_SPILL = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
-            "approx_bool_mma_kernel", "approx_bool2_mma_kernel",
-            "pack_indicator_kernel", "gather_rescore_kernel",
-            "union_rescore_kernel", "bits_hits_kernel")
+# the kernels of B1-B8 and X1: ptxas must report no spill
+NO_SPILL = PORT_KERNELS
 # the card's published peaks (H100 SXM datasheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12  # bf16 tensor-core products
@@ -366,8 +393,8 @@ def phase_device():
                              f"on every kernel of {NO_SPILL}")
     spilled = {f: n for f, n in checked.items() if n != (0, 0)}
     if spilled:
-        raise AssertionError(f"ptxas spills in B1-B8 kernels: {spilled}")
-    log(f"  ptxas: no spill in {len(checked)} B1-B8 kernel(s)")
+        raise AssertionError(f"ptxas spills in B1-B8 or X1 kernels: {spilled}")
+    log(f"  ptxas: no spill in {len(checked)} B1-B8 and X1 kernel(s)")
     return smi
 
 
@@ -1105,6 +1132,113 @@ def positions_upload(searcher, smi):
         f"offsets = {byts / 2**20:.1f} MiB on the card [{smi}]")
 
 
+def rare_term(searcher, lo=50, hi=400):
+    """The body term of least document frequency in [lo, hi)."""
+    pp = searcher._host_segments()[0].fields["body"].postings
+    df = pp.doc_freq
+    ok = np.nonzero((df >= lo) & (df < hi))[0]
+    tid = int(ok[np.argmin(df[ok])])
+    return pp.terms[tid], int(df[tid])
+
+
+def device_ops(fn):
+    """(device operations, device ms) of one call of ``fn`` under
+    torch.profiler; (0, 0.0) where the profiler recorded no device row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in rows),
+            sum(e.self_device_time_total for e in rows) / 1e3)
+
+
+def solo_route(searcher, oracle, counts, pool, or20, smi):
+    """Phase 5's solo pure-OR queries (or20, ORs of 2-5 frequent terms, one
+    with a rare term) and a pure-OR batch of 3 plans: at 1M docs they take
+    the small-batch tile-UB route by default (routed outside batch mode;
+    [Q, 2k+2] rows). Counted as main path; then, uncounted: the route and
+    its rows,
+    finalize equal to the exhaustive route's bit for bit, and each solo
+    query's latency on both routes (searcher.search, median of 10, in
+    turns), its device time (calls queued behind a device sleep) and the
+    device operations of one tile-UB dispatch. The batch reuses three of
+    the solo queries (the oracle answers each query object once), as
+    ``or20`` is the object the or20 batch already checked."""
+    from diagon_tpu_torch.bench.queries import _or_query as or_query
+
+    t0 = time.perf_counter()
+    ex = searcher._ctx("body").row_executors[0]
+    rare, rare_df = rare_term(searcher)
+    solos = {
+        "or20": or20,
+        "or2": or_query(pool[:2]),
+        "or3": or_query([pool[30], pool[77], pool[120]]),
+        "or4": or_query(pool[2:6]),
+        "or5": or_query(pool[10:15]),
+        f"{rare}(df {rare_df})+1": or_query([rare, pool[50]]),
+    }
+    batch = [solos["or2"], solos["or5"], solos[f"{rare}(df {rare_df})+1"]]
+    m0 = {n: c.value() for n, c in ex.metrics.items()}
+    before = counts.read()
+    for name, q in solos.items():
+        oracle.check(q, searcher.search(q, K), f"1M solo {name}")
+    res = searcher.collect_many([searcher.dispatch_batch(batch, K)])[0]
+    for q, r in zip(batch, res):
+        oracle.check(q, r, "1M pure-OR batch of 3")
+    dm = {n: c.value() - m0[n] for n, c in ex.metrics.items()}
+    launched = {n: v - before[n] for n, v in counts.read().items()
+                if v > before[n]}
+    if dm["pruned"] < len(solos) + 1:
+        raise AssertionError(f"1M solo route: {dm['pruned']} pruned "
+                             f"dispatches for {len(solos) + 1} calls")
+    log(f"  1M tile-UB route: {len(solos)} solo queries and a batch of 3 "
+        f"oracle-exact ({time.perf_counter() - t0:.1f} s); pruned "
+        f"dispatches {dm['pruned']}, escalations {dm['escalations']} (onto "
+        f"B1); launched {launched}")
+
+    def plans_of(qs):
+        return [searcher._cached_query_plans(q)[1][0] for q in qs]
+
+    cases = [(f"solo {n}", plans_of([q])) for n, q in solos.items()]
+    cases.append(("pure-OR batch of 3", plans_of(batch)))
+    for label, plans in cases:
+        if ex._batch_mode(plans) or not ex._use_pruned(plans):
+            raise AssertionError(f"1M {label}: not routed to the tile-UB "
+                                 "route")
+        pruned_equals_exhaustive(ex, counts, plans, f"1M {label}", True)
+    for name, q in solos.items():
+        (plan,) = plans_of([q])
+        times = {"tile-UB": [], "exhaustive": []}
+
+        def timed():
+            for _ in range(10):
+                for route in times:
+                    with on_route(ex, route):
+                        t0 = time.perf_counter()
+                        searcher.search(q, K)
+                        times[route].append(time.perf_counter() - t0)
+
+        counts.uncounted(timed)
+        dev = {}
+        for route in times:
+            with on_route(ex, route):
+                # 4 calls: a tile-UB dispatch launches ~160 device ops,
+                # and more than the launch queue holds would block the host
+                dev[route] = counts.uncounted(
+                    queued_ms, lambda: ex.dispatch([plan], K), 4)
+        n_ops, _ = counts.uncounted(device_ops, lambda: ex.dispatch([plan], K))
+        med = {r: statistics.median(t) * 1e3 for r, t in times.items()}
+        log(f"  1M solo {name} (Tq {len(plan.hidx)}): search "
+            f"{med['tile-UB']:.4f} ms tile-UB, {med['exhaustive']:.4f} ms "
+            f"exhaustive (median of 10, in turns); dispatch device time "
+            f"{dev['tile-UB']:.4f} / {dev['exhaustive']:.4f} ms; "
+            f"{n_ops} device ops a tile-UB dispatch [{smi}]")
+
+
 def phase_scale(counts, smi):
     from diagon_tpu_torch.bench.queries import (
         PHRASES,
@@ -1160,6 +1294,7 @@ def phase_scale(counts, smi):
                              "not move")
     batches["1M phrase 1024"] = plans
     sent["1M phrase 1024"] = phrases
+    solo_route(searcher, oracle, counts, pool, queries["or20"], smi)
     launches = counts.read()
     ex = searcher._ctx("body").row_executors[0]
     for label, plans in batches.items():
@@ -1224,8 +1359,9 @@ def same_triple(got, want):
 def phase_sparse(counts, smi):
     """The sparse searcher on sparse_bench.py's corpus at 1M docs (MS
     MARCO's 8.8M passages cut to 1M for the time limit): the solo search
-    (B1), search_batch of 256 queries (the pruned route: every clause a
-    light row) and search_rerank_batch, counted; then, uncounted,
+    (the tile-UB route, B1 on escalation), search_batch of 256 queries (the
+    pruned route: every clause a light row) and search_rerank_batch,
+    counted; then, uncounted,
     search_oracle bit-equality and search_rerank == search_exact on a
     sample of 8, pruned == exhaustive over the whole batch, served qps and
     a torch.profiler pass over each route."""
@@ -1253,9 +1389,11 @@ def phase_sparse(counts, smi):
     sample = list(range(0, 256, 32))
 
     counts.reset()
-    before = counts.read()
+    m0 = {n: c.value() for n, c in ex.metrics.items()}
     solo = s.search(qs[0], K)
-    counts.require(before, ["row_sum"], "1M sparse solo")
+    dsolo = {n: c.value() - m0[n] for n, c in ex.metrics.items()}
+    if dsolo["pruned"] != 1:
+        raise AssertionError("1M sparse solo: not on the tile-UB route")
     before = counts.read()
     m0 = {n: c.value() for n, c in ex.metrics.items()}
     t0 = time.perf_counter()
@@ -1296,6 +1434,12 @@ def phase_sparse(counts, smi):
         f"search_exact on them ({time.perf_counter() - t0:.1f} s)")
     plans = [p for p in s._plan_batch(qs) if p is not None]
     pruned_equals_exhaustive(ex, counts, plans, "1M sparse 256", True)
+    solo_plan = [s._plan(qs[0])]
+    if ex._batch_mode(solo_plan):
+        raise AssertionError("1M sparse solo: routed as a batch")
+    pruned_equals_exhaustive(ex, counts, solo_plan, "1M sparse solo", True)
+    log(f"  1M sparse solo: the tile-UB route, escalations "
+        f"{dsolo['escalations']} (onto B1)")
 
     def served(n):
         times = []
@@ -1318,6 +1462,264 @@ def phase_sparse(counts, smi):
         counts.uncounted(profile_route, ex, plans, "1M sparse 256", route,
                          smi, counts, 2)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the columnar device engine, kernel X1
+# ---------------------------------------------------------------------------
+
+
+def range_mask(table, kw):
+    """The numpy int64 / f64 scan of a query's filter: bool [rows]."""
+    v = table.columns[kw["filter_col"]].values
+    m = np.ones(len(v), bool)
+    if kw.get("lower") is not None:
+        m &= v >= kw["lower"]
+    if kw.get("upper") is not None:
+        m &= v <= kw["upper"]
+    return m
+
+
+def kept_granules(table, kw):
+    """The granules the filter's minmax keeps, from the host index."""
+    mm = table.minmax[kw["filter_col"]]
+    keep = np.ones(len(mm.mins), bool)
+    if kw.get("lower") is not None:
+        keep &= mm.maxs >= kw["lower"]
+    if kw.get("upper") is not None:
+        keep &= mm.mins <= kw["upper"]
+    return int(keep.sum())
+
+
+def check_range_result(table, kw, res, what):
+    """count exact against the numpy scan; min and max exact (the int
+    columns here are below 2^24; a float column's values are its f32
+    plane's); the sum within relative 1e-6 of the exact int64 sum, or 1e-5
+    of the f64 sum of the f32 values; granules_scanned the minmax count
+    (device route). The host BULK path is exact throughout."""
+    m = range_mask(table, kw)
+    av = table.columns[kw.get("agg_col") or kw["filter_col"]].values[m]
+    host = res.get("host_fast_path", False)
+    if res["count"] != int(m.sum()):
+        raise AssertionError(f"{what}: count {res['count']} != {int(m.sum())}")
+    if not len(av):
+        return
+    if av.dtype.kind == "i":
+        want = (float(av.sum(dtype=np.int64)), float(av.min()),
+                float(av.max()), 1e-6)
+    elif host:
+        want = (float(av.sum(dtype=np.float64)), float(av.min()),
+                float(av.max()), 1e-12)
+    else:
+        f = av.astype(np.float32)
+        want = (float(f.sum(dtype=np.float64)), float(f.min()),
+                float(f.max()), 1e-5)
+    s, mn, mx, tol = want
+    if host:
+        tol = 0.0 if av.dtype.kind == "i" else tol
+    if (res["min"], res["max"]) != (mn, mx) or abs(res["sum"] - s) > tol * abs(s):
+        raise AssertionError(f"{what}: {res} against sum {s}, min {mn}, "
+                             f"max {mx}")
+    if not host and res["granules_scanned"] != kept_granules(table, kw):
+        raise AssertionError(f"{what}: granules_scanned "
+                             f"{res['granules_scanned']}")
+
+
+def x1_bound(dt, kw, scanned, groups=0):
+    """(bound_ms, bound_by) of one X1 call: the planes it must read over
+    the scanned granules (filter, aggregate when another column, valid,
+    the group plane), the granule minmax planes and its outputs, over
+    HBM_BYTES_PER_S; and X1_OPS_PER_ROW int operations a scanned row at
+    RATES["logic"]."""
+    f = kw["filter_col"]
+    a = kw.get("agg_col") or f
+    per_row = 4 * len(dt.planes[f]) + 1 + (4 if groups else 0)
+    if a != f:
+        per_row += 4 * len(dt.planes[a])
+    rows = scanned * dt.granule_rows
+    byts = (rows * per_row + 2 * dt.num_granules * 4 * len(dt.planes[f])
+            + 24 + 8 * groups)
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = rows * X1_OPS_PER_ROW / RATES["logic"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def x1_equals_plain(got, want, agg_is_int, what):
+    """Counts, min, max and granules bit for bit; the sum bit for bit for
+    an int aggregate (exact int64 totals, the same f32 expression), within
+    relative 1e-5 for a float one (f64 sums in two orders); group counts
+    exact, group sums within relative 1e-5."""
+    if isinstance(got, tuple):
+        (got, (gc, gs)), (want, (wc, ws)) = got, want
+        if not torch.equal(gc, wc):
+            raise AssertionError(f"{what}: X1 group counts != plain")
+        if not torch.allclose(gs.double(), ws.double(), rtol=1e-5, atol=0):
+            raise AssertionError(f"{what}: X1 group sums != plain")
+    g, w = got.cpu(), want.cpu()
+    gb, wb = g.view(torch.int32), w.view(torch.int32)
+    lanes = [0, 1, 3, 4, 5] + ([2] if agg_is_int else [])
+    if not torch.equal(gb[lanes], wb[lanes]) or (
+            not agg_is_int and abs(float(g[2]) - float(w[2]))
+            > 1e-5 * abs(float(w[2]))):
+        raise AssertionError(f"{what}: X1 {g.tolist()} != plain {w.tolist()}")
+    return max_abs_err(g, w)
+
+
+def chained_us(dt, kw, n=32, iters=5):
+    """columnar_bench.py's device time: n chained dispatch_range_agg calls
+    and one sync, per call, the least of ``iters`` chains (us)."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fused = dt.dispatch_range_agg(**kw)
+        fused[0].item()
+        times.append((time.perf_counter() - t0) / n)
+    return min(times) * 1e6
+
+
+def no_sync_chain(dt, kw, n=32):
+    """n chained dispatch_range_agg calls enqueued behind a device sleep,
+    under torch's sync debug mode "error": none may synchronise (the mode
+    raises), and the host must enqueue all n while the sleep still runs
+    (no call waited for the card). Returns the host us a call."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 26)  # about 34 ms at 2 GHz
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        outs = [dt.dispatch_range_agg(**kw) for _ in range(n)]
+        host = time.perf_counter() - t0
+        pending = not torch.cuda.current_stream().query()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    if not pending:
+        raise AssertionError(f"the card went idle before the host had "
+                             f"enqueued {n} dispatches: a call waited")
+    if not all(torch.equal(o, outs[0]) for o in outs):
+        raise AssertionError("chained dispatches disagree")
+    return host / n * 1e6
+
+
+def phase_columnar(ra, counts, smi):
+    """columnar_bench.py's table (its columns, distributions and seed 11)
+    at 1,000,000 rows and at 10,000,000 (ClickBench's ~100M-row hits table
+    cut for the time limit), through DeviceTable on the card. Counted as
+    main path: each of columnar_bench's six queries through range_agg with
+    host_fast False (X1) and True (the metadata BULK path where it
+    applies), and the bench's range_group_agg (region, 4096 groups, agg
+    duration); results against the numpy scan (counts exact). Uncounted:
+    X1 against its plain version on every query and the group query; 32
+    chained dispatch_range_agg calls with no host sync; per query its
+    branch (pruned: the kept granules <= cap), chained us (the bench's
+    columnar_q9_device_us method), kernel-only us (queued behind a device
+    sleep), one-call and plain ms, the bound and the host path's us.
+    Returns the main path's launches, the largest X1 - plain difference
+    and X1's record at the 10M q9_region_range (the bench's headline)."""
+    from diagon_tpu_torch.bench.columnar import (
+        GROUP_QUERY,
+        QUERIES,
+        build_table,
+    )
+    from diagon_tpu_torch.columnar import DeviceTable
+
+    log("phase 10: columnar range aggregates (X1)")
+    launches, err, record = 0, 0.0, None
+    for rows in COLUMNAR_ROWS:
+        tag = f"{rows // 1_000_000}M"
+        t0 = time.perf_counter()
+        table = build_table(rows)
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dt = DeviceTable(table, device=DEVICE)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        on_card = sum(nbytes(*p) for p in dt.planes.values()) + nbytes(
+            dt.valid)
+        log(f"  {tag} rows: table build {t_build:.2f} s, DeviceTable "
+            f"{t_load:.2f} s, {on_card / 2**20:.1f} MiB of planes on the "
+            f"card, {dt.num_granules} granules, cap {dt.cap} [{smi}]")
+        counts.reset()
+        before = counts.read()["range_agg"]
+        results = {name: (dt.range_agg(**kw, host_fast=False),
+                          dt.range_agg(**kw))
+                   for name, kw in QUERIES.items()}
+        grp = dt.range_group_agg(**GROUP_QUERY)
+        n = counts.read()["range_agg"] - before
+        if n < 1:
+            raise AssertionError(f"{tag} columnar: X1 never launched")
+        launches += n
+        for name, kw in QUERIES.items():
+            dev, fast = results[name]
+            check_range_result(table, kw, dev, f"{tag} {name} device")
+            check_range_result(table, kw, fast, f"{tag} {name} host_fast")
+        m = range_mask(table, GROUP_QUERY)
+        region = table.columns["region"].values[m]
+        dur = table.columns["duration"].values[m].astype(np.float32)
+        if not np.array_equal(grp["group_counts"].astype(np.int64),
+                              np.bincount(region, minlength=4096)):
+            raise AssertionError(f"{tag} group counts != numpy")
+        want = np.bincount(region, weights=dur.astype(np.float64),
+                           minlength=4096)
+        if not np.allclose(grp["group_sums"], want, rtol=1e-5, atol=0):
+            raise AssertionError(f"{tag} group sums != numpy")
+        log(f"  {tag}: six queries (host_fast False and True) and the "
+            f"group-by ({grp['count']} rows, {grp['granules_scanned']} "
+            f"granules) equal the numpy scan; {n} X1 launches")
+
+        specs = list(QUERIES.items()) + [("group region", GROUP_QUERY)]
+        for name, kw in specs:
+            q = {k: v for k, v in kw.items()
+                 if k not in ("group_col", "num_groups")}
+            args, flags = dt._args(q["filter_col"], q.get("lower"),
+                                   q.get("upper"), q.get("agg_col"))
+            extra, ng = (), 0
+            if name.startswith("group"):
+                ng = kw["num_groups"]
+                extra = (dt.planes[kw["group_col"]][0],
+                         dt.offsets[kw["group_col"]])
+                flags = dict(flags, num_groups=ng)
+
+            def call():
+                return ra.range_agg(*args, *extra, **flags)
+
+            got = counts.uncounted(call)
+            want = ra.range_agg_reference(*args, *extra, **flags)
+            err = max(err, x1_equals_plain(got, want, flags["agg_is_int"],
+                                           f"{tag} {name}"))
+            scanned = int((got[0] if extra else got)[5])
+            branch = "pruned" if scanned <= dt.cap else "full"
+            ms = counts.uncounted(cuda_ms, call)
+            kern = counts.uncounted(queued_ms, call, 32)
+            plain = cuda_ms(lambda: ra.range_agg_reference(
+                *args, *extra, **flags), reps=5, warmup=1)
+            b_ms, b_by = x1_bound(dt, q, scanned, ng)
+            line = (f"  {tag} {name}: {branch} ({scanned}/{dt.num_granules}"
+                    f" granules); one call {ms * 1e3:.1f} us, kernel only "
+                    f"{kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound "
+                    f"{b_ms * 1e3:.1f} us by {b_by}")
+            if not extra:
+                line += (f"; chained {counts.uncounted(chained_us, dt, q):.1f}"
+                         " us a query (32 dispatches, one sync)")
+                if results[name][1].get("host_fast_path"):
+                    t0 = time.perf_counter()
+                    for _ in range(200):
+                        dt.range_agg(**q)
+                    line += (f"; host BULK path "
+                             f"{(time.perf_counter() - t0) / 200 * 1e6:.1f} us")
+            log(line + f" [{smi}]")
+            if rows == COLUMNAR_ROWS[-1] and name == "q9_region_range":
+                record = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": None}
+        host_us = counts.uncounted(no_sync_chain, dt, QUERIES["wide_ts_agg"])
+        log(f"  {tag}: 32 chained dispatch_range_agg calls, no host sync "
+            f"(sync debug mode 'error'; all enqueued behind a device sleep), "
+            f"{host_us:.1f} us of host a call")
+        del dt, table, results, grp
+    return launches, err, record
 
 
 # ---------------------------------------------------------------------------
@@ -2037,6 +2439,7 @@ def main():
     from diagon_tpu_torch.ops import approx_pass as ap
     from diagon_tpu_torch.ops import bits_hits as bh
     from diagon_tpu_torch.ops import gather_rescore as gr
+    from diagon_tpu_torch.ops import range_agg as ra
     from diagon_tpu_torch.ops import row_sum as rs
 
     kernels = {
@@ -2047,6 +2450,7 @@ def main():
         "gather_rescore": gr.gather_rescore,
         "union_rescore": gr.union_rescore,
         "bits_hits": bh.bits_hits,
+        "range_agg": ra.range_agg,
     }
     counts = Counts(kernels)
 
@@ -2059,6 +2463,8 @@ def main():
     err = phase(phase_row_kernels, rs)
     err.update(phase(phase_pruned_kernels, rs, ap, gr, counts))
     err.update(phase(phase_bits_kernel, bh, counts))
+    launches_col, err["range_agg"], x1_record = phase(phase_columnar, ra,
+                                                      counts, smi)
     searcher19, batches19, sent19, launches19 = phase(phase_serve, counts, smi)
     searcher1m, batches1m, sent1m, launches1m = phase(phase_scale, counts, smi)
     launches_sp = phase(phase_sparse, counts, smi)
@@ -2083,10 +2489,12 @@ def main():
     ], counts, smi)
     runs = (launches19, launches1m, launches_sp, launches10["phase1"],
             launches10["phase0"])
-    launches = {n: sum(r[n] for r in runs) for n in kernels}
+    launches = {n: sum(r.get(n, 0) for r in runs) for n in kernels}
+    launches["range_agg"] += launches_col
+    times["range_agg"] = dict(x1_record, max_abs_err=0.0)
     log(f"main-path launches at 19k {launches19}; at 1M {launches1m}; "
         f"sparse 1M {launches_sp}; at 10M phase 1 {launches10['phase1']}, "
-        f"phase 0 {launches10['phase0']}")
+        f"phase 0 {launches10['phase0']}; columnar (X1) {launches_col}")
     idle = [n for n, c in launches.items() if c < 1]
     if idle:
         raise AssertionError(f"the main path never launched {idle}")
@@ -2100,6 +2508,7 @@ def main():
         "gather_rescore": "diagon_tpu_torch/csrc/gather_rescore.cu",
         "union_rescore": "diagon_tpu_torch/csrc/gather_rescore.cu",
         "bits_hits": "diagon_tpu_torch/csrc/bits_hits.cu",
+        "range_agg": "diagon_tpu_torch/csrc/range_agg.cu",
     }
     # the Pallas kernel bodies (B6: the resident form; _mk_kernel :45 too)
     replaces = {
@@ -2111,6 +2520,8 @@ def main():
         "gather_rescore": "diagon_tpu/ops/pallas/gather_rescore.py:102",
         "union_rescore": "diagon_tpu/ops/pallas/gather_rescore.py:192",
         "bits_hits": "diagon_tpu/ops/pallas/bits_hits.py:52",
+        # no Pallas body: the jitted XLA program of the JAX DeviceTable
+        "range_agg": "diagon_tpu/columnar/engine.py:159",
     }
     record = {"kernels": [
         {

@@ -29,7 +29,7 @@ from diagon_tpu_torch.index.segment import (
     SegmentFieldData,
 )
 from diagon_tpu_torch.search import query as Q
-from diagon_tpu_torch.search.row_engine import RowFieldIndex
+from diagon_tpu_torch.search.row_engine import RowFieldIndex, _pack_live_bits
 from diagon_tpu_torch.sparse.index import SparseIndex
 from diagon_tpu_torch.sparse.vector import SparseVector
 
@@ -133,7 +133,9 @@ def row_field_index_from_state(pp, norms: np.ndarray, state: dict,
     )
     dev = idx.device
     idx.live = torch.from_numpy(live.copy()).to(dev)
-    idx.heavy_bank = torch.from_numpy(np.array(bank[: max(1, H)])).to(dev)
+    if idx.prunable:
+        idx.live_bits = _pack_live_bits(idx.live)
+    idx.set_heavy_bank(torch.from_numpy(np.array(bank[: max(1, H)])).to(dev))
     idx.heavy_row_of_term = np.asarray(state["heavy_row_of_term"], np.int32)
     idx.heavy_tid_of_row = np.asarray(state["heavy_tid_of_row"], np.int64)
     idx.heavy_weight = np.asarray(state["heavy_weight"], np.float32)

@@ -28,6 +28,15 @@ the query back to the exhaustive route in ``RowExecutor.finalize``.
 Results stay bit-identical to the exhaustive route, the JAX searcher and
 the oracle.
 
+Small-batch tile-UB route, for pure-OR batches of fewer than
+``approx_min_q`` plans (a solo search among them) on segments of
+``prune_solo_min_docs`` to ``batch_only_min_docs`` padded docs
+(``row_score_topk_pruned_or``): tile bounds are the sums of the clause
+rows' tile maxima and hits come from presence bitmaps (``build_tile_aux``,
+built with the resident heavy bank and, lazily, the batch's light bank);
+the best tiles are rescored in torch ops with the same certificate and
+escalation.
+
 On-demand mode, for segments of ``BANK_ON_DEMAND_MIN_DOCS`` padded docs or
 more: heavy terms are classified but no resident bank is built. Each
 batch's compact bank is scatter-built from the packed postings in row
@@ -61,6 +70,7 @@ from diagon_tpu_torch.ops.bits_hits import (
     MODE_DEAD,
     MODE_REQ,
     MODE_SHO,
+    _popcount,
     bits_hits,
 )
 from diagon_tpu_torch.ops.gather_rescore import (
@@ -481,16 +491,143 @@ def _build_bits_bank(compact_t: torch.Tensor, live: torch.Tensor):
     live_tiles = live.reshape(G, LANE) > 0
     bits = torch.empty((U8, G * 4), dtype=torch.int32, device=dev)
     step = max(256, (1 << 25) // max(U8 * LANE, 1))
-    shifts = torch.arange(32, dtype=torch.int64, device=dev)
     for g0 in range(0, G, step):
         sl = compact_t[g0 : g0 + step]
         rows = sl.shape[0]
-        m = (sl > 0) & live_tiles[g0 : g0 + rows, None, :]
-        w = (m.reshape(rows, U8, 4, 32).long() << shifts).sum(dim=-1)
-        w = torch.where(w >= 1 << 31, w - (1 << 32), w).int()  # as i32
+        w = _pack_words((sl > 0) & live_tiles[g0 : g0 + rows, None, :])
         bits[:, g0 * 4 : (g0 + rows) * 4] = (
             w.permute(1, 0, 2).reshape(U8, rows * 4))
     return bits
+
+
+def _pack_words(m: torch.Tensor) -> torch.Tensor:
+    """bool [..., 32 n] -> i32 [..., n]: bit j of word w is element
+    w * 32 + j, held as the u32 word's int32 bit pattern (torch has no
+    uint32 shifts: the words are summed as int64 and wrapped)."""
+    shifts = torch.arange(32, dtype=torch.int64, device=m.device)
+    w = (m.reshape(*m.shape[:-1], -1, 32).long() << shifts).sum(dim=-1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).int()
+
+
+# ---------------------------------------------------------------------------
+# Small-batch tile-UB route
+# ---------------------------------------------------------------------------
+#
+# Pure-OR batches of fewer than approx_min_q plans on segments below
+# batch_only_min_docs (the JAX package's ``row_score_topk_pruned_or``):
+# each query's tile upper bounds are the sums of its clause rows' tile
+# maxima (one [G] row a clause, no pass over the bank), its exact hit count
+# the popcount of the live-masked union of its clause rows' presence
+# bitmaps; the best Bk tiles are rescored exactly in clause order and
+# ranked, and the certificate (theta > u_next, or u_next <= 0) sends a
+# query whose top-k may lie outside them back to the exhaustive route in
+# ``RowExecutor.finalize``. Torch ops: the JAX package has no Pallas kernel
+# here, only jitted ``jnp``, and ``vmap`` over the queries becomes a batch
+# axis. Clause rows are added one clause at a time in clause order (the
+# ``lax.scan``), so the sums are the exhaustive kernel's bit for bit.
+
+
+def build_tile_aux(bank: torch.Tensor):
+    """Per-row tile maxima and presence bitmaps of a dense row bank: f32
+    [N, D] -> (ub f32 [N, D/128], bits i32 [N, D/32]), bit j of word w
+    set where the row's doc w * 32 + j is > 0 (the packing of
+    ``_pack_live_bits``). Built in row chunks so the int64 packing
+    temporary stays near 256 MB."""
+    N, D = bank.shape
+    ub = torch.empty((N, D // LANE), dtype=torch.float32, device=bank.device)
+    bits = torch.empty((N, D // 32), dtype=torch.int32, device=bank.device)
+    step = max(1, (1 << 25) // max(1, D))
+    for r0 in range(0, N, step):
+        rows = bank[r0 : r0 + step]
+        ub[r0 : r0 + step] = rows.reshape(rows.shape[0], -1, LANE).amax(-1)
+        bits[r0 : r0 + step] = _pack_words(rows > 0)
+    return ub, bits
+
+
+def _pack_live_bits(live: torch.Tensor) -> torch.Tensor:
+    """f32 [D] 0/1 -> i32 [D/32] presence bitmap (build_tile_aux's
+    packing)."""
+    return _pack_words(live > 0)
+
+
+def _clause_rows(hidx, lidx, heavy, light, light_small: bool, zero):
+    """[Q, Tq, ...] clause rows: the heavy row where hidx >= 0, else the
+    light row (or ``zero`` when the light bank is its zero row alone)."""
+    hmask = (hidx >= 0).reshape(*hidx.shape, *([1] * (heavy.dim() - 1)))
+    rows = heavy[hidx.clamp(min=0).long()]
+    other = zero if light_small else light[lidx.clamp(min=0).long()]
+    return torch.where(hmask, rows, other)
+
+
+def _bitmap_hits(hidx, lidx, heavy_bits, light_bits, live_bits,
+                 light_small: bool):
+    """Exact hit counts i32 [Q]: popcount of the live-masked union of each
+    query's clause bitmaps (``_bitmap_hits_q`` over the batch)."""
+    rows = _clause_rows(hidx, lidx, heavy_bits, light_bits, light_small, 0)
+    acc = torch.zeros_like(rows[:, 0])
+    for t in range(rows.shape[1]):
+        acc |= rows[:, t]
+    return _popcount(acc & live_bits).sum(dim=1).int()
+
+
+def _rescore_tiles(hidx, lidx, tsel, heavy_tiles, light_tiles, G: int,
+                   light_small: bool):
+    """Exact scores f32 [Q, B, LANE] of the selected tiles, clause rows
+    added in clause order (``_rescore_tiles_q`` over the batch)."""
+    hi = hidx.clamp(min=0).long()[:, :, None] * G + tsel.long()[:, None, :]
+    rows = heavy_tiles[hi]
+    if light_small:
+        rows = torch.where((hidx >= 0)[:, :, None, None], rows, 0.0)
+    else:
+        li = lidx.clamp(min=0).long()[:, :, None] * G + tsel.long()[:, None, :]
+        rows = torch.where((hidx >= 0)[:, :, None, None], rows,
+                           light_tiles[li])
+    scores = torch.zeros_like(rows[:, 0])
+    for t in range(rows.shape[1]):
+        scores += rows[:, t]
+    return scores
+
+
+def row_score_topk_pruned_or(heavy_bank, light_bank, heavy_ub, light_ub,
+                             heavy_bits, light_bits, live, live_bits, hidx,
+                             lidx, *, k: int, B: int):
+    """Pruned pure-OR scoring with sum-of-tile-maxima bounds, the JAX
+    function of this name over the batch axis: [Q, 2k+2] rows of k scores
+    | k docids as f32 | exact hits | safe (0.0: the executor escalates the
+    query).
+
+    heavy_bank f32 [H, D]; light_bank f32 [L, D] (row 0 zero); heavy_ub /
+    light_ub f32 [*, D/128] and heavy_bits / light_bits / live_bits i32
+    [*, D/32] from ``build_tile_aux`` / ``_pack_live_bits``; live f32 [D];
+    hidx, lidx i32 [Q, Tq]. The tile selection is ``_select_tiles``'s (the
+    Bk best bounds in IEEE total order, ties toward the lower tile, which
+    ``lax.top_k`` gives the JAX package), and the rank stage
+    ``_topk_in_tiles_final``'s. A contiguous bank's [H * G, LANE] tile view
+    is a view here, not a copy."""
+    H, D = heavy_bank.shape
+    G = D // LANE
+    Bk = min(B, G)
+    light_small = light_bank.shape[0] == 1
+    ub = torch.zeros((hidx.shape[0], G), dtype=torch.float32,
+                     device=heavy_bank.device)
+    ub_rows = _clause_rows(hidx, lidx, heavy_ub, light_ub, light_small, 0.0)
+    for t in range(ub_rows.shape[1]):
+        ub += ub_rows[:, t]
+    del ub_rows
+    hits = _bitmap_hits(hidx, lidx, heavy_bits, light_bits, live_bits,
+                        light_small)
+    tsel, u_next, _ = _select_tiles(ub, Bk, G)
+    scores = _rescore_tiles(hidx, lidx, tsel, heavy_bank.view(H * G, LANE),
+                            light_bank.view(-1, LANE), G, light_small)
+    lv = live.reshape(G, LANE)[tsel.long()]
+    final = torch.where((scores > 0) & (lv > 0), scores, -1.0)
+    top_scores, top_docs = _topk_in_tiles_final(final, tsel, k)
+    # u_next is -inf when every tile is selected: always safe
+    safe = (top_scores[:, k - 1] > u_next) | (u_next <= 0)
+    return torch.cat([
+        top_scores, top_docs.float(), hits.float()[:, None],
+        safe.float()[:, None],
+    ], dim=1)
 
 
 def _pruned_batch_phase0(ubank, a_sc_f, a_rq_f, a_sh_f, params_t, *,
@@ -698,12 +835,18 @@ class RowFieldIndex:
         self.live = torch.from_numpy(live).to(self.device)
         # pruning needs the padded doc axis divisible into 128-doc tiles
         self.prunable = num_docs_pad % LANE == 0
+        self.live_bits = _pack_live_bits(self.live) if self.prunable else None
 
         # filled by build_heavy_bank (idf needs collection stats)
         self.heavy_row_of_term: Optional[np.ndarray] = None
         self.heavy_tid_of_row: Optional[np.ndarray] = None
         self.heavy_weight: Optional[np.ndarray] = None
         self.heavy_bank: Optional[torch.Tensor] = None
+        # the heavy bank's tile aux (build_tile_aux), read by the
+        # small-batch tile-UB route; None where no resident bank is
+        # prunable
+        self.heavy_ub: Optional[torch.Tensor] = None
+        self.heavy_bits: Optional[torch.Tensor] = None
         self.bank_on_demand = False
         self._decode_state = None
 
@@ -768,12 +911,21 @@ class RowFieldIndex:
             [idf_of_tid(int(t)) for t in heavy], dtype=np.float32
         )
         if self.bank_on_demand:
-            self.heavy_bank = None
+            self.heavy_bank = self.heavy_ub = self.heavy_bits = None
             return
-        self.heavy_bank = self.build_rows(
+        self.set_heavy_bank(self.build_rows(
             [(r, int(t), self.heavy_weight[r]) for r, t in enumerate(heavy)],
             max(1, H),
-        )
+        ))
+
+    def set_heavy_bank(self, bank: torch.Tensor) -> None:
+        """Hold ``bank`` as the resident heavy bank, with its tile aux
+        when the segment is prunable (the JAX package builds both in
+        ``build_heavy_bank``)."""
+        self.heavy_bank = bank
+        self.heavy_ub = self.heavy_bits = None
+        if self.prunable:
+            self.heavy_ub, self.heavy_bits = build_tile_aux(bank)
 
     def build_rows_grouped(self, tids, weights):
         """Yield ``(g0, rows)`` for the given term ids in groups of at most
@@ -862,6 +1014,9 @@ class _BatchEntry:
     nbytes: int
     compact: Optional[CompactBatch] = None
     compact_built: bool = False
+    # the light bank's tile aux (ub, bits), once the tile-UB route has
+    # asked for it (``RowExecutor._light_aux``)
+    light_aux: Optional[tuple] = None
 
 
 def _plan_row_keys(p: RowPlan) -> set:
@@ -1379,24 +1534,22 @@ class RowExecutor:
                 or self._force_batch)
 
     def _use_pruned(self, plans: Sequence[RowPlan]) -> bool:
-        """The JAX package's routing, with two deliberate deviations (no
-        result changes): the gate tests the resident heavy bank (or the
-        on-demand mode) where the JAX package tests its tile aux
-        (``heavy_ub``, which exists exactly when the segment is prunable and
-        the bank is built), and pure-OR batches outside batch mode, which
-        the JAX package sends to its small-batch tile-UB path (below
-        batch_only_min_docs only), stay exhaustive here until that path is
-        ported (ROADMAP queue A)."""
+        """The JAX package's routing: a prunable segment with the heavy
+        bank's tile aux (``heavy_ub``) or held on demand, of at least
+        prune_min_docs padded docs; below prune_solo_min_docs only batches
+        of approx_min_q plans or more. Every pure-OR batch then prunes
+        (``_dispatch_pruned`` picks the batch or the tile-UB route);
+        general booleans only in batch mode."""
         idx = self.index
         if not (idx.prunable
-                and (idx.heavy_bank is not None or idx.bank_on_demand)
+                and (idx.heavy_ub is not None or idx.bank_on_demand)
                 and idx.num_docs_pad >= self.prune_min_docs):
             return False
         if (idx.num_docs_pad < self.prune_solo_min_docs
                 and len(plans) < self.approx_min_q):
             return False
         if all(p.pure_or for p in plans):
-            return self._batch_mode(plans)
+            return True
         # general booleans prune only in batch mode
         return len(plans) >= self.approx_min_q
 
@@ -1409,17 +1562,50 @@ class RowExecutor:
         return min(G, smem_cap,
                    max(self.prune_B0, -(-k // LANE) + 1, G // 512))
 
+    def _light_aux(self, entry: _BatchEntry):
+        """The batch light bank's tile aux for the tile-UB route, built on
+        its first request and cached with the entry (the JAX package builds
+        it in ``_stack`` for every batch on a prunable resident segment).
+        A light bank of its zero row alone is never read there (its
+        clauses all take heavy rows): no aux, as the JAX route passes
+        zeros for a missing one."""
+        if entry.light_aux is None:
+            light = entry.args[7]
+            if light.shape[0] == 1:
+                entry.light_aux = (None, None)
+            else:
+                entry.light_aux = build_tile_aux(light)
+                n = sum(a.numel() * a.element_size()
+                        for a in entry.light_aux)
+                entry.nbytes += n
+                self._batch_bytes += n
+                self._evict()
+        return entry.light_aux
+
     def _dispatch_pruned(self, plans: Sequence[RowPlan], k: int):
-        """The pruned batch route: [Q, 2k+2] rows, or None when the batch
-        has no compact bank (too many rows), so dispatch() falls back to
-        exhaustive scoring. Phase-0 entries take phase 0 and B8; others
-        phase 1, replayed from the entry's cache where the JAX package
-        stages its pipeline (query_cache, batch_only_min_docs and more)."""
+        """The pruned routes: [Q, 2k+2] rows, or None when a batch-mode
+        batch has no compact bank (too many rows), so dispatch() falls back
+        to exhaustive scoring. In batch mode (``_batch_mode``) phase-0
+        entries take phase 0 and B8, others phase 1, replayed from the
+        entry's cache where the JAX package stages its pipeline
+        (query_cache, batch_only_min_docs and more). Other pure-OR batches
+        take the small-batch tile-UB route (``row_score_topk_pruned_or``)
+        over the resident heavy bank and the batch's light bank."""
+        idx = self.index
+        B = self.tile_budget(len(plans), k)
+        if not self._batch_mode(plans):
+            entry = self._entry(plans)
+            hidx, lidx = entry.args[0], entry.args[1]
+            light = entry.args[7]
+            light_ub, light_bits = self._light_aux(entry)
+            return row_score_topk_pruned_or(
+                idx.heavy_bank, light, idx.heavy_ub, light_ub,
+                idx.heavy_bits, light_bits, idx.live, idx.live_bits,
+                hidx, lidx, k=k, B=B,
+            )
         c = self._compact(plans)
         if c is None:
             return None
-        idx = self.index
-        B = self.tile_budget(len(plans), k)
         self.metrics["tiles"].increment(len(plans) * B)
         boolean = not all(p.pure_or for p in plans)
         bool_params = self._entry(plans).args[6]

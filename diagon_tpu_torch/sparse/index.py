@@ -133,10 +133,11 @@ class SparseSearcher:
     quantized oracle's arithmetic; the device sums rows and takes the
     top-k.
 
-    Deliberate deviations from the JAX searcher, no result changes: the
-    pruned route is switched on by the zero ``[1, D]`` heavy bank alone
-    (the port's ``_use_pruned`` gates on ``heavy_bank``; the JAX searcher
-    also builds the bank's tile aux, which the port has no use for), and
+    The zero ``[1, D]`` heavy bank and its tile aux switch the pruned
+    routes on, as in the JAX searcher: batches take the batch route, and a
+    solo query (its plan is pure OR: no padding clauses) on a segment of
+    ``prune_solo_min_docs`` padded docs or more takes the small-batch
+    tile-UB route. Deliberate deviation, no result change:
     ``_plan_batch``'s cache pins each query, so an id stays unique while it
     is cached."""
 
@@ -155,11 +156,11 @@ class SparseSearcher:
         )
         # no idf-scaled heavy rows (weights are query-dependent): every
         # clause is a light entry of the batch-compact bank. The zero
-        # heavy bank turns the pruned batch route on.
+        # heavy bank and its tile aux turn the pruned routes on.
         ridx.heavy_row_of_term = np.full(pp.num_terms, -1, np.int32)
-        ridx.heavy_bank = torch.zeros(
+        ridx.set_heavy_bank(torch.zeros(
             (1, num_docs_pad), dtype=torch.float32, device=ridx.device
-        )
+        ))
         self.executor = RowExecutor(ridx)
         self.pp = pp
         self.num_docs_pad = num_docs_pad

@@ -1,0 +1,386 @@
+"""The port's columnar device engine (``diagon_tpu_torch.columnar``) against
+the JAX package's ``DeviceTable`` and a numpy scan, on the CPU.
+
+Tables are made from seeds with numpy and built into both packages from the
+same arrays. Small granules (256 and 512 rows) give enough granules for
+both of X1's branches: a sorted column and a narrow range keep at most
+``cap`` granules (the pruned scan), an unsorted column or a wide range more
+(the full scan). Tolerances, with ``host_fast=False``:
+
+- count, min, max and granules_scanned bit-equal;
+- an int sum bit-equal where each plane's total over the matching rows is
+  below 2^24 (every f32 sum in the JAX program is then exact), else
+  within relative 1e-6 (the JAX program sums the planes' granule totals in
+  f32; the port rounds their exact total once);
+- an f32 sum within relative 1e-5 (the JAX program sums in f32, the port in
+  f64 rounded once);
+- group counts exact, group sums within relative 1e-5.
+
+The host BULK path (``host_fast_agg``) is numpy in both packages and must
+match exactly. The cases of ``tests/unit/test_columnar.py`` that drive the
+device table are mirrored on the port's own classes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import diagon_tpu.columnar as jcol
+import diagon_tpu_torch.columnar as tcol
+from diagon_tpu_torch.columnar import (
+    ColumnarTable,
+    DeviceTable,
+    Float64Column,
+    Int64Column,
+    StringColumn,
+    column_from_values,
+)
+from diagon_tpu_torch.columnar.table import MinMaxIndex
+from diagon_tpu_torch.ops import range_agg as ra
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of tests/unit/test_columnar.py on the port's classes
+# ---------------------------------------------------------------------------
+
+
+def _table(n=20000, seed=3):
+    rng = np.random.Generator(np.random.PCG64(seed))
+    t = ColumnarTable()
+    t.add_column("ts", Int64Column(np.sort(rng.integers(0, 1 << 20, n))))
+    t.add_column("price", Float64Column(rng.random(n) * 100))
+    t.add_column("group", Int64Column(rng.integers(0, 8, n)), minmax=False)
+    t.add_column(
+        "name",
+        StringColumn([f"item{int(i)}" for i in rng.integers(0, 500, n)]),
+        bloom=True,
+    )
+    return t
+
+
+def test_columns_and_table_copies():
+    c = Int64Column([3, 1, 4, 1, 5])
+    c.insert(9)
+    np.testing.assert_array_equal(
+        c.filter(np.array([1, 0, 1, 0, 0, 1], bool)).values, [3, 4, 9])
+    assert c.compare_at(0, 1, c) == 1
+    s = StringColumn(["alpha", "b", ""])
+    assert s[0] == b"alpha" and s[2] == b"" and len(s) == 3
+    assert isinstance(column_from_values([1.5, 2.0]), Float64Column)
+    mm = MinMaxIndex.build(np.arange(20000, dtype=np.int64), 8192)
+    np.testing.assert_array_equal(mm.mins, [0, 8192, 16384])
+    t = _table()
+    assert t.num_granules == 3 and "name" in t.bloom
+
+
+def test_device_range_agg_matches_numpy():
+    t = _table()
+    dt = DeviceTable(t, device="cpu")
+    ts = t.columns["ts"].values
+    price = t.columns["price"].values
+    lo, hi = 100000, 600000
+    got = dt.range_agg("ts", lo, hi, agg_col="price", host_fast=False)
+    mask = (ts >= lo) & (ts <= hi)
+    assert got["count"] == int(mask.sum())
+    assert got["min"] == np.float32(price[mask].astype(np.float32).min())
+    assert got["max"] == np.float32(price[mask].astype(np.float32).max())
+    assert abs(got["sum"] - price[mask].sum()) / price[mask].sum() < 1e-3
+    assert got["granules_scanned"] < got["granules_total"]
+    empty = dt.range_agg("ts", 1 << 30, None, host_fast=False)
+    assert empty["count"] == 0 and empty["min"] is None
+
+
+def test_host_fast_agg_bulk_resolution():
+    t = _table()
+    dt = DeviceTable(t, device="cpu")
+    ts = t.columns["ts"].values
+    price = t.columns["price"].values
+    lo, hi = 100000, 600000
+    got = dt.host_fast_agg("ts", lo, hi, agg_col="price")
+    assert got is not None and got["host_fast_path"]
+    mask = (ts >= lo) & (ts <= hi)
+    assert got["count"] == int(mask.sum())
+    assert got["min"] == price[mask].min()
+    assert got["max"] == price[mask].max()
+    assert abs(got["sum"] - price[mask].sum(dtype=np.float64)) < 1e-6 * max(
+        1.0, abs(price[mask].sum()))
+    assert got["granules_scanned"] <= 2
+    got = dt.host_fast_agg("ts", lo, hi)
+    assert got["sum"] == float(ts[mask].sum(dtype=np.int64))
+    got = dt.host_fast_agg("ts", -100, -1)
+    assert got["count"] == 0 and got["min"] is None and got["sum"] == 0.0
+    got = dt.host_fast_agg("ts", None, None)
+    assert got["granules_scanned"] == 0 and got["count"] == t.num_rows
+    assert got["min"] == float(ts.min()) and got["max"] == float(ts.max())
+    out = dt.host_fast_agg("price", 200.0, 300.0)
+    assert out["count"] == 0 and out["granules_scanned"] == 0
+    assert dt.host_fast_agg("price", 20.0, 30.0, max_partial=1) is None
+    mid = dt.host_fast_agg("price", 20.0, 30.0)
+    pm = (price >= 20.0) & (price <= 30.0)
+    assert mid["count"] == int(pm.sum()) and mid["min"] == price[pm].min()
+    via = dt.range_agg("ts", lo, hi, agg_col="price")
+    assert via.get("host_fast_path") is True
+    assert via["count"] == int(mask.sum())
+
+
+def test_device_group_agg_matches_numpy():
+    t = _table()
+    dt = DeviceTable(t, device="cpu")
+    ts = t.columns["ts"].values
+    grp = t.columns["group"].values
+    price = t.columns["price"].values
+    got = dt.range_group_agg("ts", "group", 8, lower=0, upper=500000,
+                             agg_col="price")
+    mask = (ts >= 0) & (ts <= 500000)
+    for g in range(8):
+        want = int((mask & (grp == g)).sum())
+        assert int(got["group_counts"][g]) == want
+        ws = price[mask & (grp == g)].sum()
+        if want:
+            assert abs(float(got["group_sums"][g]) - ws) / max(ws, 1) < 1e-5
+
+
+def test_device_string_predicates():
+    t = _table()
+    dt = DeviceTable(t, device="cpu")
+    names = np.array([t.columns["name"][i] for i in range(t.num_rows)],
+                     dtype=object)
+    ts = t.columns["ts"].values
+    price = t.columns["price"].values
+    got = dt.range_agg("name", "item42", "item42", agg_col="price")
+    mask = names == b"item42"
+    assert got["count"] == int(mask.sum())
+    assert got["min"] == np.float32(price[mask].astype(np.float32).min())
+    got = dt.range_agg("name", "item10", "item19~")
+    mask = (names >= b"item10") & (names <= b"item19~")
+    assert got["count"] == int(mask.sum())
+    assert dt.range_agg("name", "zzz", "zzz")["count"] == 0
+    assert dt.range_agg("name", "aaa", "aab")["count"] == 0
+    got = dt.range_agg("ts", 0, 200000, agg_col="name")
+    mask = ts <= 200000
+    assert got["min"] == names[mask].min() and got["max"] == names[mask].max()
+    assert got["sum"] is None and got["avg"] is None
+    g = dt.range_group_agg("ts", "name", lower=0, upper=500000)
+    mask = ts <= 500000
+    want = {}
+    for nm in names[mask]:
+        want[nm] = want.get(nm, 0) + 1
+    for li, lab in enumerate(g["group_labels"]):
+        assert int(g["group_counts"][li]) == want.get(lab, 0), lab
+
+
+# ---------------------------------------------------------------------------
+# The port against the JAX DeviceTable
+# ---------------------------------------------------------------------------
+
+
+def _arrays(n, seed):
+    rng = np.random.Generator(np.random.PCG64(seed))
+    half = 1 << 47
+    return {
+        "ts": np.sort(rng.integers(0, 1 << 20, n)),
+        "big": np.sort(rng.integers(-half, half - 1, n)),  # a 48-bit span
+        "rnd": rng.integers(0, 1_000_000, n),
+        "neg": rng.integers(-5000, 5000, n),
+        "price": rng.random(n) * 100,
+        "grp": rng.integers(0, 16, n),
+        "grp2": rng.integers(100, 116, n),  # group ids past an offset
+        "name": [f"k{int(i)}" for i in rng.integers(0, 60, n)],
+    }
+
+
+def _build(mod, arr, granule_rows):
+    t = mod.ColumnarTable(granule_rows=granule_rows)
+    for name, v in arr.items():
+        if name == "name":
+            t.add_column(name, mod.StringColumn(v))
+        elif name == "price":
+            t.add_column(name, mod.Float64Column(v))
+        else:
+            t.add_column(name, mod.Int64Column(v),
+                         minmax=not name.startswith("grp"))
+    return t
+
+
+@pytest.fixture(scope="module", params=[(5000, 256, 1), (7777, 512, 2)],
+            ids=["5000x256", "7777x512"])
+def tables(request):
+    """(arrays, port DeviceTable, JAX DeviceTable); neither table ends on a
+    granule boundary."""
+    n, gr, seed = request.param
+    arr = _arrays(n, seed)
+    assert n % gr
+    port = DeviceTable(_build(tcol, arr, gr), device="cpu")
+    jax_t = jcol.DeviceTable(_build(jcol, arr, gr))
+    return arr, port, jax_t
+
+
+QUERIES = [
+    ("ts", 1000, 30000, None),  # sorted, narrow: pruned
+    ("ts", 1000, 30000, "price"),
+    ("ts", 0, 1 << 19, "rnd"),  # sorted, wide: full
+    ("rnd", 100, 200000, "price"),  # unsorted: full
+    ("rnd", None, None, "rnd"),  # every row; plane totals beyond 2^24
+    ("big", -(1 << 40), 1 << 40, "big"),  # 48-bit values
+    ("big", -(1 << 46), -(1 << 45), "neg"),
+    ("ts", 1 << 30, None, None),  # empty: above every value
+    ("ts", -100, -1, "price"),  # empty: below the offset
+    ("price", 20.0, 30.0, "ts"),  # f32 filter
+    ("price", None, None, "big"),
+    ("neg", -100, 100, "neg"),  # negative offset
+    ("name", "k1", "k3", "price"),  # dictionary codes
+    ("ts", 0, 1 << 21, "name"),  # string aggregate
+]
+
+
+def _mask(arr, col, lo, hi):
+    v = np.asarray(arr[col], dtype=object if col == "name" else None)
+    m = np.ones(len(v), bool)
+    if col == "name":
+        v = np.asarray([s.encode() for s in arr[col]], dtype=object)
+        lo = None if lo is None else lo.encode()
+        hi = None if hi is None else hi.encode()
+    if lo is not None:
+        m &= v >= lo
+    if hi is not None:
+        m &= v <= hi
+    return m
+
+
+def _plane_totals(values, mask):
+    u = (values[mask].astype(np.int64) - values.min()).astype(np.uint64)
+    return [int(((u >> np.uint64(16 * i)) & np.uint64(0xFFFF)).sum())
+            for i in range(3)]
+
+
+def _assert_fused(got, want, sum_rtol, what):
+    """Bit-equal lanes but the sum; the sum bit-equal too when ``sum_rtol``
+    is None, else within it."""
+    gb, wb = got.view(np.uint32), want.view(np.uint32)
+    for i in (0, 1, 3, 4, 5):  # count lanes, min, max, granules scanned
+        assert gb[i] == wb[i], (what, i, got, want)
+    if sum_rtol is None:
+        assert gb[2] == wb[2], (what, got, want)
+    else:
+        assert abs(float(got[2]) - float(want[2])) <= sum_rtol * abs(
+            float(want[2])), (what, got, want)
+
+
+@pytest.mark.parametrize("q", QUERIES, ids=lambda q: f"{q[0]}-{q[3]}-{q[1]}")
+def test_range_agg_equals_jax(tables, q):
+    arr, port, jax_t = tables
+    col, lo, hi, agg = q
+    got = port.dispatch_range_agg(col, lo, hi, agg).numpy()
+    want = np.asarray(jax_t.dispatch_range_agg(col, lo, hi, agg))
+    agg_name = agg or col
+    m = _mask(arr, col, lo, hi)
+    if agg_name in port.dicts:
+        rtol = None  # string aggregates: the sum lane is unused
+    elif port.is_int[agg_name]:
+        exact = max(_plane_totals(np.asarray(arr[agg_name]), m)) < 1 << 24
+        rtol = None if exact else 1e-6
+    else:
+        rtol = 1e-5
+    _assert_fused(got, want, rtol, q)
+    assert port.range_agg(col, lo, hi, agg, host_fast=False)["count"] == \
+        int(m.sum())
+
+
+def test_both_branches_and_scanned_granules(tables):
+    """The queries force both branches: some keep at most cap granules, some
+    more; granules_scanned is the count of kept granules either way."""
+    _, port, _ = tables
+    kept = [port.dispatch_range_agg(c, lo, hi, a).numpy()[5]
+            for c, lo, hi, a in QUERIES]
+    assert any(0 < k <= port.cap for k in kept)
+    assert any(k > port.cap for k in kept)
+    assert 0 in kept
+
+
+@pytest.mark.parametrize("q", QUERIES, ids=lambda q: f"{q[0]}-{q[3]}-{q[1]}")
+def test_host_fast_agg_equals_jax(tables, q):
+    _, port, jax_t = tables
+    col, lo, hi, agg = q
+    for mp in (0, 4, 10_000):
+        assert port.host_fast_agg(col, lo, hi, agg, max_partial=mp) == \
+            jax_t.host_fast_agg(col, lo, hi, agg, max_partial=mp), (q, mp)
+
+
+@pytest.mark.parametrize("spec", [
+    ("ts", "grp", 16, 1000, 40000, "price"),  # pruned
+    ("rnd", "grp", 16, 0, 900000, "rnd"),  # full, int aggregate
+    ("ts", "grp", 9, None, None, "neg"),  # ids 9-15 dropped
+    ("ts", "grp2", 120, 0, 1 << 19, "price"),  # ids = low plane + offset
+    ("ts", "name", None, 0, 1 << 19, "price"),  # dictionary codes
+], ids=lambda s: f"{s[0]}-{s[1]}-{s[2]}")
+def test_group_agg_equals_jax(tables, spec):
+    arr, port, jax_t = tables
+    col, gcol, ng, lo, hi, agg = spec
+    got = port.range_group_agg(col, gcol, ng, lo, hi, agg)
+    want = jax_t.range_group_agg(col, gcol, ng, lo, hi, agg)
+    assert got["count"] == want["count"]
+    assert got["granules_scanned"] == want["granules_scanned"]
+    np.testing.assert_array_equal(got["group_counts"],
+                                  np.asarray(want["group_counts"]))
+    np.testing.assert_allclose(got["group_sums"],
+                               np.asarray(want["group_sums"], np.float64),
+                               rtol=1e-5, atol=0)
+    m = _mask(arr, col, lo, hi)
+    if gcol == "name":
+        ids = np.unique(arr["name"], return_inverse=True)[1]
+        ng = int(ids.max()) + 1
+    else:
+        ids = np.asarray(arr[gcol])
+    want_cnt = np.bincount(ids[m & (ids < ng)], minlength=ng)[:ng]
+    np.testing.assert_array_equal(got["group_counts"], want_cnt)
+
+
+def test_wrapper_counts_nothing_on_the_cpu(tables):
+    _, port, _ = tables
+    before = ra.range_agg.launches
+    port.dispatch_range_agg("ts", 0, 5000)
+    assert ra.range_agg.launches == before
+
+
+def test_kernel_checks_refuse_what_it_does_not_take():
+    """The wrapper's checks (run before every launch): granule rows a
+    multiple of 4, cap within [1, G], planes of the column's kind."""
+    G, R = 3, 8
+    i = torch.zeros((G, R), dtype=torch.int32)
+    f = torch.zeros((G, R), dtype=torch.float32)
+    gi = torch.zeros(G, dtype=torch.int32)
+    valid = torch.ones((G, R), dtype=torch.bool)
+    ok = dict(filt_is_int=True, agg_is_int=False, num_groups=0, cap=2)
+    assert ra._check((i, i, i), (f,), valid, (gi,) * 3, (gi,) * 3, None,
+                     **ok) == (G, R)
+    bad = [
+        ((i, i, i), (f,), valid[:, :6], (gi,) * 3, (gi,) * 3, None, ok),
+        ((i, i, i), (f,), valid, (gi,) * 3, (gi,) * 3, None,
+         dict(ok, cap=4)),
+        ((f,), (f,), valid, (gi,) * 3, (gi,) * 3, None, ok),
+        ((i, i, i), (i, i, i), valid, (gi,) * 3, (gi,) * 3, None, ok),
+        ((i, i, i), (f,), valid.int(), (gi,) * 3, (gi,) * 3, None, ok),
+        ((i, i, i), (f,), valid, (gi,) * 3, (gi,) * 3, f,
+         dict(ok, num_groups=4)),
+    ]
+    for *args, kw in bad:
+        with pytest.raises(ValueError):
+            ra._check(*args, **kw)
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_on_the_card():
+    """X1 on the card against its plain version (the chip run's check in
+    small): counts, min, max, int sums and granules bit-equal, f32 sums
+    within relative 1e-5, groups as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    arr = _arrays(9000, 4)
+    t = _build(tcol, arr, 512)
+    cpu, gpu = DeviceTable(t, device="cpu"), DeviceTable(t, device="cuda")
+    for col, lo, hi, agg in QUERIES:
+        a = cpu.dispatch_range_agg(col, lo, hi, agg).numpy()
+        b = gpu.dispatch_range_agg(col, lo, hi, agg).cpu().numpy()
+        assert np.array_equal(np.delete(a, 2).view(np.uint32),
+                              np.delete(b, 2).view(np.uint32))
+        assert abs(a[2] - b[2]) <= 1e-5 * abs(a[2])

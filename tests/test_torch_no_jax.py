@@ -51,11 +51,13 @@ def probe():
 
 def test_every_module_is_probed():
     assert "diagon_tpu_torch" in MODULES
-    for name in ("row_sum", "approx_pass", "gather_rescore", "bits_hits"):
+    for name in ("row_sum", "approx_pass", "gather_rescore", "bits_hits",
+                 "range_agg"):
         assert f"diagon_tpu_torch.ops.{name}" in MODULES
     for name in ("search.query", "search.oracle", "index.segment",
                  "codecs.postings", "observability.metrics", "bench.bulk_build",
-                 "native"):
+                 "native", "columnar.engine", "columnar.table",
+                 "bench.columnar"):
         assert f"diagon_tpu_torch.{name}" in MODULES
     assert len(MODULES) >= 25
 

@@ -216,8 +216,8 @@ def test_partitions_and_compact_fallback(seg, oracle):
 
 def test_routing_matches_jax(seg):
     """Which batches take the pruned route ([Q, 2k+2] rows) at the JAX
-    package's knobs, and the one deliberate deviation: small pure-OR
-    batches the JAX package sends to its tile-UB path stay exhaustive."""
+    package's knobs: the same in both packages, small pure-OR batches on
+    the tile-UB route included."""
     port = _port(seg)
     jax_s = JaxSearcher([seg])
     pe = port._ctx("body").row_executors[0]
@@ -245,7 +245,7 @@ def test_routing_matches_jax(seg):
         ex.prune_solo_min_docs = 0
     small = OR_QUERIES[:3]
     assert width(jax_s, je, small) == 2 * K + 2  # JAX: tile-UB path
-    assert width(port, pe, small) == 2 * K + 1  # port: exhaustive
+    assert width(port, pe, small) == 2 * K + 2  # port: tile-UB path
     dup = [OR_QUERIES[1], OR_QUERIES[1], OR_QUERIES[3]]  # forced batch
     assert width(port, pe, dup) == width(jax_s, je, dup) == 2 * K + 2
 
