@@ -1,26 +1,41 @@
 #!/usr/bin/env python3
-"""Time B6 (gather_rescore) and B7 (union_rescore) of this checkout against
-the same wrappers of another checkout of the port, on the tensors the main
-path hands them, in one process on one CUDA card.
+"""Time B6 (gather_rescore), B7 (union_rescore) and X1 (range_agg) of this
+checkout against the same wrappers of another checkout of the port, on the
+same inputs, in one process on one CUDA card.
 
     python3 chip_ab.py OTHER_ROOT
 
 OTHER_ROOT is the root of another checkout, say the parent commit unpacked
 with ``git archive`` into a directory that .gitignore lists. Its
 ``diagon_tpu_torch`` is imported first and its kernels built into its own
-build directory; its wrapper functions keep their modules when the package
-is dropped from ``sys.modules`` and this checkout's is imported. The
-tensors come from chip_smoke.py's own helpers (``main_path_args``): the 1M
-mixed batch's pure-OR subset (B6's) and boolean subset (B7's), the deduped
-1M or20 batch (Q 1, B6) and the 10M mixed batch's phase-1 pure-OR entry
-(B6). Each (wrapper, tensors) must give the same bits in both checkouts,
-and is timed other, this, this, other, each time three ways
-(``chip_smoke.three_ways``: one call, per call of 50, kernel only). It
-imports nothing of JAX or of the JAX package.
+build directory; its wrapper functions and its ``DeviceTable`` keep their
+modules when the package is dropped from ``sys.modules`` and this
+checkout's is imported.
+
+B6 and B7: the tensors come from chip_smoke.py's own helpers
+(``main_path_args``): the 1M mixed batch's pure-OR subset (B6's) and
+boolean subset (B7's), the deduped 1M or20 batch (Q 1, B6) and the 10M
+mixed batch's phase-1 pure-OR entry (B6). Each (wrapper, tensors) must give
+the same bits in both checkouts, and is timed other, this, this, other,
+each time three ways (``chip_smoke.three_ways``: one call, per call of 50,
+kernel only).
+
+X1: columnar_bench.py's table at 1M and 10M rows, loaded by each
+checkout's own ``DeviceTable``; q9_region_range, narrow_ts_agg and the
+bench's group-by through each table's dispatch (the other checkout's
+group-by through its ``_args`` and ``range_agg``, as its
+``range_group_agg`` calls it, without the readback). Both must give the
+same bits, and each is timed other, this, this, other: one call (CUDA
+events), kernel only (32 calls queued behind a device sleep) and chained
+(32 calls, one sync, host clock), us a call.
+
+It imports nothing of JAX or of the JAX package.
 """
 
 import sys
+import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -28,12 +43,15 @@ import chip_smoke as cs
 
 
 def load_other(root):
-    """The other checkout's ops.gather_rescore module, its kernels built."""
+    """The other checkout's gather_rescore and range_agg modules and its
+    DeviceTable, its kernels built."""
     root = Path(root).resolve()
     sys.path.insert(0, str(root))
     try:
+        from diagon_tpu_torch.columnar.engine import DeviceTable
         from diagon_tpu_torch.ops import _build
         from diagon_tpu_torch.ops import gather_rescore as gr
+        from diagon_tpu_torch.ops import range_agg as ra
 
         if Path(gr.__file__).resolve().parents[2] != root:
             raise SystemExit(f"chip_ab: {gr.__file__} is not under {root}")
@@ -43,7 +61,7 @@ def load_other(root):
         for name in [m for m in sys.modules
                      if m.split(".")[0] == "diagon_tpu_torch"]:
             del sys.modules[name]
-    return gr
+    return SimpleNamespace(gr=gr, ra=ra, DeviceTable=DeviceTable)
 
 
 def plans_of(searcher, batch):
@@ -81,6 +99,74 @@ def cases():
     return out
 
 
+def chained(call, n=32, iters=5):
+    """us a call of n chained calls and one sync, the least of iters
+    chains (columnar_bench.py's columnar_q9_device_us method)."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = call()
+        (out[0] if isinstance(out, tuple) else out)[0].item()
+        times.append((time.perf_counter() - t0) / n)
+    return min(times) * 1e6
+
+
+def x1_call(dt, name, kw, ra):
+    """One X1 dispatch of a query through a checkout's table, no readback."""
+    if "group_col" not in kw:
+        return lambda: dt.dispatch_range_agg(**kw)
+    if hasattr(dt, "dispatch_range_group_agg"):
+        return lambda: dt.dispatch_range_group_agg(**kw)
+    args, flags = dt._args(kw["filter_col"], kw["lower"], kw["upper"],
+                           kw["agg_col"])
+    groups = dt.planes[kw["group_col"]][0]
+    goff = dt.offsets[kw["group_col"]]
+    return lambda: ra.range_agg(*args, groups, goff,
+                                num_groups=kw["num_groups"], **flags)
+
+
+def x1_cases(other, smi):
+    """X1 of both checkouts on columnar_bench.py's table at 1M and 10M."""
+    from diagon_tpu_torch.bench.columnar import (
+        GROUP_QUERY,
+        QUERIES,
+        build_table,
+    )
+    from diagon_tpu_torch.columnar import DeviceTable
+    from diagon_tpu_torch.ops import range_agg as this_ra
+
+    queries = [("q9_region_range", QUERIES["q9_region_range"]),
+               ("narrow_ts_agg", QUERIES["narrow_ts_agg"]),
+               ("group region", GROUP_QUERY)]
+    for rows in cs.COLUMNAR_ROWS:
+        table = build_table(rows)
+        tables = {"other": other.DeviceTable(table, device=cs.DEVICE),
+                  "this": DeviceTable(table, device=cs.DEVICE)}
+        mods = {"other": other.ra, "this": this_ra}
+        for name, kw in queries:
+            calls = {side: x1_call(dt, name, kw, mods[side])
+                     for side, dt in tables.items()}
+            got = {side: call() for side, call in calls.items()}
+            torch.cuda.synchronize()
+            if not cs.bits_equal(got["other"], got["this"]):
+                raise AssertionError(f"X1 {rows} {name}: the checkouts differ")
+            times = {"other": [], "this": []}
+            for side in ("other", "this", "this", "other"):
+                call = calls[side]
+                times[side].append((cs.cuda_ms(call) * 1e3,
+                                    cs.queued_ms(call, 32) * 1e3,
+                                    chained(call)))
+            cs.log(f"range_agg {rows // 1_000_000}M {name}: bit-equal; one "
+                   "call / kernel only / chained us, other then this, in run "
+                   "order [" + smi + "]")
+            for side in ("other", "this"):
+                cs.log(f"  {side}: " + "; ".join(
+                    " / ".join(f"{t:.1f}" for t in w) for w in times[side]))
+        del tables, table
+
+
 def main():
     if len(sys.argv) != 2:
         raise SystemExit(__doc__)
@@ -90,8 +176,9 @@ def main():
     smi = cs.phase_device()
     from diagon_tpu_torch.ops import gather_rescore as this
 
+    x1_cases(other, smi)
     for label, name, args in cases():
-        fns = {"other": getattr(other, name), "this": getattr(this, name)}
+        fns = {"other": getattr(other.gr, name), "this": getattr(this, name)}
         got = {side: fn(*args) for side, fn in fns.items()}
         torch.cuda.synchronize()
         if not cs.bits_equal(got["other"], got["this"]):

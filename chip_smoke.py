@@ -117,18 +117,22 @@ script exits non-zero), in the order they run:
    the 10M phase-1 entry and at the deduped 1M or20 batch, Q 1, each
    checked bit for bit, with its bound and embedding_bag's time), B8 at
    the 10M phase-0 entry, B4, B7, and B6 on B7's tensors.
-10. The columnar engine (X1, ``range_agg``) on
+10. The columnar engine (X1, ``range_agg``, one launch a call) on
    benchmarks/columnar_bench.py's table (same columns, distributions and
    seed) at 1,000,000 and 10,000,000 rows (ClickBench's ~100M-row hits
-   table cut for the time limit), through DeviceTable on the card (main
-   path, counted): the bench's six queries through range_agg with
-   host_fast False (X1) and True, and its range_group_agg (region, 4096
-   groups, agg duration), counts exact against the numpy int64 scan; X1
-   against its plain version on each (counts, min, max, granules and int
-   sums bit for bit, f32 sums within relative 1e-5, group counts exact);
-   32 chained dispatch_range_agg calls with no host sync (torch's sync
-   debug mode "error", all enqueued behind a device sleep); per query the
-   branch (pruned or full), chained, kernel-only, one-call and plain
+   table cut for the time limit), with a group column whose ids go below
+   zero, through DeviceTable on the card (main path, counted): the
+   bench's six queries through range_agg with host_fast False (X1) and
+   True, its range_group_agg (region, 4096 groups, agg duration) and one
+   over the negative ids, counts exact against the numpy int64 scan (ids
+   wrapped as the JAX program wraps them); X1 against its plain version on
+   each (counts, min, max, granules and int sums bit for bit, f32 sums
+   within relative 1e-5, group counts exact), through the table's cached
+   launch plans and once through a bare range_agg call; at 1M, one device
+   kernel and no memset a call (torch.profiler); 32 chained
+   dispatch_range_agg calls with no host sync (torch's sync debug mode
+   "error", all enqueued behind a device sleep); per query the branch
+   (pruned or full), the grid, chained, kernel-only, one-call and plain
    times, the bound and the host BULK path's time.
 7. Routes on the same plans: served qps of the mixed cells, the phrase
    batches, 1M or20 and 1M MUST_NOT through the pruned and the exhaustive
@@ -188,6 +192,14 @@ COLUMNAR_ROWS = (1_000_000, 10_000_000)
 # rebuilt and compared twice, the aggregate's adds, min and max): an
 # estimate for its bound, far below its bytes
 X1_OPS_PER_ROW = 16
+# a group column with ids below zero beside columnar_bench's table (seed
+# 12): over 4096 groups, -1 lands in the JAX scatter's cut-off slot,
+# -2..-4097 wrap to 4095..0 and -4200..-4098 are dropped
+# X1's compaction window (granules) and shared group table (groups):
+# csrc/range_agg.cu's kWin and kSmemGroups
+X1_WINDOW, X1_SMEM_GROUPS = 2048, 4096
+GNEG_QUERY = dict(filter_col="event_ts", group_col="gneg", num_groups=4096,
+                  lower=0, upper=1 << 21, agg_col="duration")
 K = 10
 B_TILES = 24  # PRUNE_B0: the main path's tile budget at these sizes
 REL_TOL = 2.0 ** -8  # kernel vs plain tile maxima (two f32 add orders)
@@ -202,8 +214,7 @@ PORT_KERNELS = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
                 "approx_bool_mma_kernel", "approx_bool2_mma_kernel",
                 "pack_indicator_kernel", "gather_rescore_kernel",
                 "union_rescore_kernel", "bits_hits_kernel",
-                "range_skip_kernel", "range_scan_kernel",
-                "range_combine_kernel")
+                "range_agg_kernel")
 # B4's kernel: a batch without MUST_NOT must not launch it (B5 takes those)
 B4_KERNELS = ("approx_bool_mma_kernel",)
 # the kernels of B1-B8 and X1: ptxas must report no spill
@@ -395,7 +406,43 @@ def phase_device():
     if spilled:
         raise AssertionError(f"ptxas spills in B1-B8 or X1 kernels: {spilled}")
     log(f"  ptxas: no spill in {len(checked)} B1-B8 and X1 kernel(s)")
+    x1_sass_atomics(_build)
     return smi
+
+
+def x1_sass_atomics(build):
+    """Read X1's atomics in the built SASS (``cuobjdump -sass``) and log
+    them by kernel; fail unless each of the four group-table kernels
+    (template mode 1) adds its shared f64 sums with the compare-and-swap
+    loop ATOMS.CAST.SPIN.64, as csrc/range_agg.cu's table_add and PERF.md
+    say (the reason a table block prefetches its next quads)."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    lib = next(p for p in build.library_paths() if "range_agg" in p.name)
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    fn, ops = None, {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            fn = fn[fn.find("range_agg_kernel"):] if "range_agg_kernel" in fn else None
+        elif fn and "*/" in line:
+            op = line.split("*/", 1)[1].split()[0:2]
+            op = op[1] if op and op[0].startswith("@") and len(op) > 1 else op[0] if op else ""
+            if op.startswith(("ATOM", "RED")):
+                ops.setdefault(fn, {}).setdefault(op, 0)
+                ops[fn][op] += 1
+    for fn, found in sorted(ops.items()):
+        log(f"  X1 SASS {fn}: " + ", ".join(
+            f"{op} x{n}" for op, n in sorted(found.items())))
+    table = {fn: found for fn, found in ops.items() if "ELi1EE" in fn}
+    if len(table) != 4 or not all("ATOMS.CAST.SPIN.64" in f
+                                  for f in table.values()):
+        raise AssertionError(f"X1's group-table kernels {sorted(table)}: the "
+                             "shared f64 add is no longer the CAS loop "
+                             "ATOMS.CAST.SPIN.64 that range_agg.cu and "
+                             "PERF.md describe")
+    log("  X1 SASS: the shared f64 group add of all four table kernels is "
+        "the CAS loop ATOMS.CAST.SPIN.64")
 
 
 def phase_row_kernels(rs):
@@ -1525,20 +1572,28 @@ def check_range_result(table, kw, res, what):
                              f"{res['granules_scanned']}")
 
 
-def x1_bound(dt, kw, scanned, groups=0):
+def minmax_bytes(dt, filter_col):
+    """Bytes of a filter column's granule minmax planes (min and max, three
+    i32 planes each for an int column, one f32 plane for a float one)."""
+    return 2 * dt.num_granules * 4 * len(dt.planes[filter_col])
+
+
+def x1_bound(dt, kw, scanned, groups):
     """(bound_ms, bound_by) of one X1 call: the planes it must read over
     the scanned granules (filter, aggregate when another column, valid,
-    the group plane), the granule minmax planes and its outputs, over
-    HBM_BYTES_PER_S; and X1_OPS_PER_ROW int operations a scanned row at
-    RATES["logic"]."""
+    the group plane), the filter's granule minmax planes once and its
+    outputs, over HBM_BYTES_PER_S; and X1_OPS_PER_ROW int operations a
+    scanned row at RATES["logic"]. The kernel's own re-reads of the minmax
+    planes (every block tests every granule; ``minmax_bytes`` x grid - 1,
+    from the L2) are its design's overhead, not the function's work, and
+    are logged beside the bound, not counted in it."""
     f = kw["filter_col"]
     a = kw.get("agg_col") or f
     per_row = 4 * len(dt.planes[f]) + 1 + (4 if groups else 0)
     if a != f:
         per_row += 4 * len(dt.planes[a])
     rows = scanned * dt.granule_rows
-    byts = (rows * per_row + 2 * dt.num_granules * 4 * len(dt.planes[f])
-            + 24 + 8 * groups)
+    byts = rows * per_row + minmax_bytes(dt, f) + 24 + 8 * groups
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = rows * X1_OPS_PER_ROW / RATES["logic"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1604,21 +1659,149 @@ def no_sync_chain(dt, kw, n=32):
     return host / n * 1e6
 
 
+def gneg_column(rows):
+    """GNEG_QUERY's group column: ids in [-4200, 4095] (seed 12)."""
+    from diagon_tpu_torch.columnar import Int64Column
+
+    return Int64Column(np.random.default_rng(12).integers(-4200, 4096, rows))
+
+
+def jax_group_slots(ids, num_groups):
+    """The JAX group block's index rule (a scatter into num_groups + 1
+    slots, mode "drop", the last cut off) in numpy: -1 where a row adds to
+    no group."""
+    n = num_groups
+    ids = np.where((ids >= -(n + 1)) & (ids <= -2), ids + n + 1, ids)
+    return np.where((ids >= 0) & (ids < n), ids, -1)
+
+
+def check_group_result(table, kw, grp, what):
+    """Group counts exact and group sums within relative 1e-5 of the numpy
+    scan (f32 values summed in f64), ids mapped as the JAX program maps
+    them."""
+    m = range_mask(table, kw)
+    ng = kw["num_groups"]
+    ids = jax_group_slots(table.columns[kw["group_col"]].values[m], ng)
+    dur = table.columns[kw["agg_col"]].values[m].astype(np.float32)
+    keep = ids >= 0
+    if not np.array_equal(grp["group_counts"].astype(np.int64),
+                          np.bincount(ids[keep], minlength=ng)):
+        raise AssertionError(f"{what}: group counts != numpy")
+    want = np.bincount(ids[keep], weights=dur[keep].astype(np.float64),
+                       minlength=ng)
+    if not np.allclose(grp["group_sums"], want, rtol=1e-5, atol=0):
+        raise AssertionError(f"{what}: group sums != numpy")
+
+
+def x1_device_work(calls, reps=2):
+    """The device work of X1 calls under torch.profiler: each call of
+    ``calls`` run ``reps`` times, then {device row name: count}. The launch
+    plans must exist already (a plan's first call allocates its scratch
+    zeroed, a fill kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def one_launch_a_call(calls, tag):
+    """Each X1 call is one device kernel and no memset: torch.profiler must
+    record exactly one range_agg_kernel row a call and no other row."""
+    work = x1_device_work(calls)
+    if not work:  # the profiler recorded no device row: ask once more
+        work = x1_device_work(calls)
+    n = 2 * len(calls)
+    kern = sum(c for k, c in work.items() if "range_agg_kernel" in k)
+    other = {k: c for k, c in work.items() if "range_agg_kernel" not in k}
+    if kern != n or other:
+        raise AssertionError(f"{tag}: {n} X1 calls ran {kern} X1 kernels "
+                             f"and {other} (memsets included) on the card")
+    log(f"  {tag}: {n} X1 calls, {kern} device kernels, no memset and no "
+        f"other device work (torch.profiler)")
+
+
+def x1_args(dt, kw):
+    """A query (``group_col`` and ``num_groups`` for a group-by) as X1's
+    arguments through ``dt``'s planes: (the query without its group keys,
+    the planes and bounds, the group plane and offset or (), the flags)."""
+    q = {k: v for k, v in kw.items() if k not in ("group_col", "num_groups")}
+    args, flags = dt._args(q["filter_col"], q.get("lower"), q.get("upper"),
+                           q.get("agg_col"))
+    extra = ()
+    if "group_col" in kw:
+        extra = (dt.planes[kw["group_col"]][0], dt.offsets[kw["group_col"]])
+        flags = dict(flags, num_groups=kw["num_groups"])
+    return q, args, extra, flags
+
+
+def x1_wide_shapes(ra, table, dt, smi):
+    """X1 against its plain version, bit for bit as x1_equals_plain holds
+    it, on the two paths the bench's shapes do not reach: more granules
+    than one compaction window (``table`` re-cut into granules of 256
+    rows: 3,907 at 1M, a counting pass and two windows) under the six
+    queries and the group-bys, and more groups than the shared table holds
+    (GNEG_QUERY over 6,000 groups: global adds, ids -2..-4200 wrapped) on
+    that table and on ``dt``."""
+    from diagon_tpu_torch.bench.columnar import GROUP_QUERY, QUERIES
+    from diagon_tpu_torch.columnar import ColumnarTable, DeviceTable
+
+    fine = ColumnarTable(granule_rows=256)
+    for name, col in table.columns.items():
+        fine.add_column(name, col, minmax=name in table.minmax)
+    dt256 = DeviceTable(fine, device=DEVICE)
+    wide = dict(GNEG_QUERY, num_groups=6000)
+    if dt256.num_granules <= X1_WINDOW or wide["num_groups"] <= X1_SMEM_GROUPS:
+        raise AssertionError("x1_wide_shapes: the shapes miss the windowed "
+                             "compaction or the global group adds")
+    specs = list(QUERIES.items()) + [("group region", GROUP_QUERY),
+                                     ("group gneg", GNEG_QUERY),
+                                     ("group gneg 6000", wide)]
+    for d, names in ((dt256, specs), (dt, specs[-1:])):
+        seen = []
+        for name, kw in names:
+            _, args, extra, flags = x1_args(d, kw)
+            if extra:
+                got = d.dispatch_range_group_agg(**kw)
+            else:
+                got = d.dispatch_range_agg(**kw)
+            want = ra.range_agg_reference(*args, *extra, **flags)
+            x1_equals_plain(got, want, flags["agg_is_int"],
+                            f"{d.num_granules} granules {name}")
+            seen.append(f"{name} {int((got[0] if extra else got)[5])}")
+        log(f"  X1 at {d.num_granules} granules of {d.granule_rows} rows "
+            f"equals its plain version bit for bit (granules scanned: "
+            f"{', '.join(seen)}) [{smi}]")
+    del dt256, fine
+
+
 def phase_columnar(ra, counts, smi):
     """columnar_bench.py's table (its columns, distributions and seed 11)
     at 1,000,000 rows and at 10,000,000 (ClickBench's ~100M-row hits table
-    cut for the time limit), through DeviceTable on the card. Counted as
-    main path: each of columnar_bench's six queries through range_agg with
-    host_fast False (X1) and True (the metadata BULK path where it
-    applies), and the bench's range_group_agg (region, 4096 groups, agg
-    duration); results against the numpy scan (counts exact). Uncounted:
-    X1 against its plain version on every query and the group query; 32
-    chained dispatch_range_agg calls with no host sync; per query its
-    branch (pruned: the kept granules <= cap), chained us (the bench's
-    columnar_q9_device_us method), kernel-only us (queued behind a device
-    sleep), one-call and plain ms, the bound and the host path's us.
-    Returns the main path's launches, the largest X1 - plain difference
-    and X1's record at the 10M q9_region_range (the bench's headline)."""
+    cut for the time limit), through DeviceTable on the card, with one
+    more column: GNEG_QUERY's group ids, below zero for part of the rows.
+    Counted as main path: each of columnar_bench's six queries through
+    range_agg with host_fast False (X1) and True (the metadata BULK path
+    where it applies), the bench's range_group_agg (region, 4096 groups,
+    agg duration) and GNEG_QUERY's; results against the numpy scan (counts
+    exact, group ids mapped as the JAX program maps them). Uncounted: X1
+    against its plain version on every query and both group queries,
+    through the table's cached launch plans and once through a bare
+    ``range_agg`` call; at 1M, under torch.profiler, one device kernel and
+    no memset a call, and ``x1_wide_shapes`` (over 2,048 granules, over
+    4,096 groups); 32 chained dispatch_range_agg calls with no host
+    sync; per query its branch (pruned: the kept granules <= cap; the
+    kernel scans the kept granules either way), the grid, chained us (the
+    bench's columnar_q9_device_us method), kernel-only us (queued behind a
+    device sleep), one-call and plain ms, the bound and the host path's
+    us. Returns the main path's launches, the largest X1 - plain
+    difference and X1's record at the 10M q9_region_range (the bench's
+    headline)."""
     from diagon_tpu_torch.bench.columnar import (
         GROUP_QUERY,
         QUERIES,
@@ -1628,10 +1811,12 @@ def phase_columnar(ra, counts, smi):
 
     log("phase 10: columnar range aggregates (X1)")
     launches, err, record = 0, 0.0, None
+    groups = {"group region": GROUP_QUERY, "group gneg": GNEG_QUERY}
     for rows in COLUMNAR_ROWS:
         tag = f"{rows // 1_000_000}M"
         t0 = time.perf_counter()
         table = build_table(rows)
+        table.add_column("gneg", gneg_column(rows))
         t_build = time.perf_counter() - t0
         t0 = time.perf_counter()
         dt = DeviceTable(table, device=DEVICE)
@@ -1647,7 +1832,7 @@ def phase_columnar(ra, counts, smi):
         results = {name: (dt.range_agg(**kw, host_fast=False),
                           dt.range_agg(**kw))
                    for name, kw in QUERIES.items()}
-        grp = dt.range_group_agg(**GROUP_QUERY)
+        grp = {name: dt.range_group_agg(**kw) for name, kw in groups.items()}
         n = counts.read()["range_agg"] - before
         if n < 1:
             raise AssertionError(f"{tag} columnar: X1 never launched")
@@ -1656,51 +1841,54 @@ def phase_columnar(ra, counts, smi):
             dev, fast = results[name]
             check_range_result(table, kw, dev, f"{tag} {name} device")
             check_range_result(table, kw, fast, f"{tag} {name} host_fast")
-        m = range_mask(table, GROUP_QUERY)
-        region = table.columns["region"].values[m]
-        dur = table.columns["duration"].values[m].astype(np.float32)
-        if not np.array_equal(grp["group_counts"].astype(np.int64),
-                              np.bincount(region, minlength=4096)):
-            raise AssertionError(f"{tag} group counts != numpy")
-        want = np.bincount(region, weights=dur.astype(np.float64),
-                           minlength=4096)
-        if not np.allclose(grp["group_sums"], want, rtol=1e-5, atol=0):
-            raise AssertionError(f"{tag} group sums != numpy")
+        for name, kw in groups.items():
+            check_group_result(table, kw, grp[name], f"{tag} {name}")
         log(f"  {tag}: six queries (host_fast False and True) and the "
-            f"group-by ({grp['count']} rows, {grp['granules_scanned']} "
-            f"granules) equal the numpy scan; {n} X1 launches")
+            f"group-bys ({grp['group region']['count']} rows, "
+            f"{grp['group region']['granules_scanned']} granules; ids below "
+            f"zero wrapped as the JAX program does) equal the numpy scan; "
+            f"{n} X1 launches")
 
-        specs = list(QUERIES.items()) + [("group region", GROUP_QUERY)]
+        specs = list(QUERIES.items()) + list(groups.items())
+        calls = {}
         for name, kw in specs:
-            q = {k: v for k, v in kw.items()
-                 if k not in ("group_col", "num_groups")}
-            args, flags = dt._args(q["filter_col"], q.get("lower"),
-                                   q.get("upper"), q.get("agg_col"))
-            extra, ng = (), 0
-            if name.startswith("group"):
-                ng = kw["num_groups"]
-                extra = (dt.planes[kw["group_col"]][0],
-                         dt.offsets[kw["group_col"]])
-                flags = dict(flags, num_groups=ng)
-
-            def call():
-                return ra.range_agg(*args, *extra, **flags)
-
+            if name in groups:
+                calls[name] = (lambda kw=kw: dt.dispatch_range_group_agg(**kw))
+            else:
+                calls[name] = (lambda kw=kw: dt.dispatch_range_agg(**kw))
+        if rows == COLUMNAR_ROWS[0]:
+            counts.uncounted(one_launch_a_call, list(calls.values()), tag)
+        for name, kw in specs:
+            q, args, extra, flags = x1_args(dt, kw)
+            ng = flags.get("num_groups", 0)
+            call = calls[name]
             got = counts.uncounted(call)
             want = ra.range_agg_reference(*args, *extra, **flags)
             err = max(err, x1_equals_plain(got, want, flags["agg_is_int"],
                                            f"{tag} {name}"))
+            if name in ("q9_region_range", "group region"):  # a bare call
+                bare = counts.uncounted(
+                    lambda: ra.range_agg(*args, *extra, **flags))
+                x1_equals_plain(bare, want, flags["agg_is_int"],
+                                f"{tag} {name} bare range_agg")
             scanned = int((got[0] if extra else got)[5])
             branch = "pruned" if scanned <= dt.cap else "full"
+            grid = dt._plan(q["filter_col"], q.get("agg_col"),
+                            kw.get("group_col"), ng)[1].grid
             ms = counts.uncounted(cuda_ms, call)
             kern = counts.uncounted(queued_ms, call, 32)
             plain = cuda_ms(lambda: ra.range_agg_reference(
                 *args, *extra, **flags), reps=5, warmup=1)
             b_ms, b_by = x1_bound(dt, q, scanned, ng)
+            reread = (grid - 1) * minmax_bytes(dt, q["filter_col"])
             line = (f"  {tag} {name}: {branch} ({scanned}/{dt.num_granules}"
-                    f" granules); one call {ms * 1e3:.1f} us, kernel only "
-                    f"{kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound "
-                    f"{b_ms * 1e3:.1f} us by {b_by}")
+                    f" granules), grid {grid}; one call {ms * 1e3:.1f} us, "
+                    f"kernel only {kern * 1e3:.1f} us, plain "
+                    f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us by "
+                    f"{b_by}; overhead beyond the bound: minmax re-read "
+                    f"{reread / 1e6:.2f} MB by the other blocks, "
+                    f"{reread / HBM_BYTES_PER_S * 1e6:.2f} us at the HBM "
+                    f"rate (the L2 serves them)")
             if not extra:
                 line += (f"; chained {counts.uncounted(chained_us, dt, q):.1f}"
                          " us a query (32 dispatches, one sync)")
@@ -1714,11 +1902,13 @@ def phase_columnar(ra, counts, smi):
             if rows == COLUMNAR_ROWS[-1] and name == "q9_region_range":
                 record = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                           "bound_by": b_by, "library_ms": None}
+        if rows == COLUMNAR_ROWS[0]:
+            counts.uncounted(x1_wide_shapes, ra, table, dt, smi)
         host_us = counts.uncounted(no_sync_chain, dt, QUERIES["wide_ts_agg"])
         log(f"  {tag}: 32 chained dispatch_range_agg calls, no host sync "
             f"(sync debug mode 'error'; all enqueued behind a device sleep), "
             f"{host_us:.1f} us of host a call")
-        del dt, table, results, grp
+        del dt, table, results, grp, calls
     return launches, err, record
 
 

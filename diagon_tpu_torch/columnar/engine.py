@@ -5,12 +5,13 @@ The reference's 3-level granule evaluation (``ColumnarStore.h:1-47``:
 SKIP / BULK / decompress+scan):
 
 - **SKIP that saves device memory traffic**: a range predicate first
-  evaluates against the per-granule minmax arrays; the surviving granule
-  ids compact on the device into at most ``cap`` slots and only those
-  granules are scanned. When more than ``cap`` survive, the full scan runs
-  instead. Both are decided on the device by kernel X1
-  (``ops/range_agg.py``, ``csrc/range_agg.cu``), so ``dispatch_range_agg``
-  never waits for the card and a serving loop can chain queries.
+  evaluates against the per-granule minmax arrays, the surviving granule
+  ids compact on the device, and only those granules are scanned (the JAX
+  program's pruned and full branches count the same rows). Kernel X1
+  (``ops/range_agg.py``, ``csrc/range_agg.cu``) does all of it in one
+  launch from a launch plan the table caches per query shape and stream,
+  so ``dispatch_range_agg`` never waits for the card and a serving loop can
+  chain queries.
 - **Exact int64 predicates**: integer columns ride as three 16-bit i32
   planes (offset-encoded, so any int64 column whose value range fits 48
   bits compares exactly); counts are exact, as are min and max.
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from diagon_tpu_torch.columnar.table import ColumnarTable, MinMaxIndex
-from diagon_tpu_torch.ops.range_agg import range_agg as _range_agg
+from diagon_tpu_torch.ops.range_agg import RangeAggPlan
 
 _PLANE = 16  # bits per integer plane
 _PMASK = (1 << _PLANE) - 1
@@ -50,16 +51,10 @@ def _int_planes(values: np.ndarray, offset: int) -> np.ndarray:
     )
 
 
-def _bound_planes(bound: int) -> np.ndarray:
-    u = np.uint64(bound)
-    return np.asarray(
-        [
-            np.int32(u & np.uint64(_PMASK)),
-            np.int32((u >> np.uint64(_PLANE)) & np.uint64(_PMASK)),
-            np.int32((u >> np.uint64(2 * _PLANE)) & np.uint64(_PMASK)),
-        ],
-        np.int32,
-    )
+def _bound_planes(bound: int) -> Tuple[int, int, int]:
+    """A bound in [0, 2^48) as its three 16-bit planes."""
+    return (bound & _PMASK, (bound >> _PLANE) & _PMASK,
+            (bound >> (2 * _PLANE)) & _PMASK)
 
 
 class DeviceTable:
@@ -98,6 +93,12 @@ class DeviceTable:
         valid = np.zeros((G, R), dtype=bool)
         valid.reshape(-1)[: self.num_rows] = True
         self.valid = dev(valid)
+        # X1's launch plans, by (filter, aggregate, group column,
+        # num_groups, stream): the planes' pointers, checked once, and the
+        # plan's scratch
+        self._plans: Dict[tuple, RangeAggPlan] = {}
+        self._index = (self.valid.get_device() if self.device.type == "cuda"
+                       else None)
 
         # host-side state for the metadata BULK fast path (the reference's
         # SKIP/BULK levels answer metadata-decidable queries with no data
@@ -162,7 +163,7 @@ class DeviceTable:
 
     # -- bounds ----------------------------------------------------------
     def _bounds(self, name, lower, upper):
-        """Host bounds for X1: i32 [3] planes, or f32 [1]."""
+        """Host bounds for X1: three 16-bit planes, or one f32."""
         if name in self.dicts:
             uniq = self.dicts[name]
 
@@ -188,9 +189,9 @@ class DeviceTable:
                 # encode as lo > hi via planes (1, 0)
                 return _bound_planes(1), _bound_planes(0)
             return _bound_planes(lo), _bound_planes(hi)
-        lo = -np.inf if lower is None else float(lower)
-        hi = np.inf if upper is None else float(upper)
-        return np.asarray([lo], np.float32), np.asarray([hi], np.float32)
+        lo = -np.inf if lower is None else lower
+        hi = np.inf if upper is None else upper
+        return (np.float32(lo),), (np.float32(hi),)
 
     def _mm(self, name):
         mm = self.minmax.get(name)
@@ -361,6 +362,8 @@ class DeviceTable:
 
     # -- queries ---------------------------------------------------------
     def _args(self, filter_col, lower, upper, agg_col):
+        """X1's arguments for a query (``ops.range_agg.range_agg``'s
+        order) and its flags."""
         filt = self.planes[filter_col]
         agg = self.planes[agg_col] if agg_col else filt
         gmin, gmax = self._mm(filter_col)
@@ -372,12 +375,41 @@ class DeviceTable:
         )
         return (filt, agg, self.valid, gmin, gmax, blo, bhi), flags
 
+    def _plan(self, filter_col, agg_col=None, group_col=None, num_groups=0):
+        """(key, X1's launch plan) of a query shape on the current stream,
+        made on its first use."""
+        stream = (None if self._index is None
+                  else torch._C._cuda_getCurrentRawStream(self._index))
+        key = (filter_col, agg_col, group_col, num_groups, stream)
+        plan = self._plans.get(key)
+        if plan is None:
+            (filt, agg, valid, gmin, gmax, _, _), flags = self._args(
+                filter_col, None, None, agg_col)
+            groups, goff = None, 0
+            if group_col is not None:
+                groups = self.planes[group_col][0]
+                # the low plane plus the column's offset is the value
+                goff = self.offsets[group_col] if self.is_int[group_col] \
+                    else 0
+            plan = self._plans[key] = RangeAggPlan(
+                filt, agg, valid, gmin, gmax, groups, goff,
+                num_groups=num_groups, **flags)
+        return key, plan
+
+    def _run(self, key, plan, blo, bhi):
+        try:
+            return plan(blo, bhi)
+        except RuntimeError:
+            # a failed launch may leave the plan's scratch dirty
+            self._plans.pop(key, None)
+            raise
+
     def dispatch_range_agg(self, filter_col, lower=None, upper=None,
                            agg_col: Optional[str] = None):
         """Enqueue; returns the device vector f32 [6] = [cnt_lo, cnt_hi,
         sum, min, max, granules_scanned], with no host sync (chainable)."""
-        args, flags = self._args(filter_col, lower, upper, agg_col)
-        return _range_agg(*args, **flags)
+        blo, bhi = self._bounds(filter_col, lower, upper)
+        return self._run(*self._plan(filter_col, agg_col), blo, bhi)
 
     def _decode(self, fused, agg_col):
         cnt = int(fused[0]) + (int(fused[1]) << _PLANE)
@@ -433,7 +465,7 @@ class DeviceTable:
             filter_col, lower, upper, agg_col).cpu().numpy()
         return self._decode(fused, agg_col or filter_col)
 
-    def range_group_agg(
+    def dispatch_range_group_agg(
         self,
         filter_col: str,
         group_col: str,
@@ -442,8 +474,8 @@ class DeviceTable:
         upper=None,
         agg_col: Optional[str] = None,
     ):
-        """Per-group count/sum for a small-cardinality int or
-        dictionary-encoded string group column."""
+        """Enqueue; returns (the fused f32 [6], (group counts, group sums)
+        f32 [num_groups]) on the device, with no host sync."""
         if num_groups is None:
             if group_col in self.dicts:
                 num_groups = len(self.dicts[group_col])
@@ -457,12 +489,23 @@ class DeviceTable:
                 f"string group-by cardinality {len(self.dicts[group_col])} "
                 f"exceeds {_PMASK}"
             )
-        groups = self.planes[group_col][0]
-        # the low plane plus the column's offset is the value
-        goff = self.offsets[group_col] if self.is_int[group_col] else 0
-        args, flags = self._args(filter_col, lower, upper, agg_col)
-        fused, (gcnt, gsum) = _range_agg(
-            *args, groups, goff, num_groups=num_groups, **flags)
+        blo, bhi = self._bounds(filter_col, lower, upper)
+        return self._run(*self._plan(filter_col, agg_col, group_col,
+                                     num_groups), blo, bhi)
+
+    def range_group_agg(
+        self,
+        filter_col: str,
+        group_col: str,
+        num_groups: Optional[int] = None,
+        lower=None,
+        upper=None,
+        agg_col: Optional[str] = None,
+    ):
+        """Per-group count/sum for a small-cardinality int or
+        dictionary-encoded string group column."""
+        fused, (gcnt, gsum) = self.dispatch_range_group_agg(
+            filter_col, group_col, num_groups, lower, upper, agg_col)
         fused = fused.cpu().numpy()
         agg_name = agg_col or filter_col
         aoff = self.offsets.get(agg_name, 0) if self.is_int.get(agg_name) \

@@ -36,7 +36,6 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
-_F = ctypes.c_float
 # launcher name -> argtypes (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "diagon_row_sum": [_P, _P, _P, _P, _P, _I, _I, _I64, _I, _P],
@@ -47,8 +46,8 @@ _SIGNATURES = {
     "diagon_gather_rescore": [_P] * 5 + [_I] * 5 + [_P],
     "diagon_union_rescore": [_P] * 5 + [_I] * 7 + [_P],
     "diagon_bits_hits": [_P] * 5 + [_I, _I64] + [_I] * 6 + [_P],
-    "diagon_range_agg": ([_P] * 13 + [_I64, _I64, _F, _F, _P, _I, _I]
-                         + [_P] * 6 + [_I] * 5 + [_P]),
+    "diagon_range_agg": [_P, _P],  # a pointer to X1Args, the stream
+    "diagon_range_agg_grid": [_I, _I, _I64, _P],
 }
 
 _lib = None

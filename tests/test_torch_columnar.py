@@ -186,6 +186,7 @@ def _arrays(n, seed):
         "grp": rng.integers(0, 16, n),
         "grp2": rng.integers(100, 116, n),  # group ids past an offset
         "name": [f"k{int(i)}" for i in rng.integers(0, 60, n)],
+        "gneg": rng.integers(-20, 12, n),  # group ids below zero
     }
 
 
@@ -312,6 +313,8 @@ def test_host_fast_agg_equals_jax(tables, q):
     ("ts", "grp", 9, None, None, "neg"),  # ids 9-15 dropped
     ("ts", "grp2", 120, 0, 1 << 19, "price"),  # ids = low plane + offset
     ("ts", "name", None, 0, 1 << 19, "price"),  # dictionary codes
+    # -1 to the cut-off slot, -2..-17 wrap to 15..0, -18..-20 dropped
+    ("ts", "gneg", 16, 0, 1 << 19, "price"),
 ], ids=lambda s: f"{s[0]}-{s[1]}-{s[2]}")
 def test_group_agg_equals_jax(tables, spec):
     arr, port, jax_t = tables
@@ -331,8 +334,38 @@ def test_group_agg_equals_jax(tables, spec):
         ng = int(ids.max()) + 1
     else:
         ids = np.asarray(arr[gcol])
-    want_cnt = np.bincount(ids[m & (ids < ng)], minlength=ng)[:ng]
+    ids = _jax_slots(ids, ng)
+    want_cnt = np.bincount(ids[m & (ids >= 0)], minlength=ng)[:ng]
     np.testing.assert_array_equal(got["group_counts"], want_cnt)
+
+
+def _jax_slots(ids, ng):
+    """numpy twin of the JAX scatter's index rule (num_groups + 1 slots,
+    mode "drop", the last cut off): -1 where a row adds to no group."""
+    ids = np.where((ids >= -(ng + 1)) & (ids <= -2), ids + ng + 1, ids)
+    return np.where((ids >= 0) & (ids < ng), ids, -1)
+
+
+@pytest.mark.parametrize("N", [1, 2, 5, 16])
+def test_group_block_wraps_ids_as_the_jax_scatter(N):
+    """The plain ``_group_block`` against JAX's own scatter into N + 1
+    slots with mode "drop", ids -(N+2)..N+1: counts bit-equal, sums within
+    f32 rounding (f64 sums rounded once against f32 adds)."""
+    import jax.numpy as jnp
+
+    ids = np.arange(-(N + 2), N + 2, dtype=np.int32)
+    vals = np.random.default_rng(N).random(len(ids)).astype(np.float32)
+    want_cnt = np.asarray(
+        jnp.zeros(N + 1).at[ids].add(1.0, mode="drop")[:N])
+    want_sum = np.asarray(
+        jnp.zeros(N + 1).at[ids].add(jnp.asarray(vals), mode="drop")[:N])
+    rmask = torch.ones(len(ids), dtype=torch.bool)
+    cnt, s = ra._group_block(rmask, torch.from_numpy(ids),
+                             (torch.from_numpy(vals),), False, N)
+    np.testing.assert_array_equal(cnt.numpy(), want_cnt)
+    np.testing.assert_allclose(s.numpy(), want_sum, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(
+        ra.group_slots(torch.from_numpy(ids), N).numpy(), _jax_slots(ids, N))
 
 
 def test_wrapper_counts_nothing_on_the_cpu(tables):
@@ -372,15 +405,29 @@ def test_kernel_checks_refuse_what_it_does_not_take():
 def test_kernel_equals_plain_on_the_card():
     """X1 on the card against its plain version (the chip run's check in
     small): counts, min, max, int sums and granules bit-equal, f32 sums
-    within relative 1e-5, groups as above."""
+    within relative 1e-5, groups as above; at 18 granules and at 2,250
+    (more than one compaction window of 2,048), with groups in the shared
+    table (16) and past it (5,000, global adds)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     arr = _arrays(9000, 4)
-    t = _build(tcol, arr, 512)
-    cpu, gpu = DeviceTable(t, device="cpu"), DeviceTable(t, device="cuda")
-    for col, lo, hi, agg in QUERIES:
-        a = cpu.dispatch_range_agg(col, lo, hi, agg).numpy()
-        b = gpu.dispatch_range_agg(col, lo, hi, agg).cpu().numpy()
-        assert np.array_equal(np.delete(a, 2).view(np.uint32),
-                              np.delete(b, 2).view(np.uint32))
-        assert abs(a[2] - b[2]) <= 1e-5 * abs(a[2])
+    for granule_rows in (512, 4):
+        t = _build(tcol, arr, granule_rows)
+        cpu, gpu = DeviceTable(t, device="cpu"), DeviceTable(t, device="cuda")
+        for col, lo, hi, agg in QUERIES:
+            a = cpu.dispatch_range_agg(col, lo, hi, agg).numpy()
+            b = gpu.dispatch_range_agg(col, lo, hi, agg).cpu().numpy()
+            assert np.array_equal(np.delete(a, 2).view(np.uint32),
+                                  np.delete(b, 2).view(np.uint32))
+            assert abs(a[2] - b[2]) <= 1e-5 * abs(a[2])
+        # group ids below zero: wrapped as the JAX scatter does
+        for ng in (16, 5000):
+            (a, (ac, asum)) = cpu.dispatch_range_group_agg(
+                "ts", "gneg", ng, 0, 1 << 19, "price")
+            (b, (bc, bsum)) = gpu.dispatch_range_group_agg(
+                "ts", "gneg", ng, 0, 1 << 19, "price")
+            assert np.array_equal(a.numpy()[[0, 1, 5]],
+                                  b.cpu().numpy()[[0, 1, 5]])
+            assert np.array_equal(ac.numpy(), bc.cpu().numpy())
+            np.testing.assert_allclose(bsum.cpu().numpy(), asum.numpy(),
+                                       rtol=1e-5, atol=0)
