@@ -62,7 +62,15 @@ script exits non-zero), in the order they run:
    whole batch the pruned route's finalize equals the exhaustive route's
    bit for bit. Solo phrase latency, and the phrase batch's plans built
    cold under torch.profiler (host against device time).
-5. Scale at 1,000,000 docs (main path, counted): mixed 1024 (B3, B5, B6,
+5. Scale at 1,000,000 docs, served from disk (main path, counted): the
+   built segment goes through the store tier (write_segment into a
+   temporary FSDirectory with a segments_1 commit, DirectoryReader.open
+   with verify_checksums; every postings array and the norms equal to the
+   built segment's, dtypes included, the positions still undecoded, and
+   equal to the built ones after their first decode), and the searcher
+   serves the loaded segment; set-up seconds of the write, the open (mmap
+   and header; and with the checksums), the first position decode and the
+   device load. Then mixed 1024 (B3, B5, B6,
    B7), or20 x 1024 (dedups to Q = 1, forced onto the batch route:
    B3 + B6), a 1024-query MUST_NOT batch over the segment's frequent
    terms (B4, B7), then the positions' decode and upload (seconds,
@@ -128,7 +136,14 @@ script exits non-zero), in the order they run:
    wrapped as the JAX program wraps them); X1 against its plain version on
    each (counts, min, max, granules and int sums bit for bit, f32 sums
    within relative 1e-5, group counts exact), through the table's cached
-   launch plans and once through a bare range_agg call; at 1M, one device
+   launch plans and once through a bare range_agg call. The 1M table is
+   served as read back from disk (write_table with the default chain,
+   read_table with verify_checksums; every column and the minmax and bloom
+   indexes equal to the built table's; every query's answer bit-equal to
+   the built table's); the 10M table stays in memory. At 1M, X1 also
+   against its plain version on a float column with NaN rows (aggregate,
+   filter and group sums; NaN compared as NaN) and at granule sizes 1,001
+   and 10, not multiples of 4. At 1M, one device
    kernel and no memset a call (torch.profiler); 32 chained
    dispatch_range_agg calls with no host sync (torch's sync debug mode
    "error", all enqueued behind a device sleep); per query the branch
@@ -161,10 +176,13 @@ import sys
 sys.modules["jax"] = None
 sys.modules["diagon_tpu"] = None
 
+import atexit  # noqa: E402
 import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -1012,8 +1030,97 @@ def pruned_equals_exhaustive(ex, counts, plans, label, pruned, want=None):
     return want
 
 
-def load_searcher(n_docs, **kw):
-    """A built segment and its searcher on the card; seconds of both."""
+def scratch_dir():
+    """A temporary directory, removed when the script exits."""
+    tmp = tempfile.TemporaryDirectory(prefix="diagon_smoke_")
+    atexit.register(tmp.cleanup)
+    return Path(tmp.name)
+
+
+def same_array(what, got, want):
+    """Equal dtypes, shapes and values, or an AssertionError."""
+    if got.dtype != want.dtype or not np.array_equal(got, want):
+        raise AssertionError(f"{what}: the loaded array ({got.dtype}, "
+                             f"{got.shape}) != the built one ({want.dtype}, "
+                             f"{want.shape})")
+
+
+def segment_from_disk(seg, smi):
+    """``seg`` through the store tier: write_segment into a temporary
+    FSDirectory with a ``segments_1`` commit (SegmentInfos and _gen_name; no
+    IndexWriter), then DirectoryReader.open, timed without and with
+    verify_checksums (the reader kept is the verified one). Every postings
+    array and the norms are checked equal to the built segment's, dtypes
+    included (the file narrows some; the reader rebuilds them); the
+    positions must still be undecoded (``positions_equal`` checks them after
+    their first decode). Returns (reader, seconds by step)."""
+    from diagon_tpu_torch.codecs.postings import PackedPostings
+    from diagon_tpu_torch.index import (
+        DirectoryReader,
+        SegmentInfo,
+        SegmentInfos,
+    )
+    from diagon_tpu_torch.index.writer import _gen_name
+    from diagon_tpu_torch.store import FSDirectory, write_segment
+
+    d = FSDirectory(scratch_dir())
+    t0 = time.perf_counter()
+    files = write_segment(d, seg)
+    infos = SegmentInfos(generation=1, counter=1,
+                         segments=[SegmentInfo(seg.name, seg.num_docs, files)])
+    d.write_bytes(_gen_name(1), json.dumps(infos.to_json()).encode())
+    secs = {"write": time.perf_counter() - t0}
+    size = sum(d.file_length(f) for f in d.list_files())
+    t0 = time.perf_counter()
+    DirectoryReader.open(d)
+    secs["open"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reader = DirectoryReader.open(d, verify_checksums=True)
+    secs["open_verified"] = time.perf_counter() - t0
+    (loaded,) = reader.segments_data()
+    if (loaded.num_docs, list(loaded.fields)) != (seg.num_docs,
+                                                   list(seg.fields)):
+        raise AssertionError("the loaded segment's docs or fields differ")
+    skip = ("pos_start", "positions", "pos_loader")
+    for name, fd in seg.fields.items():
+        lf = loaded.fields[name]
+        same_array(f"{name} norms", lf.norms, fd.norms)
+        for f in dataclasses.fields(PackedPostings):
+            a, b = getattr(lf.postings, f.name), getattr(fd.postings, f.name)
+            if f.name in skip:
+                continue
+            if isinstance(b, np.ndarray):
+                same_array(f"{name} {f.name}", a, b)
+            elif a != b:
+                raise AssertionError(f"{name} {f.name}: {a!r} != {b!r}")
+        if fd.postings.has_positions and lf.postings.pos_start is not None:
+            raise AssertionError(f"{name}: positions decoded at open")
+    log(f"  index on disk: write_segment + segments_1 {secs['write']:.2f} s "
+        f"({size / 2**20:.1f} MiB in {len(d.list_files())} files); "
+        f"DirectoryReader.open (mmap and header) {secs['open']:.3f} s, with "
+        f"verify_checksums {secs['open_verified']:.2f} s; every postings "
+        f"array and the norms equal the built segment's, dtypes included; "
+        f"positions still undecoded [{smi}]")
+    return reader, secs
+
+
+def positions_equal(built, loaded, name="body"):
+    """The loaded segment's positions of field ``name`` (the phrase path's),
+    decoded by its first phrase use, equal the built segment's."""
+    pb, pl = built.fields[name].postings, loaded.fields[name].postings
+    if pl.pos_start is None:
+        raise AssertionError(f"{name}: the positions were never decoded")
+    same_array(f"{name} pos_start", pl.pos_start, pb.pos_start)
+    same_array(f"{name} positions", pl.positions, pb.positions)
+    log(f"  the loaded {name} positions equal the built segment's")
+
+
+def load_searcher(n_docs, disk=None, **kw):
+    """A built segment and its searcher on the card; seconds of both. With
+    ``disk`` (a dict), the segment goes through the store tier first
+    (``segment_from_disk``): the searcher serves the loaded segment, which
+    is returned, and ``disk`` gets the built one, the reader and the
+    set-up seconds."""
     from diagon_tpu_torch.bench.bulk_build import build_synthetic_segment
     from diagon_tpu_torch.search import IndexSearcher
 
@@ -1021,8 +1128,14 @@ def load_searcher(n_docs, **kw):
     seg = build_synthetic_segment(n_docs)
     t_build = time.perf_counter() - t0
     log(f"  segment build {t_build:.2f} s")
+    source = [seg]
+    if disk is not None:
+        reader, secs = segment_from_disk(seg, kw.pop("smi"))
+        disk.update(built=seg, reader=reader, secs=secs)
+        source = reader
+        (seg,) = reader.segments_data()
     t0 = time.perf_counter()
-    searcher = IndexSearcher([seg], device=DEVICE, **kw)
+    searcher = IndexSearcher(source, device=DEVICE, **kw)
     idx = searcher._ctx("body").row_executors[0].index
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
@@ -1177,6 +1290,7 @@ def positions_upload(searcher, smi):
     log(f"  positions: host decode {t_dec:.3f} s, upload {t_up:.3f} s, "
         f"{f.positions.numel()} positions + {f.pos_start.numel()} entry "
         f"offsets = {byts / 2**20:.1f} MiB on the card [{smi}]")
+    return t_dec
 
 
 def rare_term(searcher, lo=50, hi=400):
@@ -1295,8 +1409,9 @@ def phase_scale(counts, smi):
         reuters_queries,
     )
 
-    log(f"phase 5: scale at {SCALE_DOCS} docs")
-    seg, searcher, _, _ = load_searcher(SCALE_DOCS)
+    log(f"phase 5: scale at {SCALE_DOCS} docs, served from disk")
+    disk = {}
+    seg, searcher, _, t_load = load_searcher(SCALE_DOCS, disk=disk, smi=smi)
     oracle = Oracle(seg)
     pool = frequent_terms(searcher)
     # the scale tiers keep phrase_share 0 (bench.py:412-414)
@@ -1325,7 +1440,13 @@ def phase_scale(counts, smi):
     # phrases at 1M: the five families solo, then bench.py's phrase batch
     # (the oracle takes seconds a phrase here: the sample holds the five
     # reference texts, already checked solo, and one other)
-    positions_upload(searcher, smi)
+    t_dec = positions_upload(searcher, smi)
+    positions_equal(disk.pop("built"), seg)
+    secs = disk["secs"]
+    log(f"  1M set-up from disk: write {secs['write']:.2f} s, open "
+        f"{secs['open']:.3f} s (verified {secs['open_verified']:.2f} s), "
+        f"first position decode {t_dec:.2f} s, device load {t_load:.2f} s "
+        f"[{smi}]")
     for p in PHRASES:
         name = "phrase:" + " ".join(p)
         oracle.check(queries[name], searcher.search(queries[name], K),
@@ -1603,21 +1724,25 @@ def x1_equals_plain(got, want, agg_is_int, what):
     """Counts, min, max and granules bit for bit; the sum bit for bit for
     an int aggregate (exact int64 totals, the same f32 expression), within
     relative 1e-5 for a float one (f64 sums in two orders); group counts
-    exact, group sums within relative 1e-5."""
+    exact, group sums within relative 1e-5. A NaN lane or group sum equals
+    only a NaN (both NaN, whatever their payloads: jnp.min fixes none)."""
     if isinstance(got, tuple):
         (got, (gc, gs)), (want, (wc, ws)) = got, want
         if not torch.equal(gc, wc):
             raise AssertionError(f"{what}: X1 group counts != plain")
-        if not torch.allclose(gs.double(), ws.double(), rtol=1e-5, atol=0):
+        if not torch.allclose(gs.double(), ws.double(), rtol=1e-5, atol=0,
+                              equal_nan=True):
             raise AssertionError(f"{what}: X1 group sums != plain")
     g, w = got.cpu(), want.cpu()
-    gb, wb = g.view(torch.int32), w.view(torch.int32)
+    both_nan = g.isnan() & w.isnan()
+    gb = torch.where(both_nan, 0, g.view(torch.int32))
+    wb = torch.where(both_nan, 0, w.view(torch.int32))
     lanes = [0, 1, 3, 4, 5] + ([2] if agg_is_int else [])
     if not torch.equal(gb[lanes], wb[lanes]) or (
-            not agg_is_int and abs(float(g[2]) - float(w[2]))
-            > 1e-5 * abs(float(w[2]))):
+            not agg_is_int and not both_nan[2]
+            and not abs(float(g[2]) - float(w[2])) <= 1e-5 * abs(float(w[2]))):
         raise AssertionError(f"{what}: X1 {g.tolist()} != plain {w.tolist()}")
-    return max_abs_err(g, w)
+    return max_abs_err(torch.where(both_nan, 0, g), torch.where(both_nan, 0, w))
 
 
 def chained_us(dt, kw, n=32, iters=5):
@@ -1763,21 +1888,149 @@ def x1_wide_shapes(ra, table, dt, smi):
                                      ("group gneg", GNEG_QUERY),
                                      ("group gneg 6000", wide)]
     for d, names in ((dt256, specs), (dt, specs[-1:])):
-        seen = []
-        for name, kw in names:
-            _, args, extra, flags = x1_args(d, kw)
-            if extra:
-                got = d.dispatch_range_group_agg(**kw)
-            else:
-                got = d.dispatch_range_agg(**kw)
-            want = ra.range_agg_reference(*args, *extra, **flags)
-            x1_equals_plain(got, want, flags["agg_is_int"],
-                            f"{d.num_granules} granules {name}")
-            seen.append(f"{name} {int((got[0] if extra else got)[5])}")
+        res = x1_check_specs(ra, d, names, f"{d.num_granules} granules")
+        seen = [f"{name} {scanned(got)}" for name, (got, _) in res.items()]
         log(f"  X1 at {d.num_granules} granules of {d.granule_rows} rows "
             f"equals its plain version bit for bit (granules scanned: "
             f"{', '.join(seen)}) [{smi}]")
     del dt256, fine
+    x1_nan_and_odd_granules(ra, table, smi)
+
+
+def scanned(result):
+    """The granules an X1 result says it scanned (a group-by's fused
+    vector is its first element)."""
+    return int((result[0] if isinstance(result, tuple) else result)[5])
+
+
+def x1_check_specs(ra, d, specs, what):
+    """X1 on ``d`` against its plain version for each (name, query) of
+    ``specs`` (x1_equals_plain); returns {name: (X1's result, plain's)}."""
+    out = {}
+    for name, kw in specs:
+        _, args, extra, flags = x1_args(d, kw)
+        got = (d.dispatch_range_group_agg(**kw) if extra
+               else d.dispatch_range_agg(**kw))
+        want = ra.range_agg_reference(*args, *extra, **flags)
+        x1_equals_plain(got, want, flags["agg_is_int"], f"{what} {name}")
+        out[name] = (got, want)
+    return out
+
+
+def x1_nan_and_odd_granules(ra, table, smi):
+    """X1 against its plain version where the JAX program's answers once
+    differed from the kernel's (uncounted):
+
+    - NaN rows in a float column (``duration`` with a NaN every 99,991st
+      row): as the aggregate (min, max and sum NaN, as jnp.min, jnp.max and
+      the f64 sums make them, pruned and full), as the filter (a NaN fails
+      the range; a granule whose minmax is NaN is skipped), with its minmax
+      from the table and from the planes, and in a group-by's sums;
+    - granule sizes that are not a multiple of 4: the 1M table re-cut
+      into granules of 1,001 rows, and its first 200,000 rows into
+      granules of 10 (20,000 granules, past one compaction window), under
+      columnar_bench's six queries and its group-by (``DeviceTable`` pads
+      each granule's planes to a multiple of 4 rows with ``valid``
+      False)."""
+    from diagon_tpu_torch.bench.columnar import GROUP_QUERY, QUERIES
+    from diagon_tpu_torch.columnar import (
+        ColumnarTable,
+        DeviceTable,
+        Float64Column,
+    )
+
+    ts = table.columns["event_ts"].values
+    dur = table.columns["duration"].values.copy()
+    nan_rows = np.arange(0, len(dur), 99_991)
+    dur[nan_rows] = np.nan
+    nt = ColumnarTable(granule_rows=table.granule_rows)
+    nt.add_column("event_ts", table.columns["event_ts"])
+    nt.add_column("region", table.columns["region"])
+    nt.add_column("dur_nan", Float64Column(dur))
+    nt.add_column("dur_nan_planes", Float64Column(dur), minmax=False)
+    r = int(nan_rows[len(nan_rows) // 2])
+    specs = [
+        ("NaN agg, full", dict(filter_col="event_ts", lower=0,
+                               upper=1 << 22, agg_col="dur_nan")),
+        ("NaN agg, pruned", dict(filter_col="event_ts", lower=int(ts[r]) - 5,
+                                 upper=int(ts[r]) + 5, agg_col="dur_nan")),
+        ("NaN filter", dict(filter_col="dur_nan", lower=100.0, upper=400.0,
+                            agg_col="region")),
+        ("NaN filter, minmax from planes",
+         dict(filter_col="dur_nan_planes", lower=100.0, upper=400.0,
+              agg_col="region")),
+        ("NaN filter and agg", dict(filter_col="dur_nan", agg_col="dur_nan")),
+        ("NaN group sums", dict(GROUP_QUERY, agg_col="dur_nan")),
+    ]
+    res = x1_check_specs(ra, DeviceTable(nt, device=DEVICE), specs,
+                         "NaN table")
+    for name in ("NaN agg, full", "NaN agg, pruned"):
+        got = res[name][0].cpu()
+        if not bool(got[3:5].isnan().all()):
+            raise AssertionError(f"{name}: min and max are not NaN: "
+                                 f"{got.tolist()}")
+    log(f"  X1 on a float column with {len(nan_rows)} NaN rows equals its "
+        f"plain version, NaN as NaN (aggregate full and pruned, filter with "
+        f"minmax from the table and from the planes, group sums) [{smi}]")
+
+    specs = list(QUERIES.items()) + [("group region", GROUP_QUERY)]
+    for gr, rows in ((1001, len(ts)), (10, 200_000)):
+        cut = ColumnarTable(granule_rows=gr)
+        for name, col in table.columns.items():
+            if name != "gneg":
+                cut.add_column(name, type(col)(col.values[:rows]),
+                               minmax=name in table.minmax)
+        d = DeviceTable(cut, device=DEVICE)
+        if d.width % 4 or d.width == gr:
+            raise AssertionError(f"granules of {gr} rows: width {d.width}")
+        res = x1_check_specs(ra, d, specs, f"{gr}-row granules")
+        log(f"  X1 at {d.num_granules} granules of {gr} rows (planes "
+            f"{d.width} wide) equals its plain version on the six queries "
+            f"and the group-by (granules scanned "
+            f"{[scanned(got) for got, _ in res.values()]}) [{smi}]")
+
+
+def table_from_disk(table, smi):
+    """``table`` through the columnar host I/O: write_table (the default
+    chain) into a temporary FSDirectory, then read_table with
+    verify_checksums; every column, the minmax and the bloom indexes
+    checked equal to the built table's. Returns the loaded table."""
+    from diagon_tpu_torch.columnar import read_table, write_table
+    from diagon_tpu_torch.columnar.store import DEFAULT_CHAIN
+    from diagon_tpu_torch.store import FSDirectory
+
+    d = FSDirectory(scratch_dir())
+    t0 = time.perf_counter()
+    fname = write_table(d, "columnar", table)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = read_table(d, "columnar", verify_checksums=True)
+    t_read = time.perf_counter() - t0
+    if (loaded.num_rows, loaded.granule_rows, list(loaded.columns)) != (
+            table.num_rows, table.granule_rows, list(table.columns)):
+        raise AssertionError("the loaded table's shape or columns differ")
+    for name, col in table.columns.items():
+        got = loaded.columns[name]
+        if type(got) is not type(col):
+            raise AssertionError(f"{name}: {type(got)} != {type(col)}")
+        if hasattr(col, "values"):
+            same_array(f"column {name}", got.values, col.values)
+        else:
+            same_array(f"column {name} offsets", got.offsets, col.offsets)
+            same_array(f"column {name} chars", got.chars, col.chars)
+    for kind in ("minmax", "bloom"):
+        want, got = getattr(table, kind), getattr(loaded, kind)
+        if set(got) != set(want):
+            raise AssertionError(f"{kind}: {sorted(got)} != {sorted(want)}")
+        for name, idx in want.items():
+            for f in dataclasses.fields(idx):
+                same_array(f"{kind} {name} {f.name}",
+                           getattr(got[name], f.name), getattr(idx, f.name))
+    log(f"  table on disk: write_table ({'+'.join(DEFAULT_CHAIN)}) "
+        f"{t_write:.2f} s, {d.file_length(fname) / 2**20:.1f} MiB; read_table "
+        f"(verify_checksums) {t_read:.2f} s; every column and the minmax and "
+        f"bloom indexes equal the built table's [{smi}]")
+    return loaded
 
 
 def phase_columnar(ra, counts, smi):
@@ -1818,8 +2071,12 @@ def phase_columnar(ra, counts, smi):
         table = build_table(rows)
         table.add_column("gneg", gneg_column(rows))
         t_build = time.perf_counter() - t0
+        # the 1M table is served as read back from disk; the 10M one stays
+        # in memory (the time limit)
+        served = table_from_disk(table, smi) if rows == COLUMNAR_ROWS[0] \
+            else table
         t0 = time.perf_counter()
-        dt = DeviceTable(table, device=DEVICE)
+        dt = DeviceTable(served, device=DEVICE)
         torch.cuda.synchronize()
         t_load = time.perf_counter() - t0
         on_card = sum(nbytes(*p) for p in dt.planes.values()) + nbytes(
@@ -1856,6 +2113,9 @@ def phase_columnar(ra, counts, smi):
                 calls[name] = (lambda kw=kw: dt.dispatch_range_group_agg(**kw))
             else:
                 calls[name] = (lambda kw=kw: dt.dispatch_range_agg(**kw))
+        if served is not table:
+            counts.uncounted(same_as_built, dt, table, calls, specs, groups,
+                             tag, smi)
         if rows == COLUMNAR_ROWS[0]:
             counts.uncounted(one_launch_a_call, list(calls.values()), tag)
         for name, kw in specs:
@@ -1871,17 +2131,17 @@ def phase_columnar(ra, counts, smi):
                     lambda: ra.range_agg(*args, *extra, **flags))
                 x1_equals_plain(bare, want, flags["agg_is_int"],
                                 f"{tag} {name} bare range_agg")
-            scanned = int((got[0] if extra else got)[5])
-            branch = "pruned" if scanned <= dt.cap else "full"
+            kept = scanned(got)
+            branch = "pruned" if kept <= dt.cap else "full"
             grid = dt._plan(q["filter_col"], q.get("agg_col"),
                             kw.get("group_col"), ng)[1].grid
             ms = counts.uncounted(cuda_ms, call)
             kern = counts.uncounted(queued_ms, call, 32)
             plain = cuda_ms(lambda: ra.range_agg_reference(
                 *args, *extra, **flags), reps=5, warmup=1)
-            b_ms, b_by = x1_bound(dt, q, scanned, ng)
+            b_ms, b_by = x1_bound(dt, q, kept, ng)
             reread = (grid - 1) * minmax_bytes(dt, q["filter_col"])
-            line = (f"  {tag} {name}: {branch} ({scanned}/{dt.num_granules}"
+            line = (f"  {tag} {name}: {branch} ({kept}/{dt.num_granules}"
                     f" granules), grid {grid}; one call {ms * 1e3:.1f} us, "
                     f"kernel only {kern * 1e3:.1f} us, plain "
                     f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us by "
@@ -1908,8 +2168,24 @@ def phase_columnar(ra, counts, smi):
         log(f"  {tag}: 32 chained dispatch_range_agg calls, no host sync "
             f"(sync debug mode 'error'; all enqueued behind a device sleep), "
             f"{host_us:.1f} us of host a call")
-        del dt, table, results, grp, calls
+        del dt, table, served, results, grp, calls
     return launches, err, record
+
+
+def same_as_built(dt, table, calls, specs, groups, tag, smi):
+    """Each query's X1 result on ``dt`` (a table read back from disk)
+    bit-equal to the same call on a DeviceTable of the built ``table``."""
+    from diagon_tpu_torch.columnar import DeviceTable
+
+    built = DeviceTable(table, device=DEVICE)
+    for name, kw in specs:
+        want = (built.dispatch_range_group_agg(**kw) if name in groups
+                else built.dispatch_range_agg(**kw))
+        if not bits_equal(calls[name](), want):
+            raise AssertionError(f"{tag} {name}: the table read from disk "
+                                 "answers otherwise than the built one")
+    log(f"  {tag}: the table read from disk answers every query bit-equal "
+        f"to the built table [{smi}]")
 
 
 # ---------------------------------------------------------------------------

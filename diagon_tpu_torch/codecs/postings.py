@@ -1,5 +1,5 @@
 """Packed posting-block format: the port's own copy of the parts of
-``diagon_tpu/codecs/postings.py`` (and of ``codecs/bitpack.py``) it uses.
+``diagon_tpu/codecs/postings.py`` it uses.
 
 A segment's postings for one field are a struct-of-arrays: every posting
 block (up to 128 postings of one term, docids ascending) is one row of
@@ -18,32 +18,13 @@ Values pack little-endian within u32 words, value i of a section at bit
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from diagon_tpu_torch.codecs.bitpack import unpack_u32_numpy, words_for
+
 BLOCK_SIZE = 128
-
-
-def words_for(count: int, bits: int) -> int:
-    return (count * bits + 31) // 32
-
-
-def unpack_u32_numpy(words: np.ndarray, bits: int, count: int) -> np.ndarray:
-    """Decode ``count`` values of ``bits`` bits from a u32 word stream."""
-    words = np.asarray(words, dtype=np.uint64)
-    # slack word so straddle reads never go out of bounds
-    words = np.concatenate([words, np.zeros(1, dtype=np.uint64)])
-    i = np.arange(count, dtype=np.uint64)
-    bitpos = i * np.uint64(bits)
-    widx = (bitpos >> np.uint64(5)).astype(np.int64)
-    shift = bitpos & np.uint64(31)
-    lo = words[widx] >> shift
-    hi = np.where(
-        shift == 0, np.uint64(0), words[widx + 1] << (np.uint64(32) - shift)
-    )
-    mask = np.uint64((1 << bits) - 1)
-    return ((lo | hi) & mask).astype(np.uint32)
 
 
 @dataclass
@@ -179,6 +160,56 @@ def _empty_postings() -> PackedPostings:
         block_entry_start=np.zeros(1, np.int64),
         packed=np.zeros(2, np.uint32),
     )
+
+
+def decode_all_numpy(pp: PackedPostings) -> Tuple[np.ndarray, np.ndarray]:
+    """Vectorized full decode -> (docs int32 [NE], freqs int32 [NE]) in
+    segment posting order (term-major, docid ascending)."""
+    NB = pp.num_blocks
+    if NB == 0:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    words = np.concatenate(
+        [pp.packed.astype(np.uint64), np.zeros(1, np.uint64)]
+    )
+    counts = pp.block_count.astype(np.int64)
+    NE = int(pp.block_entry_start[NB])
+
+    ent_block = np.repeat(np.arange(NB, dtype=np.int64), counts)
+    ent_lane = (
+        np.arange(NE, dtype=np.int64) - pp.block_entry_start[ent_block]
+    )
+
+    def unpack(bits_per_block, base_word):
+        bits_e = bits_per_block[ent_block].astype(np.uint64)
+        bitpos = ent_lane.astype(np.uint64) * bits_e
+        widx = (base_word[ent_block].astype(np.uint64)
+                + (bitpos >> np.uint64(5))).astype(np.int64)
+        shift = bitpos & np.uint64(31)
+        lo = words[widx] >> shift
+        hi = np.where(
+            shift == 0, np.uint64(0), words[widx + 1] << (np.uint64(32) - shift)
+        )
+        mask = (np.uint64(1) << bits_e) - np.uint64(1)
+        return ((lo | hi) & mask).astype(np.int64)
+
+    dbits = pp.block_doc_bits.astype(np.int64)
+    deltas = unpack(dbits, pp.block_word_off.astype(np.int64))
+    # per-block inclusive prefix sum of deltas: global cumsum minus the
+    # cumsum value at each block start
+    cs = np.cumsum(deltas)
+    cs_at_start = cs[pp.block_entry_start[:NB]]
+    docs = (
+        pp.block_base[ent_block].astype(np.int64)
+        + cs
+        - cs_at_start[ent_block]
+    )
+
+    dwords = (counts * dbits + 31) >> 5
+    fbits = pp.block_freq_bits.astype(np.int64)
+    freqs = unpack(fbits, pp.block_word_off.astype(np.int64) + dwords)
+    # fbits == 0 encodes an all-freq-1 block (no freq section)
+    freqs = np.where(fbits[ent_block] == 0, 1, freqs)
+    return docs.astype(np.int32), freqs.astype(np.int32)
 
 
 def decode_block_numpy(pp: PackedPostings, b: int):

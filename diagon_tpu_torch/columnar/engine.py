@@ -51,6 +51,13 @@ def _int_planes(values: np.ndarray, offset: int) -> np.ndarray:
     )
 
 
+def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A copy of host array ``x`` on ``device``: its own (aligned,
+    writable) memory on the CPU too, so a read-only or offset view of a
+    table read from disk never reaches a plane."""
+    return torch.tensor(np.ascontiguousarray(x), device=device)
+
+
 def _bound_planes(bound: int) -> Tuple[int, int, int]:
     """A bound in [0, 2^48) as its three 16-bit planes."""
     return (bound & _PMASK, (bound >> _PLANE) & _PMASK,
@@ -62,7 +69,13 @@ class DeviceTable:
 
     Integer columns are offset-encoded 16-bit i32 planes (exact 48-bit
     range predicates and aggregates); float columns are one f32 plane;
-    string columns are dictionary codes on int planes."""
+    string columns are dictionary codes on int planes.
+
+    X1 reads rows four at a time, so a granule's row of every plane is
+    padded to ``width``, ``granule_rows`` rounded up to a multiple of 4,
+    with ``valid`` False and zero values in the padding: no count, sum,
+    min, max or granule decision sees it, and any ``granule_rows`` answers
+    as in the JAX package."""
 
     #: granule-selection slots for the pruned scan; queries surviving in
     #: more granules than this take the full scan inside X1
@@ -76,10 +89,17 @@ class DeviceTable:
         G = table.num_granules
         self.num_granules = G
         R = self.granule_rows
+        self.width = W = -(-R // 4) * 4
         self.cap = min(max(1, G), max(8, G // self.PRUNE_CAP_FRACTION))
 
         def dev(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            return _to_device(x, self.device)
+
+        def tile(flat):
+            """[G * R] host values as a padded [G, width] plane."""
+            out = np.zeros((G, W), dtype=flat.dtype)
+            out[:, :R] = flat.reshape(G, R)
+            return out
 
         self.planes: Dict[str, Tuple] = {}
         self.is_int: Dict[str, bool] = {}
@@ -90,9 +110,9 @@ class DeviceTable:
         # string equality/range predicates and group-bys ride the exact
         # int path (dict order == byte order -> code range == byte range)
         self.dicts: Dict[str, np.ndarray] = {}
-        valid = np.zeros((G, R), dtype=bool)
-        valid.reshape(-1)[: self.num_rows] = True
-        self.valid = dev(valid)
+        valid = np.zeros(G * R, dtype=bool)
+        valid[: self.num_rows] = True
+        self.valid = dev(tile(valid))
         # X1's launch plans, by (filter, aggregate, group column,
         # num_groups, stream): the planes' pointers, checked once, and the
         # plan's scratch
@@ -119,7 +139,7 @@ class DeviceTable:
                 pl[:, : self.num_rows] = _int_planes(
                     codes.astype(np.int64), 0
                 )
-                self.planes[name] = tuple(dev(p.reshape(G, R)) for p in pl)
+                self.planes[name] = tuple(dev(tile(p)) for p in pl)
                 self.is_int[name] = True
                 self.offsets[name] = 0
                 mm_h = MinMaxIndex.build(
@@ -137,9 +157,7 @@ class DeviceTable:
                 if span < (1 << 48):
                     pl = np.zeros((3, G * R), np.int32)
                     pl[:, : self.num_rows] = _int_planes(vals, off)
-                    self.planes[name] = tuple(
-                        dev(p.reshape(G, R)) for p in pl
-                    )
+                    self.planes[name] = tuple(dev(tile(p)) for p in pl)
                     self.is_int[name] = True
                     self.offsets[name] = off
                     mm = table.minmax.get(name)
@@ -151,7 +169,7 @@ class DeviceTable:
                     continue
             flat = np.zeros(G * R, dtype=np.float32)
             flat[: self.num_rows] = vals.astype(np.float32)
-            self.planes[name] = (dev(flat.reshape(G, R)),)
+            self.planes[name] = (dev(tile(flat)),)
             self.is_int[name] = False
             self.offsets[name] = 0
             mm = table.minmax.get(name)
@@ -204,15 +222,9 @@ class DeviceTable:
             vals = self.table.columns[name].values
             mm_h = MinMaxIndex.build(vals, self.granule_rows)
             off = self.offsets[name]
-
-            def dev(x):
-                return torch.from_numpy(np.ascontiguousarray(x)).to(
-                    self.device)
-
-            mm = (
-                tuple(dev(p) for p in _int_planes(mm_h.mins, off)),
-                tuple(dev(p) for p in _int_planes(mm_h.maxs, off)),
-            )
+            mm = tuple(
+                tuple(_to_device(p, self.device) for p in _int_planes(m, off))
+                for m in (mm_h.mins, mm_h.maxs))
         else:
             v = pl[0]
             mm = (

@@ -39,7 +39,10 @@
 // accumulate in f64 and are rounded to f32 once: the JAX program sums in f32
 // in an order XLA picks, so these agree with it to f32 rounding, not bit for
 // bit. Group counts are exact (int32). The partials combine in block order,
-// so the result is the same from call to call for a given grid.
+// so the result is the same from call to call for a given grid. A NaN among
+// a float aggregate's rows makes min and max NaN, as jnp.min and jnp.max
+// do; a NaN filter value fails the range test, and a granule whose minmax
+// is NaN is skipped, as in the JAX program.
 //
 // No branch. The JAX program picks the pruned scan (the <= cap granules
 // gmask keeps, gathered) or the full scan with lax.cond, but the same rows
@@ -239,6 +242,18 @@ __device__ int compact_window(const X1Args& A, int w0, int G, int* sel,
   return base;
 }
 
+// f32 min and max that propagate NaN, as the JAX program's jnp.min and
+// jnp.max do (fminf and fmaxf return the other operand); with no NaN they
+// are fminf and fmaxf, bit for bit. The NaN's payload is not kept: jnp.min
+// fixes none either.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
 __device__ __forceinline__ void merge(Part& r, const Part& o, bool agg_int) {
   r.cnt += o.cnt;
   if (agg_int) {
@@ -250,10 +265,10 @@ __device__ __forceinline__ void merge(Part& r, const Part& o, bool agg_int) {
   } else {
     r.s0 = __double_as_longlong(__longlong_as_double(r.s0) +
                                 __longlong_as_double(o.s0));
-    r.mn = __float_as_int(fminf(__int_as_float((int)r.mn),
-                                __int_as_float((int)o.mn)));
-    r.mx = __float_as_int(fmaxf(__int_as_float((int)r.mx),
-                                __int_as_float((int)o.mx)));
+    r.mn = __float_as_int(nan_min(__int_as_float((int)r.mn),
+                                  __int_as_float((int)o.mn)));
+    r.mx = __float_as_int(nan_max(__int_as_float((int)r.mx),
+                                  __int_as_float((int)o.mx)));
   }
 }
 
@@ -396,8 +411,8 @@ __device__ __forceinline__ void add_quad(const X1Args& A, const Quad& d,
     } else {
       av[j] = __int_as_float(c0[j]);
       t.fsum += (double)av[j];
-      t.fmn = fminf(t.fmn, av[j]);
-      t.fmx = fmaxf(t.fmx, av[j]);
+      t.fmn = nan_min(t.fmn, av[j]);
+      t.fmx = nan_max(t.fmx, av[j]);
     }
     if (GM != kNoGroups)
       slot[j] = group_slot((int)((unsigned)gp[j] + (unsigned)A.goff),

@@ -1,11 +1,15 @@
-"""Build and load the port's host C++ (``csrc/host/bulk.cpp``).
+"""Build and load the port's host C++ (``csrc/host/bulk.cpp`` and
+``csrc/host/store.cpp``).
 
 The synthetic-corpus builder samples, inverts and packs billions of tokens
-at the 10M-doc scale, which only native code does in minutes. The source
-compiles with the host C++ compiler into ``build/host/`` at the root of the
-checkout on first use, named by a hash of the source and the flags, and
-loads with ``ctypes``; a file lock makes concurrent first uses (test
-workers) build it once. The flags are the JAX package's native build's
+at the 10M-doc scale, which only native code does in minutes; the store
+tier decodes freqs and positions of segments read from disk, and the
+columnar codecs compress LZ4 blocks. Both sources compile with the host C++
+compiler into one library under ``build/host/`` at the root of the
+checkout on first use, named by a hash of the sources and the flags, and
+load with ``ctypes``; a file lock makes concurrent first uses (test
+workers) build it once. A failed build raises: nothing falls back. The
+flags are the JAX package's native build's
 (``diagon_tpu/native/__init__.py``) without ``-march=native`` and with
 ``-ffp-contract=off``, so the token stream does not depend on the host
 CPU.
@@ -28,7 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "host" / "bulk.cpp"
+SOURCES = [_PKG / "csrc" / "host" / n for n in ("bulk.cpp", "store.cpp")]
 BUILD_DIR = _PKG.parent / "build" / "host"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-fvisibility=hidden",
              "-ffp-contract=off"]
@@ -45,6 +49,10 @@ _SIGNATURES = {
     "diagon_invert_tokens": ([_P, _I64, _P, _I64, _I64, _P, _P, _P, _P, _P],
                              _I),
     "diagon_pack_blocks": ([_P, _I64, _P, _P, _I64, _P] + [_P] * 15, _I),
+    "diagon_decode_freqs": ([_P, _P, _P, _P, _I64, _P, _P], _I),
+    "diagon_positions_from_deltas": ([_P, _P, _I64, _P, _I64, _P], _I),
+    "diagon_lz4_compress": ([_P, _I64, _P, _P], _I),
+    "diagon_lz4_decompress": ([_P, _I64, _P, _I64], _I),
 }
 
 _lib: Optional[SimpleNamespace] = None
@@ -52,7 +60,8 @@ _lib: Optional[SimpleNamespace] = None
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for src in SOURCES:
+        h.update(src.read_bytes())
     return BUILD_DIR / f"libbulk_{h.hexdigest()[:16]}.so"
 
 
@@ -72,7 +81,7 @@ def _build(so: Path) -> None:
             if so.exists():  # another process built it while we waited
                 return
             tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-            cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
+            cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
             res = subprocess.run(cmd, capture_output=True, text=True,
                                  timeout=600)
             if res.returncode != 0:
@@ -208,3 +217,68 @@ def pack_blocks(entry_start: np.ndarray, docs: np.ndarray, freqs: np.ndarray,
     out["packed"] = _take(lib, packed, n_words.value, np.uint32)
     out["max_window"] = int(max_window.value)
     return out
+
+
+def _i32(a) -> np.ndarray:
+    return np.ascontiguousarray(a, np.int32)
+
+
+def decode_freqs(block_count, block_doc_bits, block_freq_bits,
+                 block_word_off, packed) -> np.ndarray:
+    """Every block's freqs, i32 [sum(block_count)] in segment posting
+    order (``_native.decode_freqs``)."""
+    lib = library()
+    count, dbits, fbits, woff = (_i32(a) for a in (
+        block_count, block_doc_bits, block_freq_bits, block_word_off))
+    packed = np.ascontiguousarray(packed, np.uint32)
+    nb = len(count)
+    if not len(dbits) == len(fbits) == len(woff) == nb:
+        raise ValueError("the block columns must have one entry a block")
+    if nb:
+        ends = (woff.astype(np.int64)
+                + ((count.astype(np.int64) * dbits + 31) >> 5)
+                + ((count.astype(np.int64) * fbits + 31) >> 5))
+        if int(ends.max()) + 1 > len(packed):
+            raise ValueError("a block's words lie beyond the packed stream")
+    freqs = np.empty(int(count.sum(dtype=np.int64)), np.int32)
+    lib.diagon_decode_freqs(_ptr(count), _ptr(dbits), _ptr(fbits),
+                            _ptr(woff), nb, _ptr(packed), _ptr(freqs))
+    return freqs
+
+
+def positions_from_deltas(lo: bytes, hi: bytes, freqs) -> np.ndarray:
+    """Absolute positions i32 [len(lo)] from the low and high byte planes
+    of per-entry u16 deltas (``_native.positions_from_deltas``)."""
+    lib = library()
+    lo_a = np.frombuffer(lo, np.uint8)
+    hi_a = np.frombuffer(hi, np.uint8)
+    freqs = _i32(freqs)
+    if len(lo_a) != len(hi_a):
+        raise ValueError("the byte planes differ in length")
+    pos = np.empty(len(lo_a), np.int32)
+    if lib.diagon_positions_from_deltas(_ptr(lo_a), _ptr(hi_a), len(lo_a),
+                                        _ptr(freqs), len(freqs), _ptr(pos)):
+        raise ValueError("the freqs do not sum to the number of positions")
+    return pos
+
+
+def lz4_compress(data: bytes) -> bytes:
+    """One raw LZ4 block of ``data`` (``_native.lz4_compress``)."""
+    lib = library()
+    src = np.frombuffer(data, np.uint8)
+    out, n = ctypes.c_void_p(), ctypes.c_int64()
+    _check(lib.diagon_lz4_compress(_ptr(src), len(src), ctypes.byref(out),
+                                   ctypes.byref(n)), "lz4_compress")
+    return _take(lib, out, n.value, np.uint8).tobytes()
+
+
+def lz4_decompress(block: bytes, out_size: int) -> bytes:
+    """Decode one raw LZ4 block into exactly ``out_size`` bytes
+    (``_native.lz4_decompress``); ValueError on a corrupt block."""
+    lib = library()
+    src = np.frombuffer(block, np.uint8)
+    out = np.empty(out_size, np.uint8)
+    if lib.diagon_lz4_decompress(_ptr(src), len(src), _ptr(out), out_size):
+        raise ValueError(f"lz4_decompress: corrupt block (not {out_size} "
+                         "bytes)")
+    return out.tobytes()

@@ -268,8 +268,8 @@ class RangeAggPlan:
     on them; a call writes the bounds and the output into its own copy of
     ``args``, so host threads may share a plan (their launches on its one
     stream are ordered, so they share its scratch too). On CPU tensors it
-    holds the same pointers, allocates nothing and runs
-    ``range_agg_reference``."""
+    makes the same checks, holds the same pointers, allocates nothing and
+    runs ``range_agg_reference``."""
 
     def __init__(self, filt, agg, valid, gmin, gmax, groups=None,
                  goff: int = 0, *, cap: int, filt_is_int: bool,
@@ -297,12 +297,14 @@ class RangeAggPlan:
         a.goff, a.num_groups = goff, self.num_groups
         a.G, a.R = valid.shape
         a.filt_int, a.agg_int = int(filt_is_int), int(agg_is_int)
-        if self.device.type == "cpu":
-            return
+        # the same checks on either device, so the plain version takes
+        # nothing the kernel refuses
         _check(filt, agg, valid, gmin, gmax, groups, filt_is_int, agg_is_int,
                num_groups, cap)
         if not -(1 << 31) <= goff < (1 << 31):
             raise ValueError(f"goff {goff} is not an int32 (the group ids are)")
+        if self.device.type == "cpu":
+            return
         index = valid.get_device()
         self.grid = a.grid = _grid(index, filt_is_int, agg_is_int,
                                    self.num_groups)

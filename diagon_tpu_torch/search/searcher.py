@@ -116,6 +116,12 @@ class IndexSearcher:
     name; the CUDA card unless the caller names another); everything is
     placed there and nothing picks a device itself.
 
+    ``segments`` is a list of ``SegmentData``, a
+    ``diagon_tpu_torch.index.reader.DirectoryReader`` (an index opened from
+    disk: ``DirectoryReader.open(FSDirectory(path))``), or the reader's
+    ``leaves()``. A segment read from disk keeps its positions undecoded
+    until the first phrase query needs them.
+
     ``query_cache``: replay the phase-1 state of a re-issued identical batch
     on segments of ``batch_only_min_docs`` or more (the JAX searcher's
     option and default; benchmarks pass False so each batch is rescored).

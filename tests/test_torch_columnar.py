@@ -401,6 +401,196 @@ def test_kernel_checks_refuse_what_it_does_not_take():
             ra._check(*args, **kw)
 
 
+# ---------------------------------------------------------------------------
+# NaN in a float column, and granule sizes that are not a multiple of 4
+# ---------------------------------------------------------------------------
+
+
+def _nan_table(mod, granule_rows):
+    """4,096 rows: a sorted int key ``k``, float ``v`` (minmax) and ``w``
+    (the same values, minmax on the device) with NaN at rows 100, 1500 and
+    1501, and group ids ``g`` in [0, 8)."""
+    rng = np.random.Generator(np.random.PCG64(9))
+    n = 4096
+    v = rng.random(n)
+    v[[100, 1500, 1501]] = np.nan
+    t = mod.ColumnarTable(granule_rows=granule_rows)
+    t.add_column("k", mod.Int64Column(np.arange(n)))
+    t.add_column("v", mod.Float64Column(v))
+    t.add_column("w", mod.Float64Column(v.copy()), minmax=False)
+    t.add_column("g", mod.Int64Column(rng.integers(0, 8, n)), minmax=False)
+    return t
+
+
+NAN_QUERIES = [
+    ("k", 0, 3000, "v"),  # NaN rows among the aggregate's: full scan
+    ("k", 90, 110, "v"),  # one NaN row: pruned scan
+    ("k", 2000, 4000, "v"),  # no NaN row
+    ("k", None, None, "w"),
+    ("v", 0.25, 0.75, "k"),  # NaN filter values; NaN granules skipped
+    ("w", 0.25, 0.75, "k"),  # the same, minmax from the device planes
+    ("v", None, None, "v"),
+]
+
+
+def _assert_fused_nan(got, want, what):
+    """Count lanes and granules bit-equal; sum, min and max both NaN or
+    equal (the sum within relative 1e-5: f64 rounded once against f32)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    for i in (0, 1, 5):
+        assert got.view(np.uint32)[i] == want.view(np.uint32)[i], (what, i)
+    for i in (2, 3, 4):
+        g, w = float(got[i]), float(want[i])
+        if np.isnan(w) or np.isnan(g):
+            assert np.isnan(g) and np.isnan(w), (what, i, got, want)
+        elif i == 2:
+            assert abs(g - w) <= 1e-5 * abs(w), (what, got, want)
+        else:
+            assert got.view(np.uint32)[i] == want.view(np.uint32)[i], (
+                what, i, got, want)
+
+
+@pytest.fixture(scope="module", params=[256, 10])
+def nan_tables(request):
+    gr = request.param
+    return (DeviceTable(_nan_table(tcol, gr), device="cpu"),
+            jcol.DeviceTable(_nan_table(jcol, gr)))
+
+
+@pytest.mark.parametrize("q", NAN_QUERIES,
+                         ids=lambda q: f"{q[0]}-{q[3]}-{q[1]}")
+def test_nan_float_column_equals_jax(nan_tables, q):
+    """A NaN among the aggregate's rows makes min, max and sum NaN, as in
+    the JAX package; a NaN filter value fails the range test, and a granule
+    whose minmax is NaN is skipped, as the JAX package skips it."""
+    port, jax_t = nan_tables
+    col, lo, hi, agg = q
+    got = port.dispatch_range_agg(col, lo, hi, agg).numpy()
+    want = np.asarray(jax_t.dispatch_range_agg(col, lo, hi, agg))
+    _assert_fused_nan(got, want, q)
+
+
+def test_nan_rows_in_a_group_equal_jax(nan_tables):
+    """The f64 group sums carry a NaN row's NaN into its group only."""
+    port, jax_t = nan_tables
+    got = port.range_group_agg("k", "g", 8, 0, 3000, "v")
+    want = jax_t.range_group_agg("k", "g", 8, 0, 3000, "v")
+    assert got["count"] == want["count"]
+    np.testing.assert_array_equal(got["group_counts"],
+                                  np.asarray(want["group_counts"]))
+    ws = np.asarray(want["group_sums"], np.float64)
+    assert np.isnan(ws).any()
+    np.testing.assert_array_equal(np.isnan(got["group_sums"]), np.isnan(ws))
+    np.testing.assert_allclose(got["group_sums"][~np.isnan(ws)],
+                               ws[~np.isnan(ws)], rtol=1e-5, atol=0)
+
+
+@pytest.fixture(scope="module", params=[(1000, 10, 7), (2003, 7, 8),
+                                        (999, 3, 9)],
+                ids=["1000x10", "2003x7", "999x3"])
+def odd_tables(request):
+    """(arrays, port DeviceTable, JAX DeviceTable) at granule sizes that
+    are not a multiple of 4."""
+    n, gr, seed = request.param
+    arr = _arrays(n, seed)
+    return (arr, DeviceTable(_build(tcol, arr, gr), device="cpu"),
+            jcol.DeviceTable(_build(jcol, arr, gr)))
+
+
+def test_granule_rows_10_answers_as_jax():
+    """``range_agg("k", 5, 500)`` over 1,000 rows in granules of 10: count
+    496, sum 125,240, min 5, max 500 over 51 of 100 granules, in both
+    packages; the port's planes are padded to 12 rows a granule."""
+    def table(mod):
+        t = mod.ColumnarTable(granule_rows=10)
+        t.add_column("k", mod.Int64Column(np.arange(1000)))
+        return t
+
+    port = DeviceTable(table(tcol), device="cpu")
+    assert port.width == 12 and tuple(port.valid.shape) == (100, 12)
+    got = port.range_agg("k", 5, 500, host_fast=False)
+    want = jcol.DeviceTable(table(jcol)).range_agg("k", 5, 500,
+                                                   host_fast=False)
+    assert got == want
+    assert (got["count"], got["sum"], got["min"], got["max"],
+            got["granules_scanned"]) == (496, 125240.0, 5.0, 500.0, 51)
+
+
+@pytest.mark.parametrize("q", QUERIES, ids=lambda q: f"{q[0]}-{q[3]}-{q[1]}")
+def test_odd_granule_rows_equal_jax(odd_tables, q):
+    arr, port, jax_t = odd_tables
+    col, lo, hi, agg = q
+    got = port.dispatch_range_agg(col, lo, hi, agg).numpy()
+    want = np.asarray(jax_t.dispatch_range_agg(col, lo, hi, agg))
+    agg_name = agg or col
+    if agg_name in port.dicts:
+        rtol = None
+    elif port.is_int[agg_name]:
+        m = _mask(arr, col, lo, hi)
+        exact = max(_plane_totals(np.asarray(arr[agg_name]), m)) < 1 << 24
+        rtol = None if exact else 1e-6
+    else:
+        rtol = 1e-5
+    _assert_fused(got, want, rtol, q)
+
+
+@pytest.mark.parametrize("spec", [
+    ("ts", "grp", 16, 1000, 40000, "price"),
+    ("rnd", "gneg", 16, 0, 900000, "rnd"),
+], ids=lambda s: f"{s[0]}-{s[1]}")
+def test_odd_granule_rows_group_agg_equals_jax(odd_tables, spec):
+    _, port, jax_t = odd_tables
+    col, gcol, ng, lo, hi, agg = spec
+    got = port.range_group_agg(col, gcol, ng, lo, hi, agg)
+    want = jax_t.range_group_agg(col, gcol, ng, lo, hi, agg)
+    assert (got["count"], got["granules_scanned"]) == (
+        want["count"], want["granules_scanned"])
+    np.testing.assert_array_equal(got["group_counts"],
+                                  np.asarray(want["group_counts"]))
+    np.testing.assert_allclose(got["group_sums"],
+                               np.asarray(want["group_sums"], np.float64),
+                               rtol=1e-5, atol=0)
+
+
+def test_the_cpu_plan_makes_the_kernels_checks():
+    """A plan on CPU tensors refuses what a plan on the card refuses, so
+    the plain version cannot take a shape the kernel does not."""
+    G, R = 3, 6
+    i = torch.zeros((G, R), dtype=torch.int32)
+    gi = torch.zeros(G, dtype=torch.int32)
+    valid = torch.ones((G, R), dtype=torch.bool)
+    with pytest.raises(ValueError):
+        ra.RangeAggPlan((i, i, i), (i, i, i), valid, (gi,) * 3, (gi,) * 3,
+                        cap=1, filt_is_int=True, agg_is_int=True)
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_on_nan_and_odd_granules_on_the_card():
+    """X1 against its plain version on the NaN table (granules of 256 and
+    10) and on tables at granule sizes 10, 7 and 3: NaN lanes both NaN,
+    the rest as ``test_kernel_equals_plain_on_the_card`` holds them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for gr in (256, 10):
+        t = _nan_table(tcol, gr)
+        cpu, gpu = DeviceTable(t, device="cpu"), DeviceTable(t, device="cuda")
+        for col, lo, hi, agg in NAN_QUERIES:
+            _assert_fused_nan(
+                gpu.dispatch_range_agg(col, lo, hi, agg).cpu().numpy(),
+                cpu.dispatch_range_agg(col, lo, hi, agg).numpy(),
+                (gr, col, agg))
+    arr = _arrays(3001, 10)
+    for gr in (10, 7, 3):
+        t = _build(tcol, arr, gr)
+        cpu, gpu = DeviceTable(t, device="cpu"), DeviceTable(t, device="cuda")
+        for col, lo, hi, agg in QUERIES:
+            a = cpu.dispatch_range_agg(col, lo, hi, agg).numpy()
+            b = gpu.dispatch_range_agg(col, lo, hi, agg).cpu().numpy()
+            assert np.array_equal(np.delete(a, 2).view(np.uint32),
+                                  np.delete(b, 2).view(np.uint32))
+            assert abs(a[2] - b[2]) <= 1e-5 * abs(a[2])
+
+
 @pytest.mark.cuda
 def test_kernel_equals_plain_on_the_card():
     """X1 on the card against its plain version (the chip run's check in

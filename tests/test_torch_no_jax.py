@@ -62,6 +62,21 @@ def test_every_module_is_probed():
     assert len(MODULES) >= 25
 
 
+DISK_MODULES = ["store", "store.directory", "store.lock", "store.format",
+                "index", "index.reader", "index.writer", "codecs.bitpack",
+                "codecs.registry", "columnar.compression", "columnar.store",
+                "columnar.parts"]
+
+
+@pytest.mark.parametrize("name", DISK_MODULES)
+def test_the_disk_modules_are_scanned_and_probed(probe, name):
+    """The store tier, the index reader and the columnar host I/O are in
+    both checks: the import probe and the source scans."""
+    module = f"diagon_tpu_torch.{name}"
+    assert module in MODULES
+    assert probe["imports"][module] == "ok", probe["imports"][module]
+
+
 @pytest.mark.parametrize("module", MODULES)
 def test_module_imports_without_jax(probe, module):
     assert probe["imports"][module] == "ok", probe["imports"][module]
