@@ -158,9 +158,29 @@ script exits non-zero), in the order they run:
    card's busy share. A profiled window that launched no B4 must hold no
    row of B4's kernel (approx_bool_mma_kernel): B5 serves those batches.
 
-Phases run in the order 1, 2, 3, 3b, 10, 4, 5, 9, 8, 6, 7. Launch
+11. The write path at 19,043 docs (main path, counted): corpus_documents'
+   Reuters-shaped documents (title and body text with positions, the date
+   keyword) indexed two ways: (a) one add_documents into a 512 MB buffer
+   and a commit; (b) add_document per document with max_buffered_docs
+   4,761 (four flushes) and the serial scheduler, a commit, force_merge(1)
+   and commit_merge_results. (a)'s segment must equal (b)'s merged one
+   (norms, terms, every postings array, positions, stored rows). Then (b)
+   reopened in APPEND mode takes the first 500 documents again, commits
+   and merges over the segment read from disk (lazy positions): 19,543
+   docs, equal to one add_documents flush of the same documents. The index
+   is opened with DirectoryReader and served on the card (solo searches
+   and search_batch sizes 1-7: B1, B2; or20 x 1024, mixed 1024 with
+   phrase_share 5, phrase 1024, the MUST_NOT batch: B3-B7), sampled
+   queries oracle-exact and pruned == exhaustive over each pruned batch;
+   then delete_documents on a date term, a commit and a reopen: every
+   served query's hits drop by exactly the deleted docs that match it (the
+   oracle's count over a segment of just those docs), served oracle-exact
+   again. Host seconds (docs/s), each flush, commit and force_merge, and
+   the file MiB.
+
+Phases run in the order 1, 2, 3, 3b, 10, 4, 11, 5, 9, 8, 6, 7. Launch
 counters are set to 0 just before each main-path phase (10 at each table
-size, 4, 5, 9 and each route of 8) and read just after it; comparisons with plain versions
+size, 4, 11, 5, 9 and each route of 8) and read just after it; comparisons with plain versions
 and with the exhaustive route, and phases 6-7, do not count. Each kernel
 must launch on a path where it has to run.
 
@@ -1273,6 +1293,277 @@ def phase_serve(counts, smi):
     for label in ("mixed 1024", "MUST_NOT 1024", "phrase 1024"):
         pruned_equals_exhaustive(ex, counts, batches[label], label, True)
     return searcher, batches, sent, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the write path at the reference's indexing size
+# ---------------------------------------------------------------------------
+
+
+def same_segment(what, got, want):
+    """Equal docs, fields, norms, terms, every PackedPostings array
+    (positions after their decode; dtypes included) and stored rows."""
+    from diagon_tpu_torch.codecs.postings import PackedPostings
+
+    if (got.num_docs, list(got.fields)) != (want.num_docs, list(want.fields)):
+        raise AssertionError(f"{what}: docs or fields differ")
+    for name, fd in want.fields.items():
+        gf = got.fields[name]
+        if gf.with_positions != fd.with_positions:
+            raise AssertionError(f"{what} {name}: with_positions differs")
+        same_array(f"{what} {name} norms", gf.norms, fd.norms)
+        gf.postings.ensure_positions()
+        fd.postings.ensure_positions()
+        for f in dataclasses.fields(PackedPostings):
+            a, b = getattr(gf.postings, f.name), getattr(fd.postings, f.name)
+            if f.name == "pos_loader":
+                continue
+            if isinstance(b, np.ndarray) or isinstance(a, np.ndarray):
+                same_array(f"{what} {name} {f.name}", a, b)
+            elif a != b:
+                raise AssertionError(f"{what} {name} {f.name}: differs")
+    if list(got.stored) != list(want.stored):
+        raise AssertionError(f"{what}: stored rows differ")
+
+
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def dir_mib(d):
+    return sum(d.file_length(f) for f in d.list_files()) / 2**20
+
+
+def ingest_bulk(docs, smi):
+    """(a): one add_documents of the corpus into a 512 MB buffer, one
+    commit (its one flush)."""
+    from diagon_tpu_torch.index.writer import IndexWriter, IndexWriterConfig
+    from diagon_tpu_torch.store import FSDirectory
+
+    d = FSDirectory(scratch_dir())
+    w = IndexWriter(d, IndexWriterConfig(ram_buffer_mb=512,
+                                         merge_scheduler="serial"))
+    _, t_add = timed(w.add_documents, docs)
+    _, t_commit = timed(w.commit)
+    (seg,) = w._segments
+    w.close()
+    n = len(docs)
+    log(f"  ingest (a) add_documents x {n}: {t_add:.3f} s, commit (one "
+        f"flush + write) {t_commit:.3f} s -> {n / (t_add + t_commit):.0f} "
+        f"docs/s host; {dir_mib(d):.1f} MiB on disk [{smi}]")
+    return seg
+
+
+def ingest_per_doc(docs, smi):
+    """(b): add_document per document, max_buffered_docs 4,761 (four
+    flushes), the serial scheduler; commit, force_merge(1),
+    commit_merge_results, close."""
+    from diagon_tpu_torch.index.writer import IndexWriter, IndexWriterConfig
+    from diagon_tpu_torch.store import FSDirectory
+
+    d = FSDirectory(scratch_dir())
+    w = IndexWriter(d, IndexWriterConfig(max_buffered_docs=4761,
+                                         merge_scheduler="serial"))
+    flushes = []
+    t0 = time.perf_counter()
+    for doc in docs:
+        before = w.segment_count
+        t = time.perf_counter()
+        w.add_document(doc)
+        if w.segment_count > before:
+            flushes.append(time.perf_counter() - t)
+    t_add = time.perf_counter() - t0
+    _, t_commit = timed(w.commit)
+    if w.segment_count != 4:
+        raise AssertionError(f"(b) flushed {w.segment_count} segments, not 4")
+    sizes = [s.num_docs for s in w._segments]
+    mib_before = dir_mib(d)
+    _, t_merge = timed(w.force_merge, 1)
+    _, t_cmr = timed(w.commit_merge_results)
+    (merged,) = w._segments
+    w.close()
+    n = len(docs)
+    log(f"  ingest (b) add_document x {n}: {t_add:.3f} s with 3 flushes "
+        f"({', '.join(f'{t:.3f}' for t in flushes)} s) + commit (the 4th "
+        f"flush) {t_commit:.3f} s -> {n / (t_add + t_commit):.0f} docs/s "
+        f"host; segments {sizes}, {mib_before:.1f} MiB; force_merge(1) "
+        f"{t_merge:.3f} s, commit_merge_results {t_cmr:.3f} s, "
+        f"{dir_mib(d):.1f} MiB [{smi}]")
+    return d, merged
+
+
+def append_and_merge(d, docs, extra, smi):
+    """Reopen (b) in APPEND mode, add ``extra`` again, commit and
+    force_merge(1): the merge takes in the segment read from disk, whose
+    positions are still lazy. Its segment must equal one add_documents
+    flush of the same documents."""
+    from diagon_tpu_torch.index.memory_index import MemoryIndex
+    from diagon_tpu_torch.index.segment import flush_memory_index
+    from diagon_tpu_torch.index.writer import IndexWriter, IndexWriterConfig
+
+    w = IndexWriter(d, IndexWriterConfig(open_mode="APPEND",
+                                         merge_scheduler="serial"))
+    (loaded,) = w._segments
+    if loaded.fields["body"].postings.pos_start is not None:
+        raise AssertionError("the reopened segment's positions are decoded")
+    _, t_add = timed(w.add_documents, extra)
+    _, t_commit = timed(w.commit)
+    _, t_merge = timed(w.force_merge, 1)
+    _, t_cmr = timed(w.commit_merge_results)
+    (merged,) = w._segments
+    w.close()
+    want = len(docs) + len(extra)
+    if merged.num_docs != want:
+        raise AssertionError(f"appended index has {merged.num_docs} docs")
+    mem = MemoryIndex()
+    mem.add_documents(docs + extra)
+    same_segment("appended merge vs one flush", merged,
+                 flush_memory_index(mem, merged.name))
+    log(f"  append: reopened (APPEND), add_documents x {len(extra)} "
+        f"{t_add:.3f} s, commit {t_commit:.3f} s, force_merge(1) over the "
+        f"segment read from disk {t_merge:.3f} s, commit_merge_results "
+        f"{t_cmr:.3f} s: {want} docs, equal to one add_documents flush of "
+        f"the same documents; {dir_mib(d):.1f} MiB [{smi}]")
+
+
+def serve_ingested(counts, d, smi, label, before=None):
+    """Serve the body field of the index in ``d`` on the card with bench.py's
+    batches, as phase 4 does: or20 x 1024, mixed 1024 (phrase_share 5),
+    phrase 1024 and the MUST_NOT batch, sampled oracle checks and pruned ==
+    exhaustive over each pruned batch; solo searches and search_batch
+    sizes 1-7 first (B1, B2). Returns {batch label: (queries, totals)}."""
+    from diagon_tpu_torch.bench.queries import (
+        frequent_terms,
+        mixed_query_batch,
+        phrase_query_batch,
+        reuters_queries,
+    )
+    from diagon_tpu_torch.index import DirectoryReader
+    from diagon_tpu_torch.search import IndexSearcher
+
+    reader, t_open = timed(DirectoryReader.open, d)
+    (seg,) = reader.segments_data()
+    searcher, t_load = timed(IndexSearcher, reader, DEVICE)
+    torch.cuda.synchronize()
+    log(f"  {label}: DirectoryReader.open {t_open:.3f} s, device load "
+        f"{t_load:.3f} s ({seg.num_docs} docs, {seg.num_live_docs} live) "
+        f"[{smi}]")
+    oracle = Oracle(seg)
+    queries = reuters_queries()
+    if before is None:
+        pool = frequent_terms(searcher)
+        batches = {
+            "or20 x 1024": [queries["or20"]] * 1024,
+            "mixed 1024": mixed_query_batch(pool, 1024, seed=42,
+                                            phrase_share=5),
+            "phrase 1024": phrase_query_batch(pool, 1024, seed=43),
+            "MUST_NOT 1024": must_not_batch(pool),
+        }
+    else:
+        batches = {name: qs for name, (qs, _) in before.items()}
+    need = {"or20 x 1024": ["row_sum"],
+            "mixed 1024": ["approx_select", "approx_select_bool2",
+                           "gather_rescore", "union_rescore"],
+            "phrase 1024": ["approx_select", "gather_rescore"],
+            "MUST_NOT 1024": ["approx_select_bool", "union_rescore"]}
+    pre = counts.read()
+    for name, q in queries.items():
+        oracle.check(q, searcher.search(q, K), f"{label} solo {name}")
+    mixed, pos = batches["mixed 1024"], 0
+    for n in range(1, 8):
+        batch = mixed[pos:pos + n]
+        pos += n
+        for q, r in zip(batch, searcher.search_batch(batch, K)):
+            oracle.check(q, r, f"{label} search_batch({n})")
+    counts.require(pre, ["row_sum", "row_boolean"], f"{label} solo + small")
+    ex = searcher._ctx("body").row_executors[0]
+    out = {}
+    for name, batch in batches.items():
+        sample = (list(range(0, 1024, 32)) if name in ("or20 x 1024",
+                                                       "MUST_NOT 1024")
+                  else phrase_sample(batch))
+        plans, dm = serve_batch(searcher, oracle, counts, batch,
+                                f"{label} {name}", sample, need[name], smi,
+                                reps=2)
+        if name != "or20 x 1024":
+            if dm["pruned"] < 1:
+                raise AssertionError(f"{label} {name}: not pruned")
+            pruned_equals_exhaustive(ex, counts, plans, f"{label} {name}",
+                                     True)
+        res = searcher.collect_many([searcher.dispatch_batch(batch, K)])[0]
+        out[name] = (batch, [r.total_hits for r in res])
+    return out
+
+
+def delete_and_check(counts, d, docs, served, smi):
+    """delete_documents("date", <the first doc's date>) on a writer over
+    the index, commit, reopen and serve again: each served query's
+    total_hits drops by exactly the number of deleted docs that match it
+    (the oracle's count over a segment of just those docs)."""
+    from diagon_tpu_torch.index.memory_index import MemoryIndex
+    from diagon_tpu_torch.index.segment import flush_memory_index
+    from diagon_tpu_torch.index.writer import IndexWriter, IndexWriterConfig
+    from diagon_tpu_torch.search.oracle import OracleSearcher
+
+    date = docs[0].get("date")
+    gone = [doc for doc in docs if doc.get("date") == date]
+    w = IndexWriter(d, IndexWriterConfig(open_mode="APPEND",
+                                         merge_scheduler="serial"))
+    n, t_del = timed(w.delete_documents, "date", date)
+    _, t_commit = timed(w.commit)
+    w.close()
+    if n != len(gone):
+        raise AssertionError(f"deleted {n} docs, {len(gone)} hold {date!r}")
+    log(f"  delete_documents('date', {date!r}): {n} docs {t_del:.3f} s, "
+        f"commit {t_commit:.3f} s [{smi}]")
+    mem = MemoryIndex()
+    mem.add_documents(gone)
+    only_gone = OracleSearcher([flush_memory_index(mem, "_gone")])
+    after = serve_ingested(counts, d, smi, "after the delete", before=served)
+    checked = moved = 0
+    for name, (batch, hits) in served.items():
+        memo = {}
+        for q, h0, h1 in zip(batch, hits, after[name][1]):
+            key = repr(q)
+            if key not in memo:
+                memo[key] = only_gone.count(q)
+            if h0 - h1 != memo[key]:
+                raise AssertionError(f"{name}: {q!r} lost {h0 - h1} hits, "
+                                     f"{memo[key]} deleted docs match it")
+            checked += 1
+            moved += h0 != h1
+    log(f"  every served query's hits dropped by its deleted matches "
+        f"({checked} queries, {moved} of them moved)")
+
+
+def phase_ingest(counts, smi):
+    from diagon_tpu_torch.bench.synthetic import corpus_documents
+
+    log(f"phase 11: the write path at {SERVE_DOCS} docs (corpus_documents, "
+        "the reference's reuters_benchmark phase 1)")
+    docs, t_gen = timed(lambda: list(corpus_documents(SERVE_DOCS)))
+    log(f"  corpus_documents({SERVE_DOCS}): {t_gen:.3f} s")
+    seg_a = ingest_bulk(docs, smi)
+    d_b, merged = ingest_per_doc(docs, smi)
+    same_segment("(a) one flush vs (b) four flushes merged", merged, seg_a)
+    log("  (a)'s segment equals (b)'s merged one: norms, terms, every "
+        "postings array, positions, stored rows")
+    append_and_merge(d_b, docs, docs[:500], smi)
+    counts.reset()
+    served = serve_ingested(counts, d_b, smi, "ingested index")
+    delete_and_check(counts, d_b, docs + docs[:500], served, smi)
+    launches = counts.read()
+    idle = [n for n in ("row_sum", "row_boolean", "approx_select",
+                        "approx_select_bool", "approx_select_bool2",
+                        "gather_rescore", "union_rescore")
+            if launches[n] < 1]
+    if idle:
+        raise AssertionError(f"the ingested index's serving never "
+                             f"launched {idle}")
+    log(f"  launches: {launches}")
+    return launches
 
 
 def positions_upload(searcher, smi):
@@ -2932,6 +3223,7 @@ def main():
     launches_col, err["range_agg"], x1_record = phase(phase_columnar, ra,
                                                       counts, smi)
     searcher19, batches19, sent19, launches19 = phase(phase_serve, counts, smi)
+    launches_ing = phase(phase_ingest, counts, smi)
     searcher1m, batches1m, sent1m, launches1m = phase(phase_scale, counts, smi)
     launches_sp = phase(phase_sparse, counts, smi)
     launches10, at10m = phase(phase_scale10, counts, smi)
@@ -2953,12 +3245,13 @@ def main():
         ("1M phrase 1024", searcher1m, sent1m["1M phrase 1024"],
          batches1m["1M phrase 1024"]),
     ], counts, smi)
-    runs = (launches19, launches1m, launches_sp, launches10["phase1"],
-            launches10["phase0"])
+    runs = (launches19, launches_ing, launches1m, launches_sp,
+            launches10["phase1"], launches10["phase0"])
     launches = {n: sum(r.get(n, 0) for r in runs) for n in kernels}
     launches["range_agg"] += launches_col
     times["range_agg"] = dict(x1_record, max_abs_err=0.0)
-    log(f"main-path launches at 19k {launches19}; at 1M {launches1m}; "
+    log(f"main-path launches at 19k {launches19}; the ingested 19k index "
+        f"{launches_ing}; at 1M {launches1m}; "
         f"sparse 1M {launches_sp}; at 10M phase 1 {launches10['phase1']}, "
         f"phase 0 {launches10['phase0']}; columnar (X1) {launches_col}")
     idle = [n for n, c in launches.items() if c < 1]

@@ -3,11 +3,13 @@
 A second package beside ``diagon_tpu`` (the JAX reference, which stays as
 it is). It imports nothing of ``diagon_tpu``: it keeps its own copies of
 the host tier it needs, under the JAX package's module names
-(``index.segment``, ``codecs.postings``, ``observability.metrics``,
+(``document``, ``analysis``, ``index.{segment,memory_index,merge,writer,
+reader}``, ``store``, ``codecs.postings``, ``observability.metrics``,
 ``bench.{synthetic,queries,bulk_build}``,
 ``search.{query,bm25,topdocs,oracle}``), and its host C++ in
-``csrc/host/bulk.cpp`` (``native.py``). ``search.convert`` carries a JAX
-package segment, query or row index across. It owns the device tier:
+``csrc/host/`` (corpus builder, store decodes, ingest tokenizer and
+accumulator; ``native.py``). ``search.convert`` carries a JAX package
+segment, query or row index across. It owns the device tier:
 
 - ``search.device_index``: segments as tensors on one explicit device;
 - ``search.row_engine``: the dense row banks (resident, or built per batch

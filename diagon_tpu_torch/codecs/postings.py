@@ -18,7 +18,7 @@ Values pack little-endian within u32 words, value i of a section at bit
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -100,6 +100,43 @@ class PackedPostings:
         return -1
 
 
+def build_packed_postings(
+    term_postings: Dict[str, Tuple[np.ndarray, np.ndarray]],
+    term_positions: Optional[Dict[str, List[np.ndarray]]] = None,
+    norms: Optional[np.ndarray] = None,
+) -> PackedPostings:
+    """Pack per-term (docids, freqs) arrays into the block format: the JAX
+    package's per-term dict packer, the same arrays.
+
+    ``term_postings``: term -> (docids int array ascending, freqs int array).
+    ``term_positions``: term -> list of per-doc position arrays (parallel to
+    docids), or None for fields without positions.
+    ``norms``: uint8 per-doc norm array used to compute block max-norm
+    (may be None — max_norm falls back to 127).
+
+    The JAX function packs block by block in Python; this one lays the
+    dict out as CSR in sorted term order and packs it with the host packer
+    (``csrc/host/bulk.cpp``), whose widths, offsets, maxima and word stream
+    follow the same rules, so every array is the same.
+    """
+    terms = sorted(term_postings.keys())
+    parts = [term_postings[t] for t in terms]
+    entry_start = np.zeros(len(terms) + 1, np.int64)
+    np.cumsum([len(d) for d, _ in parts], out=entry_start[1:])
+    docs, freqs = (
+        np.concatenate([np.asarray(p[i]) for p in parts]) if parts
+        else np.zeros(0, np.int64) for i in (0, 1))
+    pp = _pack(terms, entry_start, docs, freqs, norms)
+    if term_positions is not None:
+        plists = [p for t in terms for p in term_positions[t]]
+        pos_start = np.zeros(len(plists) + 1, np.int64)
+        np.cumsum([len(p) for p in plists], out=pos_start[1:])
+        pp.pos_start = pos_start
+        pp.positions = (np.concatenate(plists).astype(np.int32) if plists
+                        else np.zeros(0, np.int32))
+    return pp
+
+
 def build_packed_postings_csr(
     terms: List[str],
     entry_start: np.ndarray,  # int64 [T+1] CSR into docs/freqs
@@ -112,15 +149,32 @@ def build_packed_postings_csr(
     """Pack CSR postings into the block format with the host packer
     (``csrc/host/bulk.cpp``, the JAX package's ``pack_blocks``): the same
     arrays as the JAX package's ``build_packed_postings_csr``."""
+    if len(entry_start) != len(terms) + 1:
+        raise ValueError("entry_start needs one offset per term plus one")
+    if len(docs) == 0 or len(terms) == 0:
+        return _empty_postings()  # no positions, as in the JAX package
+    pp = _pack(terms, entry_start, docs, freqs, norms)
+    if pos_start is not None:
+        pp.pos_start = np.asarray(pos_start, dtype=np.int64)
+        pp.positions = (
+            np.asarray(positions, dtype=np.int32)
+            if positions is not None and len(positions)
+            else np.zeros(0, dtype=np.int32)
+        )
+    return pp
+
+
+def _pack(terms, entry_start, docs, freqs, norms) -> PackedPostings:
+    """The host packer's block columns for CSR postings (no positions)."""
     from diagon_tpu_torch import native
 
     entry_start = np.asarray(entry_start, dtype=np.int64)
     if len(entry_start) != len(terms) + 1:
         raise ValueError("entry_start needs one offset per term plus one")
-    if len(docs) == 0 or len(terms) == 0:
+    if len(terms) == 0:
         return _empty_postings()
     cols = native.pack_blocks(entry_start, docs, freqs, norms)
-    pp = PackedPostings(
+    return PackedPostings(
         terms=list(terms),
         block_start=cols["block_start"],
         doc_freq=cols["doc_freq"],
@@ -139,14 +193,6 @@ def build_packed_postings_csr(
         sum_doc_freq=int(len(docs)),
         max_window_words=cols["max_window"],
     )
-    if pos_start is not None:
-        pp.pos_start = np.asarray(pos_start, dtype=np.int64)
-        pp.positions = (
-            np.asarray(positions, dtype=np.int32)
-            if positions is not None and len(positions)
-            else np.zeros(0, dtype=np.int32)
-        )
-    return pp
 
 
 def _empty_postings() -> PackedPostings:

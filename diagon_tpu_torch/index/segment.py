@@ -1,15 +1,16 @@
-"""Immutable segment data: the port's own copy of the data classes of
+"""Immutable segment data and the flush: the port's own copy of
 ``diagon_tpu/index/segment.py``.
 
 ``SegmentData`` is the flushed, immutable form of a segment: per-field packed
 postings + norms, doc values, points, stored rows, live-docs bitmap. It is
 the unit of search and of device residency
-(``diagon_tpu_torch/search/device_index``). The port builds segments with
-``diagon_tpu_torch.bench.bulk_build``, reads one from disk with
-``diagon_tpu_torch.store.read_segment`` (or a whole commit with
-``diagon_tpu_torch.index.reader.DirectoryReader``), or carries one across
-from the JAX package with ``diagon_tpu_torch.search.convert.segment_from_jax``;
-it has no document writer of its own yet.
+(``diagon_tpu_torch/search/device_index``). Documents become a segment
+through ``MemoryIndex`` and ``flush_memory_index`` (or ``IndexWriter``,
+which flushes, commits and merges); the port also builds synthetic
+segments with ``diagon_tpu_torch.bench.bulk_build``, reads one from disk
+with ``diagon_tpu_torch.store.read_segment`` (or a whole commit with
+``diagon_tpu_torch.index.reader.DirectoryReader``), and carries one across
+from the JAX package with ``diagon_tpu_torch.search.convert.segment_from_jax``.
 
 ``SegmentInfo``/``SegmentInfos`` are the commit model: a commit is an
 atomic generation file (``segments_<gen>``) listing immutable per-segment
@@ -20,11 +21,15 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field as dc_field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from diagon_tpu_torch.codecs.postings import PackedPostings
+from diagon_tpu_torch.codecs.postings import (
+    PackedPostings,
+    build_packed_postings,
+    build_packed_postings_csr,
+)
 
 
 class DocValuesType(enum.Enum):
@@ -77,6 +82,9 @@ class SegmentData:
     stored: List[Dict[str, object]] = dc_field(default_factory=list)
     # live-docs bitmap; None means all live (reference .liv)
     live_docs: Optional[np.ndarray] = None  # bool [num_docs]
+    # per-field schema (reference FieldInfos); None for disk-loaded
+    # segments (derive with field_infos.infos_from_segment)
+    field_infos: Optional[object] = None
 
     @property
     def num_live_docs(self) -> int:
@@ -92,6 +100,125 @@ class SegmentData:
         was_live = bool(self.live_docs[doc_id])
         self.live_docs[doc_id] = False
         return was_live
+
+
+def flush_memory_index(mem, name: str) -> Optional[SegmentData]:
+    """Flush the in-memory buffer (``MemoryIndex``) into an immutable
+    SegmentData.
+
+    The analogue of ``DocumentsWriterPerThread::flush``
+    (DocumentsWriterPerThread.cpp:488-766): norms first (block-max tables
+    need them), then packed postings, doc values, points, stored rows.
+    """
+    if mem.num_docs == 0:
+        return None
+
+    seg = SegmentData(name=name, num_docs=mem.num_docs)
+    seg.field_infos = mem.field_infos()
+
+    for fname, fb in mem.fields.items():
+        norms = mem.compute_norms(fname)
+        nat = mem._native_arrays(fb)
+        if nat is not None and not fb.postings:
+            # pure host-buffer field: the CSR packer (hot path)
+            pp = build_packed_postings_csr(
+                nat["terms"],
+                nat["entry_start"],
+                nat["docs"],
+                nat["freqs"],
+                nat["pos_start"] if fb.with_positions else None,
+                nat["positions"] if fb.with_positions else None,
+                norms,
+            )
+        elif nat is None and not fb.with_positions:
+            # dict postings without positions -> CSR -> the CSR packer
+            postings_arrays, _ = mem.field_term_arrays(fname)
+            terms = sorted(postings_arrays.keys())
+            entry_start = np.zeros(len(terms) + 1, dtype=np.int64)
+            docs_l, freqs_l = [], []
+            for i, t in enumerate(terms):
+                d, f = postings_arrays[t]
+                entry_start[i + 1] = entry_start[i] + len(d)
+                docs_l.append(d)
+                freqs_l.append(f)
+            pp = build_packed_postings_csr(
+                terms,
+                entry_start,
+                np.concatenate(docs_l) if docs_l else np.zeros(0, np.int64),
+                np.concatenate(freqs_l) if freqs_l else np.zeros(0, np.int64),
+                norms=norms,
+            )
+        else:
+            # dict postings with positions, or a field that both buffers
+            # fed (merged per term by field_term_arrays)
+            postings_arrays, positions = mem.field_term_arrays(fname)
+            pp = build_packed_postings(postings_arrays, positions, norms)
+        pp.doc_count_with_field = fb.doc_count_with_field
+        seg.fields[fname] = SegmentFieldData(
+            postings=pp, norms=norms, with_positions=fb.with_positions
+        )
+
+    for fname, dv in mem.doc_values.items():
+        docs = np.asarray(dv.docs, dtype=np.int32)
+        if dv.dv_type in (DocValuesType.NUMERIC, DocValuesType.SORTED_NUMERIC):
+            vals = np.asarray([int(v) for v in dv.values], dtype=np.int64)
+            if dv.dv_type == DocValuesType.SORTED_NUMERIC:
+                docs, vals, starts = _multi_value_csr(docs, vals, sort_vals=True)
+                seg.doc_values[fname] = DocValuesData(
+                    dv.dv_type, docs, vals, value_start=starts
+                )
+            else:
+                seg.doc_values[fname] = DocValuesData(dv.dv_type, docs, vals)
+        else:
+            raw = [
+                v.encode() if isinstance(v, str) else bytes(v) for v in dv.values
+            ]
+            uniq = sorted(set(raw))
+            ord_map = {b: i for i, b in enumerate(uniq)}
+            ords = np.asarray([ord_map[b] for b in raw], dtype=np.int64)
+            if dv.dv_type == DocValuesType.SORTED_SET:
+                docs, ords, starts = _multi_value_csr(docs, ords, sort_vals=True)
+                seg.doc_values[fname] = DocValuesData(
+                    dv.dv_type, docs, ords, ord_values=uniq, value_start=starts
+                )
+            else:
+                seg.doc_values[fname] = DocValuesData(
+                    dv.dv_type, docs, ords, ord_values=uniq
+                )
+
+    for fname, pb in mem.points.items():
+        vals = np.asarray(
+            pb.values, dtype=np.float64 if pb.is_double else np.int64
+        )
+        docs = np.asarray(pb.docs, dtype=np.int32)
+        order = np.lexsort((docs, vals))
+        seg.points[fname] = PointsData(
+            values=vals[order], docs=docs[order], is_double=pb.is_double
+        )
+
+    seg.stored = list(mem.stored)
+    return seg
+
+
+def _multi_value_csr(
+    docs: np.ndarray, vals: np.ndarray, sort_vals: bool
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Group duplicate (doc, value) rows into CSR (unique docs + offsets)."""
+    uniq_docs, start_idx = np.unique(docs, return_index=True)
+    order = np.argsort(docs, kind="stable")
+    sorted_vals = vals[order]
+    counts = np.bincount(
+        np.searchsorted(uniq_docs, docs), minlength=len(uniq_docs)
+    )
+    starts = np.zeros(len(uniq_docs) + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    if sort_vals:
+        out_vals = sorted_vals.copy()
+        for i in range(len(uniq_docs)):
+            s, e = starts[i], starts[i + 1]
+            out_vals[s:e] = np.sort(sorted_vals[s:e])
+        sorted_vals = out_vals
+    return uniq_docs.astype(np.int32), sorted_vals, starts
 
 
 @dataclass

@@ -1,12 +1,13 @@
-"""Build and load the port's host C++ (``csrc/host/bulk.cpp`` and
-``csrc/host/store.cpp``).
+"""Build and load the port's host C++ (``csrc/host/bulk.cpp``,
+``csrc/host/store.cpp`` and ``csrc/host/ingest.cpp``).
 
 The synthetic-corpus builder samples, inverts and packs billions of tokens
 at the 10M-doc scale, which only native code does in minutes; the store
 tier decodes freqs and positions of segments read from disk, and the
-columnar codecs compress LZ4 blocks. Both sources compile with the host C++
-compiler into one library under ``build/host/`` at the root of the
-checkout on first use, named by a hash of the sources and the flags, and
+columnar codecs compress LZ4 blocks; the write path tokenizes and
+accumulates postings (``standard_tokenize_ascii``, ``FreqProx``). The
+sources compile with the host C++ compiler into one library under
+``build/host/`` at the root of the checkout on first use, named by a hash of the sources and the flags, and
 load with ``ctypes``; a file lock makes concurrent first uses (test
 workers) build it once. A failed build raises: nothing falls back. The
 flags are the JAX package's native build's
@@ -14,7 +15,8 @@ flags are the JAX package's native build's
 ``-ffp-contract=off``, so the token stream does not depend on the host
 CPU.
 
-Every function returns plain numpy arrays; nothing here touches a device.
+Every function returns numpy arrays or Python strings; nothing here touches
+a device.
 """
 
 from __future__ import annotations
@@ -25,20 +27,23 @@ import hashlib
 import os
 import shutil
 import subprocess
+import weakref
 from pathlib import Path
 from types import SimpleNamespace
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = [_PKG / "csrc" / "host" / n for n in ("bulk.cpp", "store.cpp")]
+SOURCES = [_PKG / "csrc" / "host" / n
+           for n in ("bulk.cpp", "store.cpp", "ingest.cpp")]
 BUILD_DIR = _PKG.parent / "build" / "host"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-fvisibility=hidden",
              "-ffp-contract=off"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _D = ctypes.c_double
 _SIGNATURES = {
@@ -53,6 +58,14 @@ _SIGNATURES = {
     "diagon_positions_from_deltas": ([_P, _P, _I64, _P, _I64, _P], _I),
     "diagon_lz4_compress": ([_P, _I64, _P, _P], _I),
     "diagon_lz4_decompress": ([_P, _I64, _P, _I64], _I),
+    "diagon_tokenize_ascii": ([_P, _I64, _P, _P, _P], _I),
+    "diagon_fp_new": ([], _P),
+    "diagon_fp_free": ([_P], None),
+    "diagon_fp_add_documents": ([_P, _I32, _P, _P, _I64, _I, _P], _I),
+    "diagon_fp_add_keywords": ([_P, _I32, _P, _P, _I64], _I64),
+    "diagon_fp_ram_bytes": ([_P], _I64),
+    "diagon_fp_num_terms": ([_P], _I64),
+    "diagon_fp_finish": ([_P, _I] + [_P] * 14, _I),
 }
 
 _lib: Optional[SimpleNamespace] = None
@@ -282,3 +295,114 @@ def lz4_decompress(block: bytes, out_size: int) -> bytes:
         raise ValueError(f"lz4_decompress: corrupt block (not {out_size} "
                          "bytes)")
     return out.tobytes()
+
+
+def _blob(texts: Sequence[str]) -> Tuple[bytes, np.ndarray]:
+    """UTF-8 bytes of ``texts`` end to end, and int64 offsets [n+1]."""
+    joined = "".join(texts)
+    blob = joined.encode()
+    if len(blob) == len(joined):  # all ASCII: one byte a character
+        lens = [len(t) for t in texts]
+    else:
+        enc = [t.encode() for t in texts]
+        blob, lens = b"".join(enc), [len(b) for b in enc]
+    offs = np.zeros(len(texts) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    return blob, offs
+
+
+def _split(blob: bytes, offs: np.ndarray) -> List[str]:
+    o = offs.tolist()
+    return [blob[o[i]:o[i + 1]].decode() for i in range(len(o) - 1)]
+
+
+def standard_tokenize_ascii(text: str) -> List[str]:
+    """The lowercased tokens of ASCII ``text``: a token starts at an ASCII
+    alphanumeric and runs over alphanumerics and apostrophes
+    (``_native.standard_tokenize_ascii``)."""
+    lib = library()
+    data = text.encode()
+    blob, offs, n = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_int64()
+    _check(lib.diagon_tokenize_ascii(data, len(data), ctypes.byref(blob),
+                                     ctypes.byref(offs), ctypes.byref(n)),
+           "tokenize_ascii")
+    o = _take(lib, offs, n.value + 1, np.int64)
+    return _split(_take(lib, blob, int(o[-1]), np.uint8).tobytes(), o)
+
+
+class FreqProx:
+    """One field's postings accumulator on the host (``_native.FreqProx``):
+    documents and keywords in, sorted CSR postings out. Not thread-safe:
+    its owner serialises the calls (the writer's mutex)."""
+
+    def __init__(self):
+        self._lib = library()
+        self._h = self._lib.diagon_fp_new()
+        if not self._h:
+            raise MemoryError("FreqProx: the host could not allocate it")
+        self._free = weakref.finalize(self, self._lib.diagon_fp_free, self._h)
+
+    def add_document(self, doc_id: int, text: str,
+                     with_positions: bool) -> int:
+        """Tokenize and add one document's text; its token count."""
+        return int(self.add_documents(doc_id, [text], with_positions)[0])
+
+    def add_documents(self, doc_id0: int, texts: Sequence[str],
+                      with_positions: bool) -> np.ndarray:
+        """Text k becomes doc ``doc_id0 + k``; i32 token counts [n]."""
+        blob, offs = _blob(texts)
+        counts = np.empty(len(texts), np.int32)
+        _check(self._lib.diagon_fp_add_documents(
+            self._h, doc_id0, blob, _ptr(offs), len(texts),
+            int(bool(with_positions)), _ptr(counts)), "FreqProx.add_documents")
+        return counts
+
+    def add_keywords(self, doc_id0: int,
+                     values: Sequence[Optional[str]]) -> int:
+        """Value k, one case-sensitive term, goes to doc ``doc_id0 + k``;
+        None or "" means the doc lacks the field. The number of docs with
+        the field."""
+        blob, offs = _blob(["" if v is None else v for v in values])
+        n = self._lib.diagon_fp_add_keywords(self._h, doc_id0, blob,
+                                             _ptr(offs), len(values))
+        if n < 0:
+            raise MemoryError("FreqProx.add_keywords: the host could not "
+                              "allocate")
+        return int(n)
+
+    def ram_bytes(self) -> int:
+        return int(self._lib.diagon_fp_ram_bytes(self._h))
+
+    def num_terms(self) -> int:
+        return int(self._lib.diagon_fp_num_terms(self._h))
+
+    def finish(self, with_positions: bool) -> dict:
+        """The postings by name: ``terms`` (sorted by their UTF-8 bytes),
+        ``entry_start`` i64 [T+1] into ``docs``/``freqs`` i32, ``pos_start``
+        i64 [NE+1] into ``positions`` i32 (empty without positions), and
+        ``field_docs``/``field_lens`` i32: the docs with the field and
+        their token counts."""
+        lib = self._lib
+        p = [ctypes.c_void_p() for _ in range(9)]
+        blob_len, T, NE, NP, ND = (ctypes.c_int64() for _ in range(5))
+        blob, toffs, estart, docs, freqs, pstart, pos, fdocs, flens = p
+        _check(lib.diagon_fp_finish(
+            self._h, int(bool(with_positions)), ctypes.byref(blob),
+            ctypes.byref(blob_len), ctypes.byref(toffs), ctypes.byref(T),
+            ctypes.byref(estart), ctypes.byref(docs), ctypes.byref(freqs),
+            ctypes.byref(NE), ctypes.byref(pstart), ctypes.byref(pos),
+            ctypes.byref(NP), ctypes.byref(fdocs), ctypes.byref(flens),
+            ctypes.byref(ND)), "FreqProx.finish")
+        toffs_a = _take(lib, toffs, T.value + 1, np.int64)
+        n_pstart = NE.value + 1 if with_positions else 0
+        return {
+            "terms": _split(_take(lib, blob, blob_len.value,
+                                  np.uint8).tobytes(), toffs_a),
+            "entry_start": _take(lib, estart, T.value + 1, np.int64),
+            "docs": _take(lib, docs, NE.value, np.int32),
+            "freqs": _take(lib, freqs, NE.value, np.int32),
+            "pos_start": _take(lib, pstart, n_pstart, np.int64),
+            "positions": _take(lib, pos, NP.value, np.int32),
+            "field_docs": _take(lib, fdocs, ND.value, np.int32),
+            "field_lens": _take(lib, flens, ND.value, np.int32),
+        }

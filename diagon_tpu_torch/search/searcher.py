@@ -118,7 +118,8 @@ class IndexSearcher:
 
     ``segments`` is a list of ``SegmentData``, a
     ``diagon_tpu_torch.index.reader.DirectoryReader`` (an index opened from
-    disk: ``DirectoryReader.open(FSDirectory(path))``), or the reader's
+    disk: ``DirectoryReader.open(FSDirectory(path))``, as the port's
+    ``IndexWriter`` or the JAX package's commits it), or the reader's
     ``leaves()``. A segment read from disk keeps its positions undecoded
     until the first phrase query needs them.
 

@@ -77,6 +77,41 @@ def test_the_disk_modules_are_scanned_and_probed(probe, name):
     assert probe["imports"][module] == "ok", probe["imports"][module]
 
 
+WRITE_MODULES = ["analysis", "analysis.tokenizers", "analysis.filters",
+                 "analysis.analyzer", "document", "document.document",
+                 "document.mapping", "document.json_parser",
+                 "index.field_infos", "index.memory_index", "index.merge",
+                 "index.writer", "bench.synthetic", "entry"]
+
+
+@pytest.mark.parametrize("name", WRITE_MODULES)
+def test_the_write_path_modules_are_scanned_and_probed(probe, name):
+    """The write path (documents, analysis, MemoryIndex, merges, the
+    writer) and the entry() twin are in both checks."""
+    module = f"diagon_tpu_torch.{name}"
+    assert module in MODULES
+    assert probe["imports"][module] == "ok", probe["imports"][module]
+
+
+@pytest.mark.parametrize("first", ["diagon_tpu_torch.document",
+                                   "diagon_tpu_torch.index.writer",
+                                   "diagon_tpu_torch.store"])
+def test_write_path_imports_in_any_order(first):
+    """The document model takes its DocValuesType from index.segment; the
+    index package loads its writer side lazily, so no first import closes
+    a cycle, and the writer's names resolve from the package."""
+    code = (f"import sys; sys.modules['jax'] = sys.modules['diagon_tpu'] = None\n"
+            f"import {first}\n"
+            "from diagon_tpu_torch.index import IndexWriter, MemoryIndex\n"
+            "from diagon_tpu_torch.document import Document, DocValuesType\n"
+            "from diagon_tpu_torch.index.segment import DocValuesType as S\n"
+            "assert DocValuesType is S\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("module", MODULES)
 def test_module_imports_without_jax(probe, module):
     assert probe["imports"][module] == "ok", probe["imports"][module]
