@@ -178,10 +178,39 @@ script exits non-zero), in the order they run:
    again. Host seconds (docs/s), each flush, commit and force_merge, and
    the file MiB.
 
-Phases run in the order 1, 2, 3, 3b, 10, 4, 11, 5, 9, 8, 6, 7. Launch
+12. The embedding API (``diagon_tpu_torch.api``) and tier-managed
+   residency (main path, counted): (a) corpus_documents(19,043) with a
+   views field (indexed long and long point, numpy default_rng(13))
+   written through the C-API form (writer config setters,
+   max_buffered_docs 4,761: four segments), open_index_reader and
+   create_index_searcher on the card; 64 term / boolean / phrase /
+   MUST_NOT queries drawn as phase 11 draws its batches, two ranges on
+   views, a range filter and match-all through search_top_docs and count
+   equal to the oracle (docids, score bits, hits); TermsEnum /
+   PostingsEnum over the first 200 body terms equal to the oracle's
+   postings; the doc-values bulk read and scan, compute_histogram and
+   search_with_date_histogram equal to numpy; pcall on a missing index;
+   the port's validator (diagon_tpu_torch.validate_bundle --deep) prints
+   RESULT: OK (its own process, beside the rest of the phase). (b) the same four segments under
+   hbm_budget_bytes of 2.5 x the first segment's estimate: 2 DEVICE and
+   2 HOST, every query through search and count bit-equal to (a)'s
+   resident searcher, search_batch equal to search, dispatch_batch raising
+   MemoryError, the host ms of one tier-managed search; under 10 x all
+   four resident, a batch dispatched and collected bit-equal, and per
+   segment the estimate against the memory_allocated delta of a promote,
+   each demote returning exactly that memory. (c) phase 5's 1M index
+   reopened through open_reader / open_searcher: its six solo pure-OR
+   queries and three booleans through dg.search / dg.count bit-equal to
+   phase 5's searcher; QueryProfiler's plan / execute / merge counts; a
+   QueryProfiler.trace of one or20 search on (a)'s index names B1's
+   kernel; device_health_check is healthy and names the card. B1 and B2
+   must launch.
+
+Phases run in the order 1, 2, 3, 3b, 10, 4, 11, 5, 12, 9, 8, 6, 7. Launch
 counters are set to 0 just before each main-path phase (10 at each table
-size, 4, 11, 5, 9 and each route of 8) and read just after it; comparisons with plain versions
-and with the exhaustive route, and phases 6-7, do not count. Each kernel
+size, 4, 11, 5, 12, 9 and each route of 8) and read just after it;
+comparisons with plain versions and with the exhaustive route, and phases
+6-7, do not count. Each kernel
 must launch on a path where it has to run.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -199,7 +228,9 @@ sys.modules["diagon_tpu"] = None
 import atexit  # noqa: E402
 import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
+import gc  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
@@ -1608,6 +1639,22 @@ def device_ops(fn):
             sum(e.self_device_time_total for e in rows) / 1e3)
 
 
+def solo_pure_or(searcher, pool, or20):
+    """Phase 5's solo pure-OR queries by name: or20, ORs of 2-5 frequent
+    terms, and one with a rare term."""
+    from diagon_tpu_torch.bench.queries import _or_query as or_query
+
+    rare, rare_df = rare_term(searcher)
+    return {
+        "or20": or20,
+        "or2": or_query(pool[:2]),
+        "or3": or_query([pool[30], pool[77], pool[120]]),
+        "or4": or_query(pool[2:6]),
+        "or5": or_query(pool[10:15]),
+        f"{rare}(df {rare_df})+1": or_query([rare, pool[50]]),
+    }
+
+
 def solo_route(searcher, oracle, counts, pool, or20, smi):
     """Phase 5's solo pure-OR queries (or20, ORs of 2-5 frequent terms, one
     with a rare term) and a pure-OR batch of 3 plans: at 1M docs they take
@@ -1620,20 +1667,10 @@ def solo_route(searcher, oracle, counts, pool, or20, smi):
     device operations of one tile-UB dispatch. The batch reuses three of
     the solo queries (the oracle answers each query object once), as
     ``or20`` is the object the or20 batch already checked."""
-    from diagon_tpu_torch.bench.queries import _or_query as or_query
-
     t0 = time.perf_counter()
     ex = searcher._ctx("body").row_executors[0]
-    rare, rare_df = rare_term(searcher)
-    solos = {
-        "or20": or20,
-        "or2": or_query(pool[:2]),
-        "or3": or_query([pool[30], pool[77], pool[120]]),
-        "or4": or_query(pool[2:6]),
-        "or5": or_query(pool[10:15]),
-        f"{rare}(df {rare_df})+1": or_query([rare, pool[50]]),
-    }
-    batch = [solos["or2"], solos["or5"], solos[f"{rare}(df {rare_df})+1"]]
+    solos = solo_pure_or(searcher, pool, or20)
+    batch = [solos["or2"], solos["or5"], list(solos.values())[-1]]
     m0 = {n: c.value() for n, c in ex.metrics.items()}
     before = counts.read()
     for name, q in solos.items():
@@ -1758,7 +1795,386 @@ def phase_scale(counts, smi):
     ex = searcher._ctx("body").row_executors[0]
     for label, plans in batches.items():
         pruned_equals_exhaustive(ex, counts, plans, label, True)
-    return searcher, batches, sent, launches
+    return searcher, batches, sent, launches, disk["reader"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the embedding API and tier-managed residency
+# ---------------------------------------------------------------------------
+
+API_VIEWS_SEED = 13  # numpy.random.default_rng seed of the views field
+API_VIEWS_MAX = 1_000_000
+
+
+def api_index(dg, smi):
+    """corpus_documents(SERVE_DOCS) with a views field (an indexed long:
+    keyword + stored + NUMERIC doc values, and a long point for the point
+    range and the histogram) written through the C-API form: writer config
+    setters, max_buffered_docs 4,761 (four flushes), add_documents, commit,
+    close. Returns (path, views)."""
+    from diagon_tpu_torch.bench.synthetic import corpus_documents
+
+    docs = list(corpus_documents(SERVE_DOCS))
+    views = np.random.default_rng(API_VIEWS_SEED).integers(
+        0, API_VIEWS_MAX, SERVE_DOCS)
+    for doc, v in zip(docs, views.tolist()):
+        dg.document_add_field(doc, dg.create_indexed_long_field("views", v))
+        dg.document_add_field(doc, dg.create_long_point_field("views", v))
+    path = str(scratch_dir())
+    cfg = dg.create_index_writer_config()
+    dg.config_set_ram_buffer_size(cfg, 512.0)
+    dg.config_set_max_buffered_docs(cfg, 4761)
+    dg.config_set_open_mode(cfg, 0)  # CREATE
+    dg.config_set_commit_on_close(cfg, True)
+    dg.config_set_use_compound_file(cfg, True)
+    t0 = time.perf_counter()
+    w = dg.create_index_writer(path, cfg)
+    n = dg.add_documents(w, docs)
+    gen = dg.commit(w)
+    dg.close_writer(w)
+    t_write = time.perf_counter() - t0
+    log(f"  C-API writer: add_documents x {n} + commit (gen {gen}) + close "
+        f"{t_write:.3f} s -> {n / t_write:.0f} docs/s host; "
+        f"{dg.directory_get_size(dg.open_fs_directory(path)) / 2**20:.1f} "
+        f"MiB [{smi}]")
+    return path, views
+
+
+def api_queries(dg, searcher):
+    """64 term / boolean / phrase queries drawn as phase 11 draws its
+    batches (48 of the mixed batch with phrase_share 5, 16 MUST_NOT
+    queries), then ranges on views and match-all."""
+    from diagon_tpu_torch.bench.queries import frequent_terms, mixed_query_batch
+
+    pool = frequent_terms(searcher)
+    queries = (mixed_query_batch(pool, 48, seed=42, phrase_share=5)
+               + must_not_batch(pool, 16))
+    lo, hi = API_VIEWS_MAX // 5, API_VIEWS_MAX // 2
+    queries += [
+        dg.numeric_range_query("views", lo, hi),
+        dg.double_point_range_query("views", float(hi), None),
+        dg.boolean_query(must=[dg.term_query("body", pool[1])],
+                         filter_=[dg.numeric_range_query("views", 0, hi)]),
+        dg.match_all_query(),
+    ]
+    return queries
+
+
+def api_checks(dg, reader, searcher, views, queries, smi):
+    """(a)'s gates: every query through search_top_docs and count equal to
+    the oracle (docids, score bits, hits); TermsEnum / PostingsEnum over the
+    first 200 body terms equal to the oracle's postings; the doc-values
+    bulk read and scan, compute_histogram and search_with_date_histogram
+    equal to numpy over the same documents; pcall on a missing index.
+    Returns the oracle's TopDocs by query."""
+    from diagon_tpu_torch.search.oracle import OracleSearcher
+
+    segs = reader.segments_data()
+    oracle = OracleSearcher(segs)
+    t0 = time.perf_counter()
+    got = [dg.search_top_docs(searcher, q, K) for q in queries]
+    counts = [dg.count(searcher, q) for q in queries]
+    t_api = time.perf_counter() - t0
+    want = [oracle.search(q, K) for q in queries]
+    for q, g, w, c in zip(queries, got, want, counts):
+        if not same_topdocs(g, w):
+            raise AssertionError(f"API search_top_docs differs from the "
+                                 f"oracle for {q!r}:\n  {g}\n  {w}")
+        if c != oracle.count(q):
+            raise AssertionError(f"API count {c} != the oracle's for {q!r}")
+    log(f"  {len(queries)} queries through search_top_docs + count equal "
+        f"to the oracle (docids, score bits, hits) in {t_api:.3f} s of "
+        f"host [{smi}]")
+
+    te = dg.reader_get_terms(reader, "body")
+    bases = [leaf.doc_base for leaf in reader.leaves()]
+    n_terms = n_post = 0
+    while n_terms < 200 and dg.terms_enum_next(te):
+        term = dg.terms_enum_get_term(te)
+        pe = dg.terms_enum_get_postings(te)
+        docs = []
+        while (d := dg.postings_next_doc(pe)) != -1:
+            docs.append((d, dg.postings_freq(pe)))
+        want_docs = []
+        for base, seg in zip(bases, segs):
+            dd, ff = OracleSearcher._term_postings(seg, "body", term)
+            want_docs += [(int(x) + base, int(f)) for x, f in zip(dd, ff)]
+        if docs != want_docs or dg.terms_enum_doc_freq(te) != len(docs):
+            raise AssertionError(f"PostingsEnum of {term!r} differs from "
+                                 "the oracle's postings")
+        n_terms += 1
+        n_post += len(docs)
+    log(f"  TermsEnum / PostingsEnum: the first {n_terms} body terms "
+        f"({n_post} postings) equal the oracle's")
+
+    ids = np.random.default_rng(API_VIEWS_SEED).integers(
+        0, SERVE_DOCS + 100, 4096)
+    vals, found = dg.reader_get_numeric_doc_values_bulk(reader, "views", ids)
+    inside = ids < SERVE_DOCS
+    same_array("numeric DV bulk found", found, inside)
+    same_array("numeric DV bulk values", vals,
+               np.where(inside, views[np.minimum(ids, SERVE_DOCS - 1)],
+                        0).astype(np.float64))
+    scan, valid = dg.reader_scan_numeric_doc_values(reader, "views")
+    same_array("numeric DV scan", scan, views.astype(np.float64))
+    same_array("numeric DV scan valid", valid, np.ones(SERVE_DOCS, bool))
+    interval = API_VIEWS_MAX / 20
+    hist, total = dg.compute_histogram(reader, "views", 0.0, interval, 20)
+    same_array("compute_histogram", hist,
+               np.bincount(np.floor(views / interval).astype(np.int64),
+                           minlength=20))
+    if total != SERVE_DOCS:
+        raise AssertionError(f"compute_histogram total {total}")
+    rq = queries[-4]
+    lo, hi = rq.lower, rq.upper
+    mask = (views >= lo) & (views <= hi)
+    keys, hc, hits = dg.search_with_date_histogram(
+        searcher, rq, reader, "views", interval / 4, float(lo), float(hi))
+    nb = int(np.ceil((hi - lo) / (interval / 4)))
+    b = np.floor((views[mask] - lo) / (interval / 4)).astype(np.int64)
+    same_array("date histogram counts", hc,
+               np.bincount(b[b < nb], minlength=nb))
+    same_array("date histogram keys", keys,
+               lo + np.arange(nb, dtype=np.float64) * (interval / 4))
+    if hits != int(mask.sum()):
+        raise AssertionError(f"date histogram hits {hits} != {mask.sum()}")
+    log(f"  doc values (bulk of {len(ids)}, scan), compute_histogram and "
+        f"search_with_date_histogram ({nb} buckets, {hits} hits) equal "
+        "numpy over the same documents")
+
+    dg.clear_error()
+    missing = str(scratch_dir() / "missing")
+    if dg.pcall(dg.open_index_reader, missing) is not None:
+        raise AssertionError("pcall on a missing index returned a reader")
+    if not dg.last_error().startswith("FileNotFoundError"):
+        raise AssertionError(f"last_error: {dg.last_error()!r}")
+    log(f"  pcall(open_index_reader, <no commit>) -> None, last_error "
+        f"{dg.last_error()!r}")
+    dg.clear_error()
+    return want
+
+
+# the port's index validator with JAX and the JAX package made unimportable
+_VALIDATE = ("import sys\n"
+             "sys.modules['jax'] = sys.modules['diagon_tpu'] = None\n"
+             "from diagon_tpu_torch.validate_bundle import validate\n"
+             "sys.exit(validate(sys.argv[1], deep=True))\n")
+
+
+@contextlib.contextmanager
+def validating(path):
+    """The port's index validator (diagon_tpu_torch/validate_bundle.py,
+    --deep; host numpy, about 15 s at 19k docs) runs in its own process
+    beside the block, with jax and diagon_tpu unimportable there, and must
+    print RESULT: OK; the process never outlives the block."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _VALIDATE, path],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    try:
+        yield
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0 or "RESULT: OK" not in out:
+        raise AssertionError("validate_bundle: " + out[-2000:] + err[-2000:])
+    log(f"  diagon_tpu_torch.validate_bundle --deep: RESULT: OK (its process "
+        f"{time.perf_counter() - t0:.1f} s, beside the rest of the phase)")
+
+
+def tier_counts(searcher):
+    tiers = [e["tier"] for e in searcher.tier_stats().values()]
+    return tiers.count("device"), tiers.count("host")
+
+
+def tier_short_budget(reader, full, queries, counts, smi):
+    """(b) under a budget of 2.5 x the first segment's estimate: 2 DEVICE
+    and 2 HOST; every query through search and count bit-equal to the
+    fully resident searcher ``full`` (its calls uncounted); search_batch
+    equal to per-query search; dispatch_batch raises MemoryError; the host
+    ms of one tier-managed search."""
+    from diagon_tpu_torch.search import IndexSearcher, PhraseQuery, TermQuery
+
+    segs = reader.segments_data()
+    est = IndexSearcher._estimate_device_bytes(segs[0])
+    t = IndexSearcher(reader, device=DEVICE, hbm_budget_bytes=int(est * 2.5))
+    if tier_counts(t) != (2, 2):
+        raise AssertionError(f"short budget: tiers {t.tier_stats()}")
+    t0 = time.perf_counter()
+    for q in queries:
+        want = counts.uncounted(full.search, q, K)
+        if not same_topdocs(t.search(q, K), want):
+            raise AssertionError(f"tier-managed search differs for {q!r}")
+        if t.count(q) != want.total_hits:
+            raise AssertionError(f"tier-managed count differs for {q!r}")
+    t_all = time.perf_counter() - t0
+    batch = [q for q in queries if not isinstance(q, PhraseQuery)][:16]
+    for q, r in zip(batch, t.search_batch(batch, K)):
+        if not same_topdocs(r, t.search(q, K)):
+            raise AssertionError(f"search_batch != search for {q!r}")
+    try:
+        t.dispatch_batch(batch, K)
+        raise AssertionError("dispatch_batch under the short budget did not "
+                             "raise MemoryError")
+    except MemoryError:
+        pass
+    term = next(q for q in queries if isinstance(q, TermQuery))
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        t.search(term, K)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"  (b) budget 2.5 x {est} B: tiers (device, host) {tier_counts(t)}; "
+        f"{len(queries)} queries through search + count bit-equal to the "
+        f"resident searcher ({t_all:.2f} s: every call sweeps the four "
+        f"segments on and off the card); search_batch == search; "
+        f"dispatch_batch raises MemoryError; one tier-managed search "
+        f"{statistics.median(times) * 1e3:.3f} ms host (median of 5) [{smi}]")
+    return est
+
+
+def tier_generous_budget(reader, full, queries, est, counts, smi):
+    """(b) under 10 x the estimate: all four resident, the batches served on
+    the card (dispatch_batch + collect_many) bit-equal to ``full`` (its
+    calls uncounted); then per segment the estimate against the
+    memory_allocated delta of a promote, and a demote that returns exactly
+    that memory."""
+    from diagon_tpu_torch.search import IndexSearcher
+
+    g = IndexSearcher(reader, device=DEVICE, hbm_budget_bytes=est * 10)
+    if tier_counts(g) != (4, 0):
+        raise AssertionError(f"generous budget: tiers {g.tier_stats()}")
+    batch = queries[:64]
+    res = g.collect_many([g.dispatch_batch(batch, K)])[0]
+    for q, r in zip(batch, res):
+        if not same_topdocs(r, counts.uncounted(full.search, q, K)):
+            raise AssertionError(f"resident batch differs for {q!r}")
+    rows = []
+    for seg in reader.segments_data():
+        def allocated():
+            gc.collect()
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated(DEVICE)
+
+        g._tier_demote(seg.name)
+        m1 = allocated()
+        g._tier_promote(seg.name)
+        m2 = allocated()
+        g._tier_demote(seg.name)
+        m3 = allocated()
+        g._tier_promote(seg.name)
+        if m2 <= m1 or m3 != m1:
+            raise AssertionError(f"{seg.name}: promote {m1} -> {m2} B, "
+                                 f"demote back to {m3} B")
+        e = IndexSearcher._estimate_device_bytes(seg)
+        rows.append(f"{seg.name} est {e} B / measured {m2 - m1} B "
+                    f"({(m2 - m1) / e:.2f}x)")
+    log(f"  (b) budget 10 x: tiers {tier_counts(g)}; the {len(batch)} "
+        f"queries dispatched and collected bit-equal; per segment "
+        f"(fields {sorted(g._field_ctx)}), the estimate against the "
+        f"memory_allocated delta of a promote, and each demote returned "
+        f"exactly that memory: {'; '.join(rows)} [{smi}]")
+
+
+def api_from_disk(dg, counts, searcher1m, reader1m, smi, s19):
+    """(c) phase 5's 1M index reopened through the API: 9 solo queries
+    (phase 5's pure-OR set and three booleans) through dg.search and
+    dg.count bit-equal to phase 5's searcher; the profiler's report; a
+    torch.profiler trace naming B1's kernel; the device health check."""
+    from diagon_tpu_torch.bench.queries import frequent_terms, reuters_queries
+    from diagon_tpu_torch.observability import QueryProfiler
+    from diagon_tpu_torch.observability.health import device_health_check
+
+    path = reader1m.directory.path
+    t0 = time.perf_counter()
+    r = dg.open_reader(path)
+    s = dg.open_searcher(r, device=DEVICE)
+    torch.cuda.synchronize()
+    t_open = time.perf_counter() - t0
+    pool = frequent_terms(searcher1m)
+    queries = reuters_queries()
+    solos = solo_pure_or(searcher1m, pool, queries["or20"])
+    solos["and2:oil+price"] = queries["and2:oil+price"]
+    solos["must+should"] = dg.boolean_query(
+        must=[dg.term_query("body", pool[0])],
+        should=[dg.term_query("body", pool[3]), dg.term_query("body", pool[7])])
+    solos["must_not"] = must_not_batch(pool, 1)[0]
+    times = {}
+    for name, q in solos.items():
+        t0 = time.perf_counter()
+        hits = dg.search(s, q, K)
+        times[name] = (time.perf_counter() - t0) * 1e3
+        n = dg.count(s, q)
+        want = counts.uncounted(searcher1m.search, q, K)
+        if (hits != [(sd.doc, sd.score) for sd in want.score_docs]
+                or n != counts.uncounted(searcher1m.count, q)):
+            raise AssertionError(f"1M through the API: {name} differs from "
+                                 f"phase 5's searcher")
+    log(f"  (c) the 1M index from disk: open_reader + open_searcher "
+        f"{t_open:.2f} s; {len(solos)} solo queries through dg.search and "
+        f"dg.count bit-equal to phase 5's searcher; first-call host ms "
+        + ", ".join(f"{n} {t:.2f}" for n, t in times.items()) + f" [{smi}]")
+
+    p = QueryProfiler.enable()
+    plain = [q for n, q in solos.items() if n != "must_not"][:3]
+    for q in plain:
+        dg.search(s, q, K)
+    rep = p.report()
+    QueryProfiler._tls.profiler = QueryProfiler(enabled=False)
+    if any(rep.get(ph, {}).get("count") != len(plain)
+           for ph in ("plan", "execute", "merge")):
+        raise AssertionError(f"QueryProfiler report {rep}")
+    log("  QueryProfiler: " + ", ".join(
+        f"{ph} x{r['count']} {r['total_us'] / r['count']:.1f} us"
+        for ph, r in rep.items()))
+
+    d = scratch_dir()
+    or20 = reuters_queries()["or20"]
+    with QueryProfiler.trace(str(d), device=DEVICE):
+        dg.search(s19, or20, K)
+    text = (d / "trace.json").read_text()
+    if "row_sum_kernel" not in text:
+        raise AssertionError("the trace of an or20 search on the 19k API "
+                             "index names no row_sum_kernel (B1)")
+    log(f"  QueryProfiler.trace: {len(text) / 2**10:.0f} KiB Chrome trace "
+        "of one or20 search on the 19k API index names row_sum_kernel (B1)")
+    h = device_health_check(DEVICE)
+    if (h.status.value != "healthy"
+            or torch.cuda.get_device_name(0) not in h.message):
+        raise AssertionError(f"device_health_check: {h}")
+    log(f"  device_health_check: {h.status.value}, {h.message}")
+
+
+def phase_api(counts, smi, searcher1m, reader1m):
+    import diagon_tpu_torch.api as dg
+
+    log(f"phase 12: the embedding API (diagon_tpu_torch.api) at {SERVE_DOCS} "
+        "docs, tier-managed residency, and the 1M index through the API")
+    counts.reset()
+    path, views = api_index(dg, smi)
+    reader = dg.open_index_reader(path)
+    if dg.reader_get_segment_count(reader) != 4:
+        raise AssertionError(f"{dg.reader_get_segment_count(reader)} "
+                             "segments, not 4")
+    searcher = dg.create_index_searcher(reader, device=DEVICE)
+    queries = api_queries(dg, searcher)
+    with validating(path):
+        api_checks(dg, reader, searcher, views, queries, smi)
+        est = tier_short_budget(reader, searcher, queries, counts, smi)
+        tier_generous_budget(reader, searcher, queries, est, counts, smi)
+        api_from_disk(dg, counts, searcher1m, reader1m, smi, searcher)
+    launches = counts.read()
+    idle = [n for n in ("row_sum", "row_boolean") if launches[n] < 1]
+    if idle:
+        raise AssertionError(f"phase 12 never launched {idle}")
+    log(f"  launches: {launches}")
+    del searcher, reader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3224,7 +3640,10 @@ def main():
                                                       counts, smi)
     searcher19, batches19, sent19, launches19 = phase(phase_serve, counts, smi)
     launches_ing = phase(phase_ingest, counts, smi)
-    searcher1m, batches1m, sent1m, launches1m = phase(phase_scale, counts, smi)
+    searcher1m, batches1m, sent1m, launches1m, reader1m = phase(
+        phase_scale, counts, smi)
+    launches_api = phase(phase_api, counts, smi, searcher1m, reader1m)
+    del reader1m
     launches_sp = phase(phase_sparse, counts, smi)
     launches10, at10m = phase(phase_scale10, counts, smi)
     ex1m = searcher1m._ctx("body").row_executors[0]
@@ -3245,13 +3664,14 @@ def main():
         ("1M phrase 1024", searcher1m, sent1m["1M phrase 1024"],
          batches1m["1M phrase 1024"]),
     ], counts, smi)
-    runs = (launches19, launches_ing, launches1m, launches_sp,
+    runs = (launches19, launches_ing, launches1m, launches_api, launches_sp,
             launches10["phase1"], launches10["phase0"])
     launches = {n: sum(r.get(n, 0) for r in runs) for n in kernels}
     launches["range_agg"] += launches_col
     times["range_agg"] = dict(x1_record, max_abs_err=0.0)
     log(f"main-path launches at 19k {launches19}; the ingested 19k index "
-        f"{launches_ing}; at 1M {launches1m}; "
+        f"{launches_ing}; at 1M {launches1m}; the API (phase 12) "
+        f"{launches_api}; "
         f"sparse 1M {launches_sp}; at 10M phase 1 {launches10['phase1']}, "
         f"phase 0 {launches10['phase0']}; columnar (X1) {launches_col}")
     idle = [n for n, c in launches.items() if c < 1]

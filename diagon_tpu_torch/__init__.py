@@ -17,13 +17,35 @@ segment, query or row index across. It owns the device tier:
   (compact bank, phase 1 or phase 0, tile selection, phase 2,
   certificates, escalation);
 - ``search.searcher.IndexSearcher``: term / boolean / range / nested
-  search, solo and batched;
+  search, solo and batched, with tier-managed residency under a device
+  byte budget (``observability.storage_tiers``);
+- ``api``: the flat embedding surface, the reference C API's 88
+  ``diagon_*`` functions one to one (``api.C_API_MAP``);
 - ``ops.row_sum`` (B1/B2), ``ops.approx_pass`` (B3/B4/B5),
   ``ops.gather_rescore`` (B6/B7) and ``ops.bits_hits`` (B8): kernels in
   CUDA C++ for sm_90a in ``csrc/``, built with nvcc at first use, with
   plain PyTorch versions beside them.
 
-Results are bit-identical to the JAX package and to the host oracle.
+Results are bit-identical to the JAX package and to the host oracle. The
+document classes are re-exported here, as the JAX package does.
 """
 
 __version__ = "0.1.0"
+
+from diagon_tpu_torch.document.document import (  # noqa: F401
+    Document,
+    Field,
+    TextField,
+    StringField,
+    StoredField,
+    NumericDocValuesField,
+    SortedDocValuesField,
+    SortedNumericDocValuesField,
+    SortedSetDocValuesField,
+    BinaryDocValuesField,
+    LongPointField,
+    DoubleDocValuesField,
+    DoublePointField,
+    IndexOptions,
+    FieldType,
+)

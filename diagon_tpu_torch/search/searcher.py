@@ -11,7 +11,8 @@ reference's ``TopScoreDocCollector``. Queries the row planner rejects
 (pure MUST_NOT, unsupported types) take the host oracle, as in the JAX
 package. Queries are the port's own classes (``search/query.py``); a JAX
 package query raises TypeError (``convert.query_from_jax`` carries one
-across).
+across). ``search`` times its phases ("phrase", "plan", "execute",
+"merge") into the thread's ``QueryProfiler`` when one is enabled.
 """
 
 from __future__ import annotations
@@ -23,6 +24,11 @@ import numpy as np
 import torch
 
 from diagon_tpu_torch.index.segment import SegmentData
+from diagon_tpu_torch.observability.profiler import ProfileScope
+from diagon_tpu_torch.observability.storage_tiers import (
+    StorageTier,
+    TierManager,
+)
 from diagon_tpu_torch.search.bm25 import BM25Similarity
 from diagon_tpu_torch.search.device_index import DeviceSegment, load_segment
 from diagon_tpu_torch.search.engine import TermPlan, make_tf_table
@@ -44,7 +50,12 @@ from diagon_tpu_torch.search.query import (
     Query,
     TermQuery,
 )
-from diagon_tpu_torch.search.row_engine import RowExecutor, RowFieldIndex
+from diagon_tpu_torch.search.row_engine import (
+    HEAVY_FRACTION,
+    HEAVY_MIN_DF,
+    RowExecutor,
+    RowFieldIndex,
+)
 from diagon_tpu_torch.search.topdocs import ScoreDoc, TopDocs, merge_top_docs
 
 _RANGEABLE = (NumericRangeQuery, PointRangeQuery, DoubleRangeQuery,
@@ -67,11 +78,13 @@ def _check_query(query: Query) -> None:
 
 class _FieldContext:
     """Collection-level scoring state for one field: the BM25 tf table and
-    one row executor per segment."""
+    one row executor per segment (None where the segment lacks the field
+    or is not resident)."""
 
     def __init__(self, searcher: "IndexSearcher", field: str):
         self.field = field
-        # collection stats come from the host segments
+        # collection stats come from the host segments, so they do not
+        # depend on residency (a tier-managed searcher demotes segments)
         stt = 0
         max_freq = 1
         for seg in searcher._host_segments():
@@ -87,13 +100,18 @@ class _FieldContext:
             stt = searcher.max_doc * 10
         self.avgdl = BM25Similarity.avg_field_length(stt, searcher.max_doc)
         self.tf_lut_host = make_tf_table(self.avgdl, max_freq)
-        self.row_executors: List[Optional[RowExecutor]] = [
-            self._executor(searcher, ds) for ds in searcher.device_segments
-        ]
+        n = len(searcher.device_segments)
+        self.row_executors: List[Optional[RowExecutor]] = [None] * n
+        for si in range(n):
+            self.rebuild_segment(searcher, si)
 
-    def _executor(self, searcher: "IndexSearcher", ds: DeviceSegment):
-        if self.field not in ds.fields:
-            return None
+    def rebuild_segment(self, searcher: "IndexSearcher", si: int) -> None:
+        """(Re)build this field's executor for one resident segment, or
+        drop it: also the tier-promotion hook."""
+        ds = searcher.device_segments[si]
+        if ds is None or self.field not in ds.fields:
+            self.row_executors[si] = None
+            return
         fd = ds.source.fields[self.field]
         pp = fd.postings
         ridx = RowFieldIndex(
@@ -108,7 +126,7 @@ class _FieldContext:
         ex = RowExecutor(ridx)
         ex.query_cache = searcher.enable_query_cache
         ex.idf_of_tid = idf_of_tid
-        return ex
+        self.row_executors[si] = ex
 
 
 class IndexSearcher:
@@ -127,13 +145,19 @@ class IndexSearcher:
     on segments of ``batch_only_min_docs`` or more (the JAX searcher's
     option and default; benchmarks pass False so each batch is rescored).
 
-    The JAX searcher's tier-manager branches are not ported: it takes no
-    ``hbm_budget``, has no ``_ensure_resident``, and ``dispatch_batch``
-    raises no ``MemoryError`` for segments that are not resident
-    (``diagon_tpu/search/searcher.py:773-780``); every segment is placed on
-    ``device`` when the searcher is built."""
+    ``hbm_budget_bytes``: tier-managed residency, as in the JAX searcher.
+    Segments stay host copies and move onto ``device`` through a
+    ``TierManager`` that holds them to this many bytes of
+    ``_estimate_device_bytes`` (LRU demotion frees a segment's tensors).
+    Every query first sweeps the segments onto the device
+    (``_ensure_resident``); a segment that does not fit is served exactly
+    by the host oracle. ``search_batch`` then falls back to per-query
+    ``search``, and ``dispatch_batch`` raises ``MemoryError``. Without a
+    budget every segment is placed on ``device`` when the searcher is
+    built."""
 
-    def __init__(self, segments, device="cuda", query_cache: bool = True):
+    def __init__(self, segments, device="cuda", query_cache: bool = True,
+                 hbm_budget_bytes: Optional[int] = None):
         # a DirectoryReader, or its leaves() contexts
         if hasattr(segments, "segments_data"):
             segments = segments.segments_data()
@@ -154,14 +178,141 @@ class IndexSearcher:
         self._oracle: Optional[OracleSearcher] = None
         self._query_cache: Dict[int, tuple] = {}
         self._query_cache_refs: List[Query] = []
-        self.device_segments: List[DeviceSegment] = [
-            s if isinstance(s, DeviceSegment) else load_segment(s, self.device)
-            for s in segments
-        ]
+        self._tier: Optional[TierManager] = None
+        if hbm_budget_bytes is not None:
+            # tier-managed residency: segments load onto the device lazily
+            # through the TierManager (budget + LRU demotion move tensors)
+            self._host_segs: List[SegmentData] = [
+                s.source if isinstance(s, DeviceSegment) else s
+                for s in segments
+            ]
+            if any(s is None for s in self._host_segs):
+                raise ValueError(
+                    "tier-managed searcher needs host segment copies"
+                )
+            self._seg_index = {
+                s.name: i for i, s in enumerate(self._host_segs)
+            }
+            self.device_segments: List[Optional[DeviceSegment]] = [
+                None
+            ] * len(self._host_segs)
+            self._tier = TierManager(
+                hbm_budget_bytes,
+                promote=self._tier_promote,
+                demote_to_host=self._tier_demote,
+            )
+            for s in self._host_segs:
+                self._tier.register(
+                    s.name,
+                    StorageTier.HOST,
+                    bytes_device=self._estimate_device_bytes(s),
+                )
+            self._ensure_resident()
+        else:
+            self.device_segments = [
+                s if isinstance(s, DeviceSegment)
+                else load_segment(s, self.device)
+                for s in segments
+            ]
         self.doc_bases = np.cumsum(
-            [0] + [s.num_docs for s in self.device_segments]
+            [0] + [s.num_docs for s in self._host_segments()]
         ).tolist()
         self.max_doc = self.doc_bases[-1]
+
+    # -- storage tiers -----------------------------------------------------
+    @staticmethod
+    def _estimate_device_bytes(seg: SegmentData) -> int:
+        """The JAX searcher's footprint estimate of a resident segment
+        (packed arrays + norms + positions + the heavy bank with a bf16
+        copy, docs padded to 1024), kept formula for formula so that a
+        budget makes the same tier decisions in both packages. It is the
+        JAX package's device layout, not a measurement of this port's
+        tensors on the card."""
+        total = 0
+        d_pad = max(1024, -(-seg.num_docs // 1024) * 1024)
+        for fd in seg.fields.values():
+            pp = fd.postings
+            total += pp.packed.nbytes + pp.num_blocks * 40
+            total += d_pad * 4  # norms widened
+            if pp.positions is not None:
+                total += pp.positions.nbytes + pp.block_entry_start.nbytes
+            threshold = max(HEAVY_MIN_DF, d_pad // HEAVY_FRACTION)
+            n_heavy = int((pp.doc_freq >= threshold).sum())
+            total += n_heavy * d_pad * 6  # f32 bank + bf16 copy
+        return total
+
+    def _tier_promote(self, name: str) -> int:
+        si = self._seg_index[name]
+        self.device_segments[si] = load_segment(
+            self._host_segs[si], self.device
+        )
+        # rebuild per-field executors for this segment only
+        for ctx in self._field_ctx.values():
+            ctx.rebuild_segment(self, si)
+        self._phrase_execs.clear()
+        return self._estimate_device_bytes(self._host_segs[si])
+
+    def _tier_demote(self, name: str) -> None:
+        """Drop every holder of the segment's tensors: the DeviceSegment,
+        each field's executor (its heavy bank, batch-entry LRU and compact
+        banks) and the phrase executors. Cached plans hold host arrays
+        only, and are keyed by residency (``_residency``)."""
+        si = self._seg_index[name]
+        self.device_segments[si] = None
+        for ctx in self._field_ctx.values():
+            ctx.row_executors[si] = None
+        self._phrase_execs.clear()
+
+    def _ensure_resident(self) -> None:
+        """Promote segments to DEVICE (LRU-evicting within the budget)
+        before executing a query; segments that cannot fit stay HOST and
+        are served by the oracle tier (exact, slower)."""
+        if self._tier is None:
+            return
+        for s in self._host_segs:
+            try:
+                self._tier.ensure_device(s.name)
+            except MemoryError:
+                pass
+
+    def _residency(self) -> Optional[tuple]:
+        """Which segments are resident (None without a tier manager): part
+        of every cached plan's key, so a plan built before a promotion or a
+        demotion is never served after it (F3: the JAX searcher serves such
+        a plan, skipping a segment promoted since or calling the executor
+        of one demoted since)."""
+        if self._tier is None:
+            return None
+        return tuple(ds is not None for ds in self.device_segments)
+
+    def _is_host(self, si: int) -> bool:
+        """Segment ``si`` is in the HOST tier (demoted or never promoted)."""
+        return self._tier is not None and self.device_segments[si] is None
+
+    def _host_segment_dense(self, si: int, query: Query):
+        """(scores, live match mask) of one HOST-tier segment, from the
+        oracle (exact)."""
+        if self._oracle is None:
+            self._oracle = OracleSearcher(self._host_segments())
+        seg = self._host_segments()[si]
+        scores, mask = self._oracle._score_dense(seg, query)
+        if seg.live_docs is not None:
+            mask = mask & seg.live_docs
+        return scores, mask
+
+    def _host_segment_topdocs(self, si: int, query: Query, k: int) -> TopDocs:
+        """Score one HOST-tier segment with the oracle (exact)."""
+        scores, mask = self._host_segment_dense(si, query)
+        docs = np.nonzero(mask)[0]
+        sds = sorted(
+            (ScoreDoc(int(d) + self.doc_bases[si], float(scores[d]))
+             for d in docs),
+            key=lambda sd: (-sd.score, sd.doc),
+        )[:k]
+        return TopDocs(len(docs), sds)
+
+    def tier_stats(self):
+        return self._tier.stats() if self._tier is not None else {}
 
     # -- stats -------------------------------------------------------------
     def _ctx(self, field: str) -> _FieldContext:
@@ -310,7 +461,7 @@ class IndexSearcher:
         }
         out = []
         for si, ds in enumerate(self.device_segments):
-            f = ds.fields.get(field)
+            f = ds.fields.get(field) if ds is not None else None
             if f is None:
                 out.append(None)
                 continue
@@ -379,7 +530,7 @@ class IndexSearcher:
         cache_key = (
             "row", field,
             tuple(sorted(self._clause_key(q, o) for q, o in clauses)),
-            min_should,
+            min_should, self._residency(),
         )
         cached = self._plan_cache.get(cache_key)
         if cached is not None:
@@ -400,28 +551,41 @@ class IndexSearcher:
 
     # -- public API --------------------------------------------------------
     def search(self, query: Query, k: int = 10) -> TopDocs:
+        self._ensure_resident()
         if isinstance(query, PhraseQuery):
             # a solo phrase takes the direct candidate path (no batch to
             # share a row build with)
-            return self._search_phrase(query, k)
+            with ProfileScope("phrase"):
+                return self._search_phrase(query, k)
         tc = self._term_clauses(query)
         if tc is None:
             return self._fallback_search(query, k)
         field, clauses, min_should = tc
         ctx = self._ctx(field)
-        plans = self._row_plans(field, clauses, min_should)
+        with ProfileScope("plan"):
+            plans = self._row_plans(field, clauses, min_should)
         parts: List[TopDocs] = []
-        for si, plan in enumerate(plans):
-            if plan is None:
-                continue
-            kk = min(k, self.device_segments[si].num_docs_pad)
-            scores, docs, hits = ctx.row_executors[si].top_k(plan, kk)
-            parts.append(self._to_topdocs(si, scores, docs, hits))
-        return merge_top_docs(parts, k)
+        with ProfileScope("execute"):
+            for si, plan in enumerate(plans):
+                if plan is None:
+                    # tier-demoted segment: serve it from the HOST tier
+                    if self._is_host(si):
+                        parts.append(self._host_segment_topdocs(si, query, k))
+                    continue
+                kk = min(k, self.device_segments[si].num_docs_pad)
+                scores, docs, hits = ctx.row_executors[si].top_k(plan, kk)
+                parts.append(self._to_topdocs(si, scores, docs, hits))
+        with ProfileScope("merge"):
+            return merge_top_docs(parts, k)
 
     def search_batch(self, queries: Sequence[Query], k: int = 10) -> List[TopDocs]:
         """A batch of term/boolean queries, one kernel launch per segment
         (and query chunk); results equal per-query ``search``."""
+        self._ensure_resident()
+        if any(self._is_host(si) for si in range(len(self.device_segments))):
+            # the working set exceeds the device budget: the per-query
+            # path serves the HOST-tier segments
+            return [self.search(q, k) for q in queries]
         flat = []
         for q in queries:
             tc = self._term_clauses(q)
@@ -455,7 +619,14 @@ class IndexSearcher:
     def dispatch_batch(self, queries: Sequence[Query], k: int = 10):
         """Launch a batch without waiting for it: returns an opaque handle
         for ``collect_many`` / ``collect_batch``. The fused rows stay on
-        the device and nothing synchronises here."""
+        the device and nothing synchronises here. A tier-managed searcher
+        whose segments do not all fit its budget raises MemoryError."""
+        self._ensure_resident()
+        if any(self._is_host(si) for si in range(len(self.device_segments))):
+            raise MemoryError(
+                "dispatch_batch requires the full working set resident; "
+                "the device budget is too small for these segments"
+            )
         flat = []
         for q in queries:
             qp = self._cached_query_plans(q)
@@ -510,6 +681,7 @@ class IndexSearcher:
         return [merge_top_docs(parts, k) for parts in results]
 
     def count(self, query: Query) -> int:
+        self._ensure_resident()
         # O(1) fast paths with no deletes (reference Weight::count): a
         # term's count is its docFreq and match-all is maxDoc
         if all(s.live_docs is None for s in self._host_segments()):
@@ -523,11 +695,14 @@ class IndexSearcher:
         field, clauses, min_should = tc
         ctx = self._ctx(field)
         plans = self._row_plans(field, clauses, min_should)
-        return sum(
-            ctx.row_executors[si].count(plan)
-            for si, plan in enumerate(plans)
-            if plan is not None
-        )
+        total = 0
+        for si, plan in enumerate(plans):
+            if plan is None:
+                if self._is_host(si):
+                    total += int(self._host_segment_dense(si, query)[1].sum())
+                continue
+            total += ctx.row_executors[si].count(plan)
+        return total
 
     # -- phrase ------------------------------------------------------------
     def _phrase_executors(self, field: str) -> List[Optional[PhraseExecutor]]:
@@ -539,7 +714,7 @@ class IndexSearcher:
             execs = []
             for ds in self.device_segments:
                 ex = None
-                if field in ds.fields:
+                if ds is not None and field in ds.fields:
                     try:
                         ex = PhraseExecutor(ds, field, ctx.tf_lut_host)
                     except ValueError:  # no positions
@@ -562,11 +737,15 @@ class IndexSearcher:
         )
 
     def _search_phrase(self, query: PhraseQuery, k: int) -> TopDocs:
+        self._ensure_resident()
         execs = self._phrase_executors(query.field)
         idf = self._phrase_idf(query)
         parts: List[TopDocs] = []
         for si, ex in enumerate(execs):
             if ex is None:
+                if (self._is_host(si)
+                        and query.field in self._host_segments()[si].fields):
+                    parts.append(self._host_segment_topdocs(si, query, k))
                 continue
             res = ex.top_k(query.terms, idf, k)
             if res is None:
@@ -577,6 +756,8 @@ class IndexSearcher:
 
     # -- host oracle route -------------------------------------------------
     def _host_segments(self) -> List[SegmentData]:
+        if self._tier is not None:
+            return self._host_segs
         return [ds.source for ds in self.device_segments]
 
     def _fallback_search(self, query: Query, k: int) -> TopDocs:

@@ -93,6 +93,20 @@ def test_the_write_path_modules_are_scanned_and_probed(probe, name):
     assert probe["imports"][module] == "ok", probe["imports"][module]
 
 
+PERIPHERY_MODULES = ["api", "bench.cache", "observability",
+                     "observability.health", "observability.profiler",
+                     "observability.storage_tiers", "validate_bundle"]
+
+
+@pytest.mark.parametrize("name", PERIPHERY_MODULES)
+def test_the_periphery_modules_are_scanned_and_probed(probe, name):
+    """The embedding API, the bench cache, the profiler, the health checks,
+    the storage tiers and the index validator are in both checks."""
+    module = f"diagon_tpu_torch.{name}"
+    assert module in MODULES
+    assert probe["imports"][module] == "ok", probe["imports"][module]
+
+
 @pytest.mark.parametrize("first", ["diagon_tpu_torch.document",
                                    "diagon_tpu_torch.index.writer",
                                    "diagon_tpu_torch.store"])
@@ -152,6 +166,35 @@ def test_no_import_of_jax_or_the_jax_package(path):
     names = _imported_modules(path)
     bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "diagon_tpu")]
     assert not bad, bad
+
+
+def _string_constants(path):
+    """The file's string constants, docstrings (which cite files) left
+    out."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+            and n.body and isinstance(n.body[0], ast.Expr)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"],
+                         ids=lambda p: p.name)
+def test_smoke_runs_nothing_of_the_jax_package(path):
+    """A child process steps around an import guard: no string of the
+    scripts names a Python file of the repo outside the port (a tool of
+    tools/, the JAX package's), and none sets a variable of the JAX
+    package."""
+    for text in _string_constants(path):
+        for word in text.split():
+            word = word.strip("'\",;()")
+            f = ROOT / word
+            assert not (word.endswith(".py") and f.is_file()
+                        and PACKAGE not in f.resolve().parents
+                        and f.resolve() != path), text
+            assert not word.startswith("DIAGON_TPU_"), text
 
 
 def test_import_check_sees_nested_imports(tmp_path):
