@@ -206,9 +206,29 @@ script exits non-zero), in the order they run:
    kernel; device_health_check is healthy and names the card. B1 and B2
    must launch.
 
-Phases run in the order 1, 2, 3, 3b, 10, 4, 11, 5, 12, 9, 8, 6, 7. Launch
-counters are set to 0 just before each main-path phase (10 at each table
-size, 4, 11, 5, 12, 9 and each route of 8) and read just after it;
+13. Segment-sharded search (``diagon_tpu_torch.parallel``, main path,
+   counted in every rank): (a) four 250,000-doc shards
+   (``build_synthetic_segment``, seeds 20260816-20260819: phase 5's
+   1,000,000 docs), built and written through the store tier in four
+   threads, served by four spawned ranks over gloo on the one card, each
+   rank opening every shard (mmap) and holding its own on the card: the
+   first 7 reuters queries (the exhaustive program, B2), 64 ORs of 2-5
+   frequent terms and or20 (B3, B6), bench.py's mixed family at 256 (B5,
+   B6), 64 MUST_NOT booleans (B4, B7), the mixed batch again with one tile
+   a query (escalations onto B2) and 16 booleans around the five reference
+   phrases (phrase rows from each rank's PhraseExecutor). Every rank's
+   TopDocs and route equal; bit-equal to IndexSearcher over the four
+   segments for whole batches; 8 samples a batch equal to the oracle
+   (checked in the ranks, dealt between them); per rank its heavy bank and
+   memory, per batch rank 0's host ms split into plan, device and gather +
+   merge. (b) Shard 0 on an NCCL group of one rank (collectives on CUDA
+   tensors), bit-equal to IndexSearcher([shard 0]). (c)
+   ``entry.dryrun_multichip(4)`` over gloo on the card. B2-B7 must launch.
+
+Phases run in the order 1, 2, 3, 3b, 10, 4, 11, 5, 12, 9, 8, 6, 7, 13.
+Launch counters are set to 0 just before each main-path phase (10 at each
+table size, 4, 11, 5, 12, 9, each route of 8, and each rank of 13, which
+starts with its counters at 0) and read just after it;
 comparisons with plain versions and with the exhaustive route, and phases
 6-7, do not count. Each kernel
 must launch on a path where it has to run.
@@ -3606,16 +3626,30 @@ def phase_routes(cells, counts, smi):
                              counts)
 
 
-def main():
-    t_start = time.perf_counter()
-    smi = phase_device()
+# ---------------------------------------------------------------------------
+# Phase 13: segment-sharded search over ranks
+# ---------------------------------------------------------------------------
+
+SHARD_DOCS = 250_000  # four shards: phase 5's 1,000,000 docs
+SHARDS = 4
+SHARD_SEED = 20260816
+SHARD_REPS = 3  # timed repeats of each batch after its first call
+SHARD_SAMPLE = 8  # oracle samples a batch
+# the kernels phase 13 must launch: the exhaustive program and the
+# escalations (B2), each phase-1 variant (B3-B5) and both rescores (B6, B7)
+SHARD_NEED = ["row_boolean", "approx_select", "approx_select_bool",
+              "approx_select_bool2", "gather_rescore", "union_rescore"]
+
+
+def kernel_wrappers():
+    """The main path's kernel wrappers by name; each counts its launches."""
     from diagon_tpu_torch.ops import approx_pass as ap
     from diagon_tpu_torch.ops import bits_hits as bh
     from diagon_tpu_torch.ops import gather_rescore as gr
     from diagon_tpu_torch.ops import range_agg as ra
     from diagon_tpu_torch.ops import row_sum as rs
 
-    kernels = {
+    return {
         "row_sum": rs.row_sum, "row_boolean": rs.row_boolean,
         "approx_select": ap.approx_select,
         "approx_select_bool": ap.approx_select_bool,
@@ -3625,6 +3659,348 @@ def main():
         "bits_hits": bh.bits_hits,
         "range_agg": ra.range_agg,
     }
+
+
+def shard_corpus(smi, path):
+    """Four 250,000-doc shards (``build_synthetic_segment``, seeds
+    20260816 + i), built and written through the store tier in four
+    threads (zlib and numpy release the GIL) into an FSDirectory at
+    ``path`` with a ``segments_1`` commit."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from diagon_tpu_torch.bench.bulk_build import build_synthetic_segment
+    from diagon_tpu_torch.index import SegmentInfo, SegmentInfos
+    from diagon_tpu_torch.index.writer import _gen_name
+    from diagon_tpu_torch.store import FSDirectory, write_segment
+
+    d = FSDirectory(path)
+
+    def one(i):
+        seg = build_synthetic_segment(SHARD_DOCS, seed=SHARD_SEED + i)
+        seg.name = f"_shard{i}"
+        return SegmentInfo(seg.name, seg.num_docs, write_segment(d, seg))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SHARDS) as pool:
+        infos = list(pool.map(one, range(SHARDS)))
+    d.write_bytes(_gen_name(1), json.dumps(SegmentInfos(
+        generation=1, counter=SHARDS, segments=infos).to_json()).encode())
+    size = sum(d.file_length(f) for f in d.list_files())
+    log(f"  {SHARDS} shards x {SHARD_DOCS} docs built and written in "
+        f"{SHARDS} threads: {time.perf_counter() - t0:.2f} s, "
+        f"{size / 2**20:.1f} MiB [{smi}]")
+
+
+def shard_batches(pool):
+    """(label, queries, prune_B_override, kernels the batch must launch)
+    over the shards' frequent-term pool: reuters' first 7 (below
+    approx_min_q: the exhaustive program, B2); 64 ORs of 2-5 terms and
+    or20 (pure OR: B3, then B6 at Tq 20); bench.py's mixed family at 256
+    (fused2: B5, then B6 at Tq 20); 64 MUST_NOT booleans (B4, then B7 at Q
+    64, Tq 8); the mixed batch with one tile a query (escalations onto
+    B2); 16 booleans around the five reference phrases (phrase rows from
+    each rank's PhraseExecutor; B5, B6)."""
+    from diagon_tpu_torch.bench.queries import (
+        PHRASES,
+        mixed_query_batch,
+        reuters_queries,
+    )
+    from diagon_tpu_torch.search.query import (
+        BooleanClause,
+        BooleanQuery,
+        Occur,
+        PhraseQuery,
+        TermQuery,
+    )
+
+    queries = reuters_queries()
+    rng = np.random.Generator(np.random.PCG64(44))
+    ors, seen = [], set()
+    while len(ors) < 64:
+        terms = tuple(pool[i] for i in rng.choice(
+            len(pool), int(rng.integers(2, 6)), replace=False))
+        if terms not in seen:
+            seen.add(terms)
+            ors.append(BooleanQuery([BooleanClause(TermQuery("body", t),
+                                                   Occur.SHOULD)
+                                     for t in terms], 0))
+    mixed = mixed_query_batch(pool, 256, seed=42, phrase_share=0)
+    phrases = [
+        BooleanQuery([
+            BooleanClause(PhraseQuery("body", PHRASES[j % len(PHRASES)]),
+                          Occur.MUST if j % 2 else Occur.SHOULD),
+            BooleanClause(TermQuery("body", pool[j]), Occur.SHOULD),
+        ], 0)
+        for j in range(16)
+    ]
+    return [
+        ("reuters 7", list(queries.values())[:7], 0, ["row_boolean"]),
+        ("pure-OR 65", ors + [queries["or20"]], 0,
+         ["approx_select", "gather_rescore"]),
+        ("mixed 256", mixed, 0, ["approx_select_bool2", "gather_rescore"]),
+        ("MUST_NOT 64", must_not_batch(pool, 64), 0,
+         ["approx_select_bool", "union_rescore"]),
+        ("mixed 256, B 1", mixed, 1, ["approx_select_bool2", "row_boolean"]),
+        ("phrase 16", phrases, 0, ["approx_select_bool2", "gather_rescore"]),
+    ]
+
+
+def shard_oracle(segs, batches):
+    """The port's OracleSearcher over the shards on SHARD_SAMPLE queries a
+    batch, evenly spaced: {(batch, query): TopDocs}. Equal queries (the
+    B 1 batch repeats the mixed one) are answered once."""
+    from diagon_tpu_torch.search.oracle import OracleSearcher
+
+    oracle, memo, answers = OracleSearcher(segs), {}, {}
+    for b, (_, queries, _, _) in enumerate(batches):
+        step = max(1, len(queries) // SHARD_SAMPLE)
+        for i in list(range(0, len(queries), step))[:SHARD_SAMPLE]:
+            key = repr(queries[i])
+            if key not in memo:
+                memo[key] = oracle.search(queries[i], K)
+            answers[b, i] = memo[key]
+    return answers
+
+
+def shard_rank(path, batches):
+    """Phase 13's rank body (a spawned process: it imports this script):
+    opens every shard from ``path`` (mmap) and serves its own on its card
+    through a ShardedSearcher on the default group; each batch searched
+    once, then SHARD_REPS timed times (a barrier before each). Returns
+    what phase 13 prints and gates on."""
+    import torch.distributed as dist
+
+    from diagon_tpu_torch.index import DirectoryReader
+    from diagon_tpu_torch.observability.metrics import registry
+    from diagon_tpu_torch.parallel import ShardedSearcher
+    from diagon_tpu_torch.store import FSDirectory
+
+    entered = time.time()
+    counts = Counts(kernel_wrappers())
+    counts.reset()
+    t0 = time.perf_counter()
+    shards = DirectoryReader.open(FSDirectory(path)).segments_data()
+    t_open = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ss = ShardedSearcher(shards, "body")
+    torch.cuda.synchronize()
+    out = {"rank": ss.rank, "device": str(ss.device), "open_s": t_open,
+           "entered": entered, "init_s": time.perf_counter() - t0,
+           "heavy": len(ss.heavy_terms), "bank": tuple(ss.heavy_bank.shape),
+           "batches": []}
+    esc = registry.counter("search.sharded_escalations")
+    t_batches = time.perf_counter()
+    for label, queries, override, _ in batches:
+        ss.prune_B_override = override
+        e0, c0 = esc.value(), counts.read()
+        t0 = time.perf_counter()
+        got = ss.search_batch(queries, K)
+        first = time.perf_counter() - t0
+        n_esc = esc.value() - e0
+        plan = ss._plans(queries)
+        splits = []
+        for _ in range(SHARD_REPS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            again = ss.search_batch(queries, K)
+            splits.append((time.perf_counter() - t0,) + ss.last_split)
+            if again != got:
+                raise AssertionError(f"{label}: a repeat differs")
+        compact = plan[-1]
+        out["batches"].append({
+            "label": label, "topdocs": got, "esc": n_esc, "first_s": first,
+            "split": [statistics.median(c) for c in zip(*splits)],
+            "route": None if compact is None
+            else ("pure_or" if compact["pure_or"] else
+                  "fused2" if compact["fused2"] else "bool"),
+            "l_pad": int(plan[0].shape[0]),
+            "launched": {n: v - c0[n] for n, v in counts.read().items()
+                         if v > c0[n]},
+        })
+    out["launches"] = counts.read()
+    out["batches_s"] = time.perf_counter() - t_batches
+    out["mem"] = torch.cuda.memory_allocated(ss.device)
+    out["max_mem"] = torch.cuda.max_memory_allocated(ss.device)
+    return out
+
+
+def nccl_one_rank(path, batches, counts, smi):
+    """Shard 0 on an NCCL group of one rank in this process (FileStore),
+    the all-gather and the all-reduce on CUDA tensors: bit-equal to
+    IndexSearcher([shard 0]). Returns the launches."""
+    import torch.distributed as dist
+
+    from diagon_tpu_torch.index import DirectoryReader
+    from diagon_tpu_torch.parallel import ShardedSearcher
+    from diagon_tpu_torch.search import IndexSearcher
+    from diagon_tpu_torch.store import FSDirectory
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    shard0 = DirectoryReader.open(FSDirectory(path)).segments_data()[:1]
+    ref = IndexSearcher(shard0, device=DEVICE)
+    store = scratch_dir() / "nccl_store"
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        ss = ShardedSearcher(shard0, "body", device=DEVICE)
+        counts.reset()
+        for label, queries, _, _ in batches:
+            t0 = time.perf_counter()
+            got = ss.search_batch(queries, K)
+            ms = (time.perf_counter() - t0) * 1e3
+            want = counts.uncounted(ref.search_batch, queries, K)
+            bad = [i for i, (a, b) in enumerate(zip(got, want))
+                   if not same_topdocs(a, b)]
+            if bad or len(got) != len(want):
+                raise AssertionError(f"NCCL {label}: queries {bad[:5]} differ "
+                                     "from IndexSearcher([shard 0])")
+            log(f"  (b) NCCL, one rank, shard 0: {label} bit-equal to "
+                f"IndexSearcher([shard 0]) over all {len(got)} queries; "
+                f"first call {ms:.1f} ms [{smi}]")
+        launched = counts.read()
+    finally:
+        dist.destroy_process_group()
+    return launched
+
+
+def phase_sharded(counts, smi):
+    """Phase 13: segment-sharded search (``diagon_tpu_torch.parallel``).
+    (a) four ranks over gloo on the one card, one 250,000-doc shard each
+    (1,000,000 docs), the six batches of ``shard_batches``: every rank's
+    TopDocs equal, bit-equal to IndexSearcher over the four segments for
+    whole batches, 8 samples a batch equal to the oracle; (b) shard 0 on an
+    NCCL group of one rank; (c) ``entry.dryrun_multichip(4)`` over gloo.
+    Returns the launches of all three, summed over the ranks."""
+    import diagon_tpu_torch.entry as entry
+
+    log(f"phase 13: segment-sharded search, {SHARDS} ranks x {SHARD_DOCS} "
+        f"docs (torch {torch.__version__})")
+    path = scratch_dir()
+    launches, batches = serve_sharded(path, counts, smi)
+    picked = [batches[0], batches[2]]
+    for n, v in nccl_one_rank(path, picked, counts, smi).items():
+        launches[n] += v
+    t0 = time.perf_counter()
+    _, _, dry = entry.dryrun_multichip(SHARDS)
+    log(f"  (c) entry.dryrun_multichip({SHARDS}) over gloo on the card: "
+        f"oracle-exact, every rank equal, {time.perf_counter() - t0:.2f} s; "
+        f"launches by rank {dry} [{smi}]")
+    for d in dry:
+        for n, v in d.items():
+            launches[n] += v
+    idle = [n for n in SHARD_NEED if launches[n] < 1]
+    if idle:
+        raise AssertionError(f"phase 13 never launched {idle}")
+    log(f"  phase 13 launches (all ranks, (a)-(c)): {launches}")
+    return launches
+
+
+def serve_sharded(path, counts, smi, backend="gloo"):
+    """Phase 13 (a): builds the shards at ``path`` (``shard_corpus``) and
+    their batches; answers every batch with IndexSearcher over the same
+    segments and SHARD_SAMPLE queries a batch with the oracle; then serves
+    the batches on SHARDS ranks (``shard_rank``; gloo: they share the one
+    card, "nccl" wants a card a rank). Every rank's answers and route
+    equal, bit-equal to the reference for whole batches, the samples equal
+    to the oracle, each batch's kernels launched. Prints each rank's
+    set-up and memory and each batch's split on rank 0; returns (the
+    launches summed over the ranks, the batches)."""
+    from types import SimpleNamespace
+
+    from diagon_tpu_torch.bench.queries import frequent_terms
+    from diagon_tpu_torch.index import DirectoryReader
+    from diagon_tpu_torch.parallel.launch import run_ranks
+    from diagon_tpu_torch.search import IndexSearcher
+    from diagon_tpu_torch.store import FSDirectory
+
+    shard_corpus(smi, path)
+    segs = DirectoryReader.open(FSDirectory(path)).segments_data()
+    # the pool reads nothing of a searcher but its host segments
+    batches = shard_batches(frequent_terms(
+        SimpleNamespace(_host_segments=lambda: segs)))
+    t0 = time.perf_counter()
+    ref = IndexSearcher(segs, device=DEVICE)
+    want = {label: counts.uncounted(ref.search_batch, queries, K)
+            for label, queries, _, _ in batches}
+    t_ref = time.perf_counter() - t0
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    answers = shard_oracle(segs, batches)
+    t_oracle = time.perf_counter() - t0
+    log(f"  the reference (IndexSearcher over the {SHARDS} segments, every "
+        f"batch) {t_ref:.2f} s; {len(answers)} oracle samples "
+        f"{t_oracle:.2f} s [{smi}]")
+    started = time.time()
+    t0 = time.perf_counter()
+    ranks = run_ranks(shard_rank, SHARDS, backend, str(path), batches,
+                      timeout=600)
+    where = ("sharing one card, host-side gathers" if backend == "gloo"
+             else "a card each, gathers on the cards")
+    log(f"  (a) {SHARDS} {backend} ranks {where}: "
+        f"{time.perf_counter() - t0:.2f} s from spawn to the last result; "
+        f"global heavy set {ranks[0]['heavy']} terms [{smi}]")
+    for r in ranks:
+        log(f"    rank {r['rank']} on {r['device']}: body entered "
+            f"{r['entered'] - started:.1f} s after the spawn, open "
+            f"{r['open_s']:.3f} s, searcher {r['init_s']:.2f} s, batches "
+            f"{r['batches_s']:.1f} s, bank {r['bank']}, memory_allocated "
+            f"{r['mem'] / 2**30:.2f} GiB (peak {r['max_mem'] / 2**30:.2f}); "
+            f"launched {r['launches']}")
+    for b, (label, queries, override, need) in enumerate(batches):
+        recs = [r["batches"][b] for r in ranks]
+        if override and recs[0]["esc"] < 1:
+            raise AssertionError(f"{label}: B {override} escalated nothing")
+        for r, rec in enumerate(recs):
+            if rec["topdocs"] != recs[0]["topdocs"]:
+                raise AssertionError(f"{label}: rank {r} differs from rank 0")
+            if rec["route"] != recs[0]["route"]:
+                raise AssertionError(f"{label}: rank {r} took another route")
+        got = recs[0]["topdocs"]
+        bad = [i for i, (a, w) in enumerate(zip(got, want[label]))
+               if not same_topdocs(a, w)]
+        if bad or len(got) != len(queries):
+            raise AssertionError(f"{label}: queries {bad[:5]} differ from "
+                                 "IndexSearcher over the same segments")
+        sampled = [i for (bb, i) in answers if bb == b]
+        for i in sampled:
+            if not same_topdocs(got[i], answers[b, i]):
+                raise AssertionError(
+                    f"{label}: the merged answer to {queries[i]!r} differs "
+                    f"from the oracle:\n  sharded {got[i]}\n  oracle  "
+                    f"{answers[b, i]}")
+        launched = {n: sum(rec["launched"].get(n, 0) for rec in recs)
+                    for n in need}
+        idle = [n for n, c in launched.items() if c < 1]
+        if idle:
+            raise AssertionError(f"{label} never launched {idle}")
+        r0 = recs[0]
+        total, plan, dev, merge = r0["split"][:4]
+        log(f"  {label}: route {r0['route'] or 'exhaustive'}, escalations "
+            f"{r0['esc']}; bit-equal to IndexSearcher over all "
+            f"{len(queries)} queries, every rank equal, oracle-exact on "
+            f"{len(sampled)} samples; light bank "
+            f"{r0['l_pad']} x {ranks[0]['bank'][1]} f32 = "
+            f"{r0['l_pad'] * ranks[0]['bank'][1] * 4 / 2**20:.1f} MiB a rank; "
+            f"rank 0 first {r0['first_s'] * 1e3:.1f} ms, then {total * 1e3:.2f} "
+            f"ms (plan {plan * 1e3:.2f}, device {dev * 1e3:.2f}, gather + "
+            f"merge {merge * 1e3:.2f}; median of {SHARD_REPS}); launches by "
+            f"rank {[rec['launched'] for rec in recs]} [{smi}]")
+    return ({n: sum(r["launches"][n] for r in ranks) for n in counts.kernels},
+            batches)
+
+
+def main():
+    t_start = time.perf_counter()
+    smi = phase_device()
+    from diagon_tpu_torch.ops import approx_pass as ap
+    from diagon_tpu_torch.ops import bits_hits as bh
+    from diagon_tpu_torch.ops import gather_rescore as gr
+    from diagon_tpu_torch.ops import range_agg as ra
+    from diagon_tpu_torch.ops import row_sum as rs
+
+    kernels = kernel_wrappers()
     counts = Counts(kernels)
 
     def phase(fn, *args):
@@ -3664,8 +4040,13 @@ def main():
         ("1M phrase 1024", searcher1m, sent1m["1M phrase 1024"],
          batches1m["1M phrase 1024"]),
     ], counts, smi)
+    # phase 13 on a card freed of the earlier phases' searchers
+    del searcher19, batches19, sent19, searcher1m, batches1m, sent1m, ex1m
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_sh = phase(phase_sharded, counts, smi)
     runs = (launches19, launches_ing, launches1m, launches_api, launches_sp,
-            launches10["phase1"], launches10["phase0"])
+            launches10["phase1"], launches10["phase0"], launches_sh)
     launches = {n: sum(r.get(n, 0) for r in runs) for n in kernels}
     launches["range_agg"] += launches_col
     times["range_agg"] = dict(x1_record, max_abs_err=0.0)
@@ -3673,7 +4054,8 @@ def main():
         f"{launches_ing}; at 1M {launches1m}; the API (phase 12) "
         f"{launches_api}; "
         f"sparse 1M {launches_sp}; at 10M phase 1 {launches10['phase1']}, "
-        f"phase 0 {launches10['phase0']}; columnar (X1) {launches_col}")
+        f"phase 0 {launches10['phase0']}; columnar (X1) {launches_col}; "
+        f"sharded (phase 13, all ranks) {launches_sh}")
     idle = [n for n, c in launches.items() if c < 1]
     if idle:
         raise AssertionError(f"the main path never launched {idle}")

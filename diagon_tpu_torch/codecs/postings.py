@@ -211,19 +211,35 @@ def _empty_postings() -> PackedPostings:
 def decode_all_numpy(pp: PackedPostings) -> Tuple[np.ndarray, np.ndarray]:
     """Vectorized full decode -> (docs int32 [NE], freqs int32 [NE]) in
     segment posting order (term-major, docid ascending)."""
-    NB = pp.num_blocks
-    if NB == 0:
-        return np.zeros(0, np.int32), np.zeros(0, np.int32)
-    words = np.concatenate(
-        [pp.packed.astype(np.uint64), np.zeros(1, np.uint64)]
-    )
-    counts = pp.block_count.astype(np.int64)
-    NE = int(pp.block_entry_start[NB])
+    return decode_blocks_numpy(pp, 0, pp.num_blocks)
 
-    ent_block = np.repeat(np.arange(NB, dtype=np.int64), counts)
-    ent_lane = (
-        np.arange(NE, dtype=np.int64) - pp.block_entry_start[ent_block]
+
+def decode_blocks_numpy(
+    pp: PackedPostings, b0: int, b1: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Vectorized decode of blocks ``[b0, b1)`` (a term's blocks are
+    ``block_start[tid]`` to ``block_start[tid + 1]``) -> (docs int32,
+    freqs int32) in posting order."""
+    if b1 <= b0:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    counts = pp.block_count[b0:b1].astype(np.int64)
+    dbits = pp.block_doc_bits[b0:b1].astype(np.int64)
+    fbits = pp.block_freq_bits[b0:b1].astype(np.int64)
+    dwords = (counts * dbits + 31) >> 5
+    off = pp.block_word_off[b0:b1].astype(np.int64)
+    w0 = int(off.min())
+    w1 = int((off + dwords + ((counts * fbits + 31) >> 5)).max())
+    # two zero words past the end: an empty section (0 bits) points there
+    words = np.concatenate(
+        [pp.packed[w0:w1].astype(np.uint64), np.zeros(2, np.uint64)]
     )
+    off -= w0
+    starts = pp.block_entry_start[b0:b1].astype(np.int64)
+    starts -= starts[0]
+    NE = int(counts.sum())
+
+    ent_block = np.repeat(np.arange(b1 - b0, dtype=np.int64), counts)
+    ent_lane = np.arange(NE, dtype=np.int64) - starts[ent_block]
 
     def unpack(bits_per_block, base_word):
         bits_e = bits_per_block[ent_block].astype(np.uint64)
@@ -238,21 +254,16 @@ def decode_all_numpy(pp: PackedPostings) -> Tuple[np.ndarray, np.ndarray]:
         mask = (np.uint64(1) << bits_e) - np.uint64(1)
         return ((lo | hi) & mask).astype(np.int64)
 
-    dbits = pp.block_doc_bits.astype(np.int64)
-    deltas = unpack(dbits, pp.block_word_off.astype(np.int64))
-    # per-block inclusive prefix sum of deltas: global cumsum minus the
-    # cumsum value at each block start
+    deltas = unpack(dbits, off)
+    # per-block inclusive prefix sum of deltas: the running cumsum minus
+    # its value at each block start
     cs = np.cumsum(deltas)
-    cs_at_start = cs[pp.block_entry_start[:NB]]
     docs = (
-        pp.block_base[ent_block].astype(np.int64)
+        pp.block_base[b0:b1][ent_block].astype(np.int64)
         + cs
-        - cs_at_start[ent_block]
+        - cs[starts][ent_block]
     )
-
-    dwords = (counts * dbits + 31) >> 5
-    fbits = pp.block_freq_bits.astype(np.int64)
-    freqs = unpack(fbits, pp.block_word_off.astype(np.int64) + dwords)
+    freqs = unpack(fbits, off + dwords)
     # fbits == 0 encodes an all-freq-1 block (no freq section)
     freqs = np.where(fbits[ent_block] == 0, 1, freqs)
     return docs.astype(np.int32), freqs.astype(np.int32)

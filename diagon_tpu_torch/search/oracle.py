@@ -1,4 +1,4 @@
-"""Scalar NumPy oracle searcher: the port's own copy of
+"""NumPy oracle searcher: the port's own copy of
 ``diagon_tpu/search/oracle.py``.
 
 The trusted reference implementation every device kernel is tested against —
@@ -14,11 +14,11 @@ the deterministic device accumulation order.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
-from diagon_tpu_torch.codecs.postings import decode_block_numpy
+from diagon_tpu_torch.codecs.postings import decode_blocks_numpy
 from diagon_tpu_torch.index.segment import SegmentData
 from diagon_tpu_torch.search.bm25 import BM25Similarity
 from diagon_tpu_torch.search.query import (
@@ -111,7 +111,7 @@ def point_range_mask(seg: SegmentData, field: str, lower, upper) -> np.ndarray:
 
 
 class OracleSearcher:
-    """Exhaustive scalar searcher over a list of segments."""
+    """Exhaustive host searcher over a list of segments."""
 
     def __init__(self, segments: Sequence[SegmentData]):
         self.segments = list(segments)
@@ -173,36 +173,33 @@ class OracleSearcher:
         tid = pp.term_id(text)
         if tid < 0:
             return np.zeros(0, np.int32), np.zeros(0, np.int32)
-        docs_parts, freq_parts = [], []
-        for b in range(int(pp.block_start[tid]), int(pp.block_start[tid + 1])):
-            d, f = decode_block_numpy(pp, b)
-            docs_parts.append(d)
-            freq_parts.append(f)
-        return np.concatenate(docs_parts), np.concatenate(freq_parts)
+        return decode_blocks_numpy(
+            pp, int(pp.block_start[tid]), int(pp.block_start[tid + 1])
+        )
 
     @staticmethod
     def _term_positions(
         seg: SegmentData, field: str, text: str
-    ) -> Tuple[np.ndarray, List[np.ndarray]]:
-        """(docids, per-doc position arrays) for a term."""
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(docids, every position of the term, the docid of each
+        position) for a term; positions in posting order."""
+        empty = np.zeros(0, np.int32)
         fd = seg.fields.get(field)
         if fd is None or not fd.postings.has_positions:
-            return np.zeros(0, np.int32), []
+            return empty, empty, empty
         pp = fd.postings
         pp.ensure_positions()
         tid = pp.term_id(text)
         if tid < 0:
-            return np.zeros(0, np.int32), []
-        docs_parts, poslists = [], []
-        for b in range(int(pp.block_start[tid]), int(pp.block_start[tid + 1])):
-            d, _ = decode_block_numpy(pp, b)
-            docs_parts.append(d)
-            estart = int(pp.block_entry_start[b])
-            for j in range(len(d)):
-                s = int(pp.pos_start[estart + j])
-                e = int(pp.pos_start[estart + j + 1])
-                poslists.append(pp.positions[s:e])
-        return np.concatenate(docs_parts), poslists
+            return empty, empty, empty
+        b0, b1 = int(pp.block_start[tid]), int(pp.block_start[tid + 1])
+        docs, _ = decode_blocks_numpy(pp, b0, b1)
+        e0 = int(pp.block_entry_start[b0])
+        bounds = pp.pos_start[e0:e0 + len(docs) + 1].astype(np.int64)
+        per_doc = np.diff(bounds)
+        at = np.arange(int(per_doc.sum()), dtype=np.int64)
+        at += np.repeat(bounds[:-1] - (np.cumsum(per_doc) - per_doc), per_doc)
+        return docs, pp.positions[at], np.repeat(docs, per_doc)
 
     # -- scoring -----------------------------------------------------------
     def _score_dense(
@@ -311,33 +308,36 @@ class OracleSearcher:
         if not query.terms:
             return scores, mask
 
-        per_term: List[Tuple[np.ndarray, List[np.ndarray]]] = []
+        per_term = []
         for t in query.terms:
-            docs, poslists = self._term_positions(seg, query.field, t)
+            docs, pos, pos_doc = self._term_positions(seg, query.field, t)
             if len(docs) == 0:
                 return scores, mask
-            per_term.append((docs, poslists))
+            per_term.append((docs, pos, pos_doc))
 
         # conjunction of docids
         common = per_term[0][0]
-        for docs, _ in per_term[1:]:
+        for docs, _, _ in per_term[1:]:
             common = np.intersect1d(common, docs, assume_unique=True)
         if len(common) == 0:
             return scores, mask
 
         # Phrase "freq" = number of positions where term_i appears at
-        # lead_pos + i for all i.
-        idx_maps = [
-            {int(d): i for i, d in enumerate(docs)} for docs, _ in per_term
-        ]
-        phrase_freqs = np.zeros(len(common), dtype=np.float32)
-        for ci, doc in enumerate(common):
-            lead_pos = per_term[0][1][idx_maps[0][int(doc)]]
-            ok = np.ones(len(lead_pos), dtype=bool)
-            for i in range(1, len(per_term)):
-                pos_i = per_term[i][1][idx_maps[i][int(doc)]]
-                ok &= np.isin(lead_pos + i, pos_i)
-            phrase_freqs[ci] = ok.sum()
+        # lead_pos + i for all i; (docid, position) pairs as int64 keys.
+        def keys(doc, pos):
+            return (doc.astype(np.int64) << 32) | pos.astype(np.int64)
+
+        _, lead_pos, lead_doc = per_term[0]
+        keep = np.isin(lead_doc, common)
+        lead_pos, lead_doc = lead_pos[keep], lead_doc[keep]
+        ok = np.ones(len(lead_pos), dtype=bool)
+        for i in range(1, len(per_term)):
+            _, pos_i, doc_i = per_term[i]
+            ok &= np.isin(keys(lead_doc, lead_pos.astype(np.int64) + i),
+                          keys(doc_i, pos_i))
+        phrase_freqs = np.bincount(
+            np.searchsorted(common, lead_doc[ok]), minlength=len(common)
+        ).astype(np.float32)
 
         matched = phrase_freqs > 0
         common = common[matched]
@@ -367,19 +367,18 @@ class OracleSearcher:
 
     # -- public API --------------------------------------------------------
     def search(self, query: Query, k: int = 10) -> TopDocs:
-        all_hits: List[ScoreDoc] = []
-        total = 0
+        scores, docs = [np.zeros(0, np.float32)], [np.zeros(0, np.int64)]
         for si, seg in enumerate(self.segments):
-            scores, mask = self._score_dense(seg, query)
+            s, mask = self._score_dense(seg, query)
             if seg.live_docs is not None:
                 mask &= seg.live_docs
-            docs = np.nonzero(mask)[0]
-            total += len(docs)
-            base = self.doc_bases[si]
-            for d in docs:
-                all_hits.append(ScoreDoc(int(d) + base, float(scores[d])))
-        all_hits.sort(key=lambda sd: (-sd.score, sd.doc))
-        return TopDocs(total, all_hits[:k])
+            hit = np.nonzero(mask)[0]
+            scores.append(s[hit])
+            docs.append(hit + self.doc_bases[si])
+        s, d = np.concatenate(scores), np.concatenate(docs)
+        # (score desc, docid asc); lexsort is stable and -0.0 ties +0.0
+        top = np.lexsort((d, -s))[:k]
+        return TopDocs(len(d), [ScoreDoc(int(d[i]), float(s[i])) for i in top])
 
     def count(self, query: Query) -> int:
         total = 0

@@ -887,34 +887,48 @@ class RowFieldIndex:
             _scatter_bank_rows(bank, meta, *self.device_decode_state(), self.F)
         return bank[:nrows]
 
-    def build_heavy_bank(self, idf_of_tid) -> None:
+    def build_heavy_bank(self, idf_of_tid, heavy_tids=None) -> None:
         """Classify the frequent terms and materialize their device rows,
         or, on an on-demand segment, only classify them: batches build the
         rows they use (``build_rows_grouped``), and no bank budget caps the
         heavy set.
 
-        idf_of_tid: callable tid -> np.float32 collection-level idf."""
-        self.bank_on_demand = (self.prunable and
-                               self.num_docs_pad >= self.ON_DEMAND_MIN_DOCS)
+        idf_of_tid: callable tid -> np.float32 collection-level idf.
+        heavy_tids: an explicit term-id list, row j holding heavy_tids[j]
+        (the sharded searcher passes a globally aligned heavy set, so bank
+        rows line up across shards). A tid of -1 is a term heavy elsewhere
+        and absent here: a zero row of weight 0.0 that no term maps to.
+        The bank is then always resident and never capped."""
         df = self.pp.doc_freq
-        threshold = max(HEAVY_MIN_DF, self.num_docs_pad // HEAVY_FRACTION)
-        heavy = np.nonzero(df >= threshold)[0]
-        max_rows = max(1, int(self.BANK_BUDGET_BYTES // (4 * self.num_docs_pad)))
-        if not self.bank_on_demand and len(heavy) > max_rows:
-            order = np.argsort(df[heavy], kind="stable")[::-1]
-            heavy = np.sort(heavy[order[:max_rows]])
+        if heavy_tids is not None:
+            self.bank_on_demand = False
+            heavy = np.asarray(heavy_tids, dtype=np.int64)
+        else:
+            self.bank_on_demand = (self.prunable and self.num_docs_pad
+                                   >= self.ON_DEMAND_MIN_DOCS)
+            threshold = max(HEAVY_MIN_DF, self.num_docs_pad // HEAVY_FRACTION)
+            heavy = np.nonzero(df >= threshold)[0]
+            max_rows = max(1, int(self.BANK_BUDGET_BYTES
+                                  // (4 * self.num_docs_pad)))
+            if not self.bank_on_demand and len(heavy) > max_rows:
+                order = np.argsort(df[heavy], kind="stable")[::-1]
+                heavy = np.sort(heavy[order[:max_rows]])
         H = len(heavy)
+        present = heavy >= 0
         self.heavy_row_of_term = np.full(self.pp.num_terms, -1, dtype=np.int32)
-        self.heavy_row_of_term[heavy] = np.arange(H, dtype=np.int32)
+        self.heavy_row_of_term[heavy[present]] = np.nonzero(present)[0].astype(
+            np.int32)
         self.heavy_tid_of_row = heavy.astype(np.int64)
         self.heavy_weight = np.asarray(
-            [idf_of_tid(int(t)) for t in heavy], dtype=np.float32
+            [idf_of_tid(int(t)) if t >= 0 else 0.0 for t in heavy],
+            dtype=np.float32,
         )
         if self.bank_on_demand:
             self.heavy_bank = self.heavy_ub = self.heavy_bits = None
             return
         self.set_heavy_bank(self.build_rows(
-            [(r, int(t), self.heavy_weight[r]) for r, t in enumerate(heavy)],
+            [(r, int(t), self.heavy_weight[r])
+             for r, t in enumerate(heavy) if t >= 0],
             max(1, H),
         ))
 

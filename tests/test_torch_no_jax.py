@@ -107,6 +107,17 @@ def test_the_periphery_modules_are_scanned_and_probed(probe, name):
     assert probe["imports"][module] == "ok", probe["imports"][module]
 
 
+PARALLEL_MODULES = ["parallel", "parallel.sharded", "parallel.launch"]
+
+
+@pytest.mark.parametrize("name", PARALLEL_MODULES)
+def test_the_parallel_modules_are_scanned_and_probed(probe, name):
+    """The sharded searcher and its rank launcher are in both checks."""
+    module = f"diagon_tpu_torch.{name}"
+    assert module in MODULES
+    assert probe["imports"][module] == "ok", probe["imports"][module]
+
+
 @pytest.mark.parametrize("first", ["diagon_tpu_torch.document",
                                    "diagon_tpu_torch.index.writer",
                                    "diagon_tpu_torch.store"])
