@@ -13,8 +13,8 @@ script exits non-zero), in the order they run:
 1. Device: card name and power limit, SM count and top SM clock (the
    CUDA-core rates of the bounds); build the CUDA kernels from
    ``diagon_tpu_torch/csrc`` (one nvcc per source, all at once) and time
-   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1-B8 or
-   X1.
+   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1-B8,
+   X1 or X2.
 2. Kernels B1 (row_sum) and B2 (row_boolean) against their plain PyTorch
    versions on the card, bit for bit (D = 19,456; Q in {1, 3, 7, 19,
    1024}; Tq in {4, 20, 24, 64, 100}; both stage 64 clauses per pass), and
@@ -225,10 +225,30 @@ script exits non-zero), in the order they run:
    tensors), bit-equal to IndexSearcher([shard 0]). (c)
    ``entry.dryrun_multichip(4)`` over gloo on the card. B2-B7 must launch.
 
-Phases run in the order 1, 2, 3, 3b, 10, 4, 11, 5, 12, 9, 8, 6, 7, 13.
+14. The block-at-a-time engine (X2, ``block_score``, main path, counted)
+   on the DeviceSegments phases 4, 5 (from disk) and 8 hold, nothing new
+   uploaded, each right after its phase: (a) a SegmentExecutor over the
+   segment serves top_k and count of the Reuters term / OR / AND
+   families, a mixed boolean, min_should 2, a term given twice,
+   FILTER-only, a MUST_NOT boolean and a missing term (at 10M: or20, the
+   mixed boolean, the term twice, FILTER-only and term:oil), and one
+   top_k_batch of them all; X2 must launch. (b) Every answer equal to
+   IndexSearcher's (the row engine) for the same query, the batch to the
+   solo calls and to the batch split by the wrapper into chunks of 3
+   queries; 7 samples oracle-exact (2 at 10M). (c) X2 bit-equal to its
+   plain version on the card, both forms (fused scores and the count), on
+   every plan (padding blocks, the term twice, FILTER-only) and on their
+   batch, at D 19,456, 1,003,520 and 10,002,432; the plain decode of up to
+   8,193 of each plan's blocks on the card equal to the host's. (d) X2's
+   time a call (CUDA events, wrapper), kernel only (queued_ms), the top-k
+   call, the plain version and the bound, at or20 and the mixed boolean
+   (19k, 1M) and or20 (10M).
+
+Phases run in the order 1, 2, 3, 3b, 10, 4, 14 (19k), 11, 5, 14 (1M), 12,
+9, 8 with 14 (10M) at its end, 6, 7, 13.
 Launch counters are set to 0 just before each main-path phase (10 at each
-table size, 4, 11, 5, 12, 9, each route of 8, and each rank of 13, which
-starts with its counters at 0) and read just after it;
+table size, 4, 11, 5, 12, 9, each route of 8, each run of 14, and each
+rank of 13, which starts with its counters at 0) and read just after it;
 comparisons with plain versions and with the exhaustive route, and phases
 6-7, do not count. Each kernel
 must launch on a path where it has to run.
@@ -303,10 +323,10 @@ PORT_KERNELS = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
                 "approx_bool_mma_kernel", "approx_bool2_mma_kernel",
                 "pack_indicator_kernel", "gather_rescore_kernel",
                 "union_rescore_kernel", "bits_hits_kernel",
-                "range_agg_kernel")
+                "range_agg_kernel", "block_score_kernel")
 # B4's kernel: a batch without MUST_NOT must not launch it (B5 takes those)
 B4_KERNELS = ("approx_bool_mma_kernel",)
-# the kernels of B1-B8 and X1: ptxas must report no spill
+# the kernels of B1-B8, X1 and X2: ptxas must report no spill
 NO_SPILL = PORT_KERNELS
 # the card's published peaks (H100 SXM datasheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -493,8 +513,8 @@ def phase_device():
                              f"on every kernel of {NO_SPILL}")
     spilled = {f: n for f, n in checked.items() if n != (0, 0)}
     if spilled:
-        raise AssertionError(f"ptxas spills in B1-B8 or X1 kernels: {spilled}")
-    log(f"  ptxas: no spill in {len(checked)} B1-B8 and X1 kernel(s)")
+        raise AssertionError(f"ptxas spills in B1-B8, X1 or X2 kernels: {spilled}")
+    log(f"  ptxas: no spill in {len(checked)} B1-B8, X1 and X2 kernel(s)")
     x1_sass_atomics(_build)
     return smi
 
@@ -3036,7 +3056,9 @@ def phase_scale10(counts, smi):
                          route == "phase1")
     log(f"  10M set-up: segment build {t_build:.2f} s, device load "
         f"{t_load:.2f} s [{smi}]")
-    return launches, at10m
+    x2 = phase_block_engine(counts, smi, searcher, "10M", oracle,
+                            solo_only=True)
+    return launches, at10m, x2
 
 
 def escalation_args(ex, plans):
@@ -3627,6 +3649,303 @@ def phase_routes(cells, counts, smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the block-at-a-time engine (X2) on phases 4, 5 and 8's segments
+# ---------------------------------------------------------------------------
+
+X2_DECODE_BLOCKS = 4096  # plan blocks a decode check takes from each end
+X2_CHUNK = 3  # queries a chunk in the chunked-batch check
+
+
+def block_plan(searcher, query):
+    """``query``'s block plan on the searcher's first segment, built as the
+    JAX searcher's ``_segment_plans`` builds it: MUST, FILTER, SHOULD,
+    MUST_NOT clauses, each group by term text, MUST and SHOULD weighted by
+    idf * boost."""
+    from diagon_tpu_torch.search.engine import TermPlan, build_segment_plan
+    from diagon_tpu_torch.search.query import Occur
+
+    field, clauses, min_should = searcher._term_clauses(query)
+    f = searcher.device_segments[0].fields[field]
+
+    def group(occur, weighted, **role):
+        qs = sorted((q for q, o in clauses if o == occur),
+                    key=lambda q: q.term.text)
+        return [TermPlan(f.term_id(q.term.text),
+                         float(searcher._idf(field, q.term.text, q.boost))
+                         if weighted else 0.0, **role) for q in qs]
+
+    tps = (group(Occur.MUST, True, required=True)
+           + group(Occur.FILTER, False, required=True)
+           + group(Occur.SHOULD, True, should=True)
+           + group(Occur.MUST_NOT, False, negated=True))
+    return build_segment_plan(f, tps, min_should,
+                              float(1.0 / searcher._ctx(field).avgdl))
+
+
+def block_queries(pool, solo_only):
+    """name -> query: the Reuters term and OR / AND families, then a mixed
+    boolean, min_should 2, a term given twice, FILTER-only, a MUST_NOT
+    boolean and a missing term over the frequent-term pool; at 10M
+    (``solo_only``) or20 and four of the rest."""
+    from diagon_tpu_torch.bench.queries import reuters_queries
+    from diagon_tpu_torch.search.query import (
+        BooleanClause,
+        BooleanQuery,
+        Occur,
+        TermQuery,
+    )
+
+    def T(w):
+        return TermQuery("body", w)
+
+    def B(*clauses, ms=0):
+        return BooleanQuery([BooleanClause(q, o) for q, o in clauses], ms)
+
+    M, S, F, N = Occur.MUST, Occur.SHOULD, Occur.FILTER, Occur.MUST_NOT
+    qs = {n: q for n, q in reuters_queries().items()
+          if not n.startswith("phrase:")}
+    qs.update({
+        "mixed": B((T(pool[0]), M), (T(pool[3]), S), (T(pool[7]), S),
+                   (T(pool[11]), N)),
+        "min_should2": B(*[(T(w), S) for w in pool[20:25]], ms=2),
+        "twice": B((T(pool[1]), S), (T(pool[1]), S), (T(pool[5]), M)),
+        "filter_only": B((T(pool[2]), F), (T(pool[9]), F)),
+        "must_not": must_not_batch(pool, 1)[0],
+        "missing": T("zzzz_not_a_term"),
+    })
+    if solo_only:
+        qs = {n: qs[n] for n in ("or20", "mixed", "twice", "filter_only",
+                                 "term:oil")}
+    return qs
+
+
+def x2_args(ex, plans):
+    """X2's arguments for ``plans`` stacked as ``top_k_batch`` stacks
+    them."""
+    f = ex.field
+    blocks, weight, req, sho, neg, bool_params, run_end = ex.batch_args(plans)
+    return (f.packed, f.block_base, f.block_count, f.block_doc_bits,
+            f.block_freq_bits, f.block_word_off, f.norms, ex.tf_lut,
+            ex.live_mask, blocks, run_end, weight, req, sho, neg, bool_params,
+            f.window_words)
+
+
+def x2_touched(ex, plan):
+    """The distinct docs that ``plan``'s postings reach: its valid blocks
+    decoded on the card by the plain decode, in slices of 65,536 blocks."""
+    from diagon_tpu_torch.ops.bitpack_ops import decode_doc_blocks
+
+    f = ex.field
+    valid = torch.from_numpy(
+        plan.blocks[plan.blocks >= 0].astype(np.int64)).to(DEVICE)
+    seen = torch.zeros(ex.segment.num_docs_pad, dtype=torch.bool,
+                       device=DEVICE)
+    for s in range(0, len(valid), 65536):
+        idx = valid[s:s + 65536]
+        docids, _, ok = decode_doc_blocks(
+            f.packed, f.block_word_off[idx], f.block_base[idx],
+            f.block_count[idx], f.block_doc_bits[idx], f.block_freq_bits[idx],
+            f.window_words)
+        seen[docids[ok].long()] = True
+    return int(seen.sum())
+
+
+def x2_bound(ex, plan, meta, touched):
+    """(bound_ms, bound_by) of one X2 call (``block_score``, score form) on
+    ``plan``, counting what this plan's data needs, over HBM: each valid
+    block's own words (its doc and freq sections, ceil(count * bits / 32)
+    each) and its five metadata columns (20 B); the plan's valid entries
+    (block, weight and three flags: 20 B), its run ends and bool_params;
+    the tf table once; a norm and a live value for each of the ``touched``
+    docs (no other doc's is needed); the final row written (4 B a doc) and
+    the hits. Its operations (a decode, a multiply and four adds a lane, 16
+    counted) at the f32 rate."""
+    valid = plan.blocks[plan.blocks >= 0].astype(np.int64)
+    cnt = meta["block_count"][valid].astype(np.int64)
+    words = int(((cnt * meta["block_doc_bits"][valid] + 31) // 32
+                 + (cnt * meta["block_freq_bits"][valid] + 31) // 32).sum())
+    runs = int((plan.run_end > 0).sum())
+    byts = (4 * words + 40 * len(valid) + 4 * runs + 8
+            + 4 * ex.tf_lut.numel() + 8 * touched
+            + 4 * ex.segment.num_docs_pad + 4)
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = int(cnt.sum()) * 16 / RATES["f32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def x2_equals_plain(bs, args, what):
+    """X2 (both forms) bit-equal to its plain version on ``args``."""
+    final, hits = bs.block_score(*args)
+    want_final, want_hits = bs.block_score_reference(*args)
+    _, count_hits = bs.block_score(*args, scores=False)
+    torch.cuda.synchronize()
+    if not bits_equal(final, want_final):
+        bad = int((final.view(torch.int32) != want_final.view(torch.int32))
+                  .sum())
+        raise AssertionError(f"X2 {what}: final rows != plain at {bad} docs")
+    if not (torch.equal(hits, want_hits) and torch.equal(count_hits, hits)):
+        raise AssertionError(f"X2 {what}: hits {hits.tolist()} count form "
+                             f"{count_hits.tolist()} plain "
+                             f"{want_hits.tolist()}")
+    return max_abs_err(final, want_final)
+
+
+def decode_equals_host(ex, plan, what):
+    """The plain decode (``decode_doc_blocks``) of the plan's blocks on the
+    card equals the same on the host (the first and last
+    X2_DECODE_BLOCKS valid blocks, and the field's last block)."""
+    from diagon_tpu_torch.ops.bitpack_ops import decode_doc_blocks
+
+    f = ex.field
+    valid = plan.blocks[plan.blocks >= 0]
+    sel = np.unique(np.concatenate([valid[:X2_DECODE_BLOCKS],
+                                    valid[-X2_DECODE_BLOCKS:],
+                                    [f.num_blocks - 1]])).astype(np.int64)
+    cols = (f.block_word_off, f.block_base, f.block_count, f.block_doc_bits,
+            f.block_freq_bits)
+    idx = torch.from_numpy(sel)
+    got = decode_doc_blocks(f.packed, *(c[idx.to(DEVICE)] for c in cols),
+                            f.window_words)
+    want = decode_doc_blocks(f.packed.cpu(), *(c.cpu()[idx] for c in cols),
+                             f.window_words)
+    for g, w, name in zip(got, want, ("docids", "freqs", "valid")):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"{what}: decoded {name} on the card != host")
+    return len(sel)
+
+
+def executor_topdocs(res):
+    from diagon_tpu_torch.search.topdocs import ScoreDoc, TopDocs
+
+    scores, docs, hits = res
+    sds = [ScoreDoc(int(d), float(s)) for s, d in zip(scores, docs)
+           if s >= 0.0][: int(hits)]
+    return TopDocs(int(hits), sds)
+
+
+def x2_times(bs, ex, plan, meta, label, smi):
+    """X2 on one solo plan: the wrapper's CUDA-event median, kernel only
+    (queued behind a device sleep), the plain version, the top-k call
+    (``score_and_topk``, X2 and the torch top-k) and the bound."""
+    from diagon_tpu_torch.search import engine
+
+    args = x2_args(ex, [plan])
+    ms = cuda_ms(lambda: bs.block_score(*args))
+    kernel = statistics.median(queued_ms(lambda: bs.block_score(*args), 20)
+                               for _ in range(3))
+    plain = cuda_ms(lambda: bs.block_score_reference(*args), reps=3, warmup=1)
+    *pa, run_end = ex._device_plan(plan)
+    topk = cuda_ms(lambda: engine.score_and_topk(
+        *ex._index_args(), *pa, window_words=ex.field.window_words, k=K,
+        run_end=run_end))
+    touched = x2_touched(ex, plan)
+    bound, by = x2_bound(ex, plan, meta, touched)
+    valid = int((plan.blocks >= 0).sum())
+    log(f"  X2 {label} ({valid} blocks, {touched} docs reached, B_pad "
+        f"{plan.b_pad}, D {ex.segment.num_docs_pad}): {ms:.4f} ms a call "
+        f"(wrapper), kernel only {kernel:.4f} ms, score_and_topk "
+        f"{topk:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}) "
+        f"[{smi}]")
+    return dict(ms=ms, kernel_ms=kernel, topk_ms=topk, plain_ms=plain,
+                touched=touched, bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def phase_block_engine(counts, smi, searcher, label, oracle=None,
+                       solo_only=False):
+    """X2 and SegmentExecutor on the searcher's (one) resident segment:
+    (a) counted: top_k and count of every query of ``block_queries`` and
+    one top_k_batch of them all, through a SegmentExecutor over the
+    segment's DeviceSegment; X2 must launch. (b) every answer equal to the
+    row engine's (IndexSearcher.search) and the batch to the solo calls;
+    samples oracle-exact; the batch again in chunks of X2_CHUNK queries
+    (the wrapper's memory split, forced) equal. (c) X2 bit-equal to its
+    plain version on the card (both forms) on plans with a term twice,
+    FILTER-only ones, padding blocks, and on the whole batch; the plain
+    decode on the card equal to the host's. (d) times at or20 and the
+    mixed boolean. Returns (launches, max_abs_err, times by plan)."""
+    from diagon_tpu_torch.bench.queries import frequent_terms
+    from diagon_tpu_torch.ops import block_score as bs
+    from diagon_tpu_torch.search import engine
+
+    log(f"phase 14 ({label}): the block-at-a-time engine (X2)")
+    ctx = searcher._ctx("body")
+    ds = searcher.device_segments[0]
+    ex = engine.SegmentExecutor(ds, "body", ctx.tf_lut_host)
+    meta = {c: getattr(ex.field, c).cpu().numpy()
+            for c in ("block_count", "block_doc_bits", "block_freq_bits")}
+    queries = block_queries(frequent_terms(searcher), solo_only)
+    plans = {n: block_plan(searcher, q) for n, q in queries.items()}
+    names = list(queries)
+
+    counts.reset()
+    before = counts.read()
+    t0 = time.perf_counter()
+    solo = {n: executor_topdocs(ex.top_k(plans[n], K)) for n in names}
+    hits = {n: ex.count(plans[n]) for n in names}
+    batch = ex.top_k_batch([plans[n] for n in names], K)
+    t_served = time.perf_counter() - t0
+    counts.require(before, ["block_score"], f"{label} SegmentExecutor")
+    launches = counts.read()
+
+    for i, n in enumerate(names):
+        if hits[n] != solo[n].total_hits:
+            raise AssertionError(f"{label} {n}: count {hits[n]} != top_k "
+                                 f"hits {solo[n].total_hits}")
+        row = counts.uncounted(searcher.search, queries[n], K)
+        if not same_topdocs(solo[n], row):
+            raise AssertionError(f"{label} {n}: SegmentExecutor {solo[n]} != "
+                                 f"row engine {row}")
+        one = executor_topdocs(tuple(a[i] for a in batch))
+        if not same_topdocs(one, solo[n]):
+            raise AssertionError(f"{label} {n}: top_k_batch != top_k")
+    sample = (["or20", "filter_only"] if solo_only
+              else ["or20", "and2:oil+price", "mixed", "twice", "filter_only",
+                    "must_not", "min_should2"])
+    if oracle is None:
+        oracle = Oracle(ds.source)
+    for n in sample:
+        oracle.check(queries[n], solo[n], f"{label} SegmentExecutor {n}")
+
+    def chunked():
+        saved = engine.query_chunk
+        engine.query_chunk = lambda D, Q, dev: min(Q, X2_CHUNK)
+        ex._batch_cache.clear()
+        try:
+            return ex.top_k_batch([plans[n] for n in names], K)
+        finally:
+            engine.query_chunk = saved
+
+    split = counts.uncounted(chunked)
+    for g, w in zip(split, batch):
+        same_array(f"{label}: chunked top_k_batch", g, w)
+    log(f"  {label}: top_k, count ({len(names)} queries) and top_k_batch "
+        f"served in {t_served:.3f} s, equal to the row engine, the batch "
+        f"equal to the solo calls and to {-(-len(names) // X2_CHUNK)} chunks "
+        f"of {X2_CHUNK}; {len(sample)} sampled oracle-exact; X2 launches "
+        f"{launches['block_score']}")
+
+    kernel_names = (["or20", "mixed", "twice", "filter_only"] if solo_only
+                    else [n for n in names])
+    err, decoded = 0.0, 0
+    for n in kernel_names:
+        args = x2_args(ex, [plans[n]])
+        err = max(err, counts.uncounted(x2_equals_plain, bs, args,
+                                        f"{label} {n}"))
+        decoded += decode_equals_host(ex, plans[n], f"{label} {n}")
+    args = x2_args(ex, [plans[n] for n in kernel_names])
+    err = max(err, counts.uncounted(x2_equals_plain, bs, args,
+                                    f"{label} batch of {len(kernel_names)}"))
+    log(f"  X2 == plain bit for bit on {len(kernel_names)} plans (padding "
+        f"blocks, a term twice, FILTER-only) and their batch, both forms; "
+        f"the plain decode of {decoded} blocks on the card == the host's")
+    times = {}
+    for n in (["or20"] if solo_only else ["or20", "mixed"]):
+        times[n] = counts.uncounted(x2_times, bs, ex, plans[n], meta,
+                                    f"{label} {n}", smi)
+    return launches, err, times
+
+
+# ---------------------------------------------------------------------------
 # Phase 13: segment-sharded search over ranks
 # ---------------------------------------------------------------------------
 
@@ -3645,6 +3964,7 @@ def kernel_wrappers():
     """The main path's kernel wrappers by name; each counts its launches."""
     from diagon_tpu_torch.ops import approx_pass as ap
     from diagon_tpu_torch.ops import bits_hits as bh
+    from diagon_tpu_torch.ops import block_score as bs
     from diagon_tpu_torch.ops import gather_rescore as gr
     from diagon_tpu_torch.ops import range_agg as ra
     from diagon_tpu_torch.ops import row_sum as rs
@@ -3658,6 +3978,7 @@ def kernel_wrappers():
         "union_rescore": gr.union_rescore,
         "bits_hits": bh.bits_hits,
         "range_agg": ra.range_agg,
+        "block_score": bs.block_score,
     }
 
 
@@ -4015,13 +4336,15 @@ def main():
     launches_col, err["range_agg"], x1_record = phase(phase_columnar, ra,
                                                       counts, smi)
     searcher19, batches19, sent19, launches19 = phase(phase_serve, counts, smi)
+    x2 = {"19k": phase(phase_block_engine, counts, smi, searcher19, "19k")}
     launches_ing = phase(phase_ingest, counts, smi)
     searcher1m, batches1m, sent1m, launches1m, reader1m = phase(
         phase_scale, counts, smi)
+    x2["1M"] = phase(phase_block_engine, counts, smi, searcher1m, "1M")
     launches_api = phase(phase_api, counts, smi, searcher1m, reader1m)
     del reader1m
     launches_sp = phase(phase_sparse, counts, smi)
-    launches10, at10m = phase(phase_scale10, counts, smi)
+    launches10, at10m, x2["10M"] = phase(phase_scale10, counts, smi)
     ex1m = searcher1m._ctx("body").row_executors[0]
     times = phase(phase_main_path_kernels, rs, ap, gr, bh, counts, searcher19,
                   batches19, ex1m, batches1m, at10m, smi)
@@ -4046,16 +4369,23 @@ def main():
     torch.cuda.empty_cache()
     launches_sh = phase(phase_sharded, counts, smi)
     runs = (launches19, launches_ing, launches1m, launches_api, launches_sp,
-            launches10["phase1"], launches10["phase0"], launches_sh)
+            launches10["phase1"], launches10["phase0"], launches_sh,
+            *(r[0] for r in x2.values()))
     launches = {n: sum(r.get(n, 0) for r in runs) for n in kernels}
     launches["range_agg"] += launches_col
     times["range_agg"] = dict(x1_record, max_abs_err=0.0)
+    # X2's record: or20 at 1M, from disk
+    times["block_score"] = dict(x2["1M"][2]["or20"],
+                                max_abs_err=max(r[1] for r in x2.values()))
+    err["block_score"] = 0.0
     log(f"main-path launches at 19k {launches19}; the ingested 19k index "
         f"{launches_ing}; at 1M {launches1m}; the API (phase 12) "
         f"{launches_api}; "
         f"sparse 1M {launches_sp}; at 10M phase 1 {launches10['phase1']}, "
         f"phase 0 {launches10['phase0']}; columnar (X1) {launches_col}; "
-        f"sharded (phase 13, all ranks) {launches_sh}")
+        f"sharded (phase 13, all ranks) {launches_sh}; block engine (X2, "
+        f"phase 14) " + ", ".join(f"{k} {r[0]['block_score']}"
+                                  for k, r in x2.items()))
     idle = [n for n, c in launches.items() if c < 1]
     if idle:
         raise AssertionError(f"the main path never launched {idle}")
@@ -4070,6 +4400,7 @@ def main():
         "union_rescore": "diagon_tpu_torch/csrc/gather_rescore.cu",
         "bits_hits": "diagon_tpu_torch/csrc/bits_hits.cu",
         "range_agg": "diagon_tpu_torch/csrc/range_agg.cu",
+        "block_score": "diagon_tpu_torch/csrc/block_score.cu",
     }
     # the Pallas kernel bodies (B6: the resident form; _mk_kernel :45 too)
     replaces = {
@@ -4083,6 +4414,8 @@ def main():
         "bits_hits": "diagon_tpu/ops/pallas/bits_hits.py:52",
         # no Pallas body: the jitted XLA program of the JAX DeviceTable
         "range_agg": "diagon_tpu/columnar/engine.py:159",
+        # no Pallas body: the jitted XLA program of the JAX SegmentExecutor
+        "block_score": "diagon_tpu/search/engine.py:205",
     }
     record = {"kernels": [
         {

@@ -89,7 +89,9 @@ class DeviceSegment:
     num_docs_pad: int
     fields: Dict[str, DeviceField]
     live_docs: Optional[torch.Tensor]  # bool [num_docs_pad] or None
-    source: SegmentData  # host copy (row builds, oracle clauses, stats)
+    # host copy (row builds, oracle clauses, stats); None when loaded with
+    # keep_source=False, which only SegmentExecutor can serve
+    source: Optional[SegmentData] = None
 
     def field(self, name: str) -> DeviceField:
         f = self.fields.get(name)
@@ -140,8 +142,10 @@ def load_field(fd: SegmentFieldData, num_docs_pad: int, device) -> DeviceField:
     )
 
 
-def load_segment(seg: SegmentData, device) -> DeviceSegment:
-    """Upload a segment's search structures to ``device``.
+def load_segment(seg: SegmentData, device,
+                 keep_source: bool = True) -> DeviceSegment:
+    """Upload a segment's search structures to ``device``; the host
+    segment stays as ``source`` unless ``keep_source`` is False.
 
     Docs pad to a multiple of 1024 (the row-sum kernels' D granule), and
     to 4096 once the segment exceeds 64k docs, the same rule as the JAX
@@ -164,7 +168,7 @@ def load_segment(seg: SegmentData, device) -> DeviceSegment:
         num_docs_pad=num_docs_pad,
         fields=fields,
         live_docs=live,
-        source=seg,
+        source=seg if keep_source else None,
     )
 
 

@@ -214,9 +214,10 @@ class IndexSearcher:
                 else load_segment(s, self.device)
                 for s in segments
             ]
-        self.doc_bases = np.cumsum(
-            [0] + [s.num_docs for s in self._host_segments()]
-        ).tolist()
+        self.doc_bases = np.cumsum([0] + [
+            s.num_docs for s in (self._host_segs if self._tier is not None
+                                 else self.device_segments)
+        ]).tolist()
         self.max_doc = self.doc_bases[-1]
 
     # -- storage tiers -----------------------------------------------------
@@ -758,7 +759,12 @@ class IndexSearcher:
     def _host_segments(self) -> List[SegmentData]:
         if self._tier is not None:
             return self._host_segs
-        return [ds.source for ds in self.device_segments]
+        segs = [ds.source for ds in self.device_segments]
+        if any(seg is None for seg in segs):
+            raise RuntimeError(
+                "host fallback requires segments loaded with keep_source=True"
+            )
+        return segs
 
     def _fallback_search(self, query: Query, k: int) -> TopDocs:
         return OracleSearcher(self._host_segments()).search(query, k)

@@ -49,6 +49,32 @@ from diagon_tpu_torch.columnar.parts import (
 )
 from diagon_tpu_torch.store import FSDirectory, RAMDirectory
 
+
+@pytest.fixture(scope="module", autouse=True)
+def jnative(tmp_path_factory):
+    """The JAX package's C++ extension, built by its own ``_build`` into a
+    directory of this worker's own and loaded from there, and set as the
+    JAX package's ``_native`` for this module's tests. On import the
+    package builds it unlocked into its own directory, so parallel test
+    workers can load a half-written library and fall back to None. A build
+    that fails fails the tests."""
+    import importlib.util
+    import os
+
+    import diagon_tpu.native as jmod
+
+    so = tmp_path_factory.mktemp("jax_native") / os.path.basename(
+        jmod._so_path())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jmod, "_so_path", lambda: str(so))
+        assert jmod._build(), "the JAX package's extension did not build"
+        spec = importlib.util.spec_from_file_location(
+            "diagon_tpu.native._native", str(so))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mp.setattr(jmod, "_native", mod)
+        yield mod
+
 CHAINS = [
     ["none"], ["zlib"], ["lz4"], ["delta"], ["delta", "zlib"],
     ["delta", "lz4"], ["doubledelta"], ["t64"],
@@ -140,14 +166,12 @@ def test_lz4_roundtrip_fuzz():
 
 
 @pytest.mark.parametrize("i", range(len(_lz4_cases())))
-def test_lz4_blocks_equal_the_jax_extensions(i):
+def test_lz4_blocks_equal_the_jax_extensions(i, jnative):
     """The host library's block is byte for byte the JAX extension's, and
     the plain Python decoder decodes it."""
-    from diagon_tpu.native import _native
-
     data = _lz4_cases()[i]
     block = native.lz4_compress(data)
-    assert block == _native.lz4_compress(data)
+    assert block == jnative.lz4_compress(data)
     assert lz4_decompress_reference(block, len(data)) == data
     assert native.lz4_decompress(block, len(data)) == data
 

@@ -21,7 +21,6 @@ from diagon_tpu.document import (
 )
 from diagon_tpu.index.memory_index import MemoryIndex
 from diagon_tpu.index.segment import flush_memory_index
-from diagon_tpu.native import _native as jnative
 from diagon_tpu.observability.metrics import registry as jregistry
 from diagon_tpu.search import query as jq
 from diagon_tpu.search.bm25 import BM25Similarity as JaxBM25
@@ -38,6 +37,32 @@ from diagon_tpu_torch.search.bm25 import BM25Similarity
 from diagon_tpu_torch.search.convert import query_from_jax, segment_from_jax
 from diagon_tpu_torch.search.oracle import OracleSearcher
 from diagon_tpu_torch.search.topdocs import ScoreDoc, TopDocs, merge_top_docs
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jnative(tmp_path_factory):
+    """The JAX package's C++ extension, built by its own ``_build`` into a
+    directory of this worker's own and loaded from there, and set as the
+    JAX package's ``_native`` for this module's tests. On import the
+    package builds it unlocked into its own directory, so parallel test
+    workers can load a half-written library and fall back to None. A build
+    that fails fails the tests."""
+    import importlib.util
+    import os
+
+    import diagon_tpu.native as jmod
+
+    so = tmp_path_factory.mktemp("jax_native") / os.path.basename(
+        jmod._so_path())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jmod, "_so_path", lambda: str(so))
+        assert jmod._build(), "the JAX package's extension did not build"
+        spec = importlib.util.spec_from_file_location(
+            "diagon_tpu.native._native", str(so))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mp.setattr(jmod, "_native", mod)
+        yield mod
 
 
 def _u32(x):
@@ -319,7 +344,7 @@ def _token_stream(seed):
 
 
 @pytest.mark.parametrize("len_kind", [0, 1])
-def test_host_synth_and_invert_equal_native(len_kind):
+def test_host_synth_and_invert_equal_native(len_kind, jnative):
     probs, pflat, pstart, remap = _token_stream(len_kind)
     a, b = (np.log(40.0), 0.7) if len_kind == 0 else (3.0, 9.0)
     dl, tok = native.synth_tokens(700, 99, probs, len_kind, a, b, 3, pflat,
@@ -336,7 +361,7 @@ def test_host_synth_and_invert_equal_native(len_kind):
         assert (pos.tobytes() if with_pos else b"") == want[3]
 
 
-def test_host_pack_blocks_equals_native():
+def test_host_pack_blocks_equals_native(jnative):
     terms, es, docs, freqs, norms = _csr(3)
     got = native.pack_blocks(es, docs, freqs, norms)
     want = jnative.pack_blocks(es.tobytes(), docs.tobytes(), freqs.tobytes(),
