@@ -82,6 +82,27 @@ def reuters_queries() -> Dict[str, Query]:
     return q
 
 
+REUTERS_QUERIES = reuters_queries()
+
+
+# Reference-published per-query hit counts on REAL Reuters-21578 (the
+# reference's benchmark_results/diagon_baseline.json; single-term hits are
+# the terms' document frequencies). The synthetic corpus plants the
+# benchmark terms at high Zipf ranks, so its dfs are several times larger:
+# every benchmark query scores more postings here than on real Reuters.
+REFERENCE_REUTERS_HITS = {
+    "term:dollar": 983,
+    "term:oil": 1368,
+    "term:trade": 1868,
+    "and2:oil+price": 332,
+    "phrase:oil price": 55,
+    "phrase:trade deficit": 220,
+    "phrase:interest rate": 233,
+    "phrase:stock market": 167,
+    "phrase:federal reserve bank": 25,
+}
+
+
 def frequent_terms(searcher, field: str = "body", n: int = 160):
     """Top-n terms of ``field`` by document frequency across the
     searcher's segments — the vocabulary pool for mixed-query batches

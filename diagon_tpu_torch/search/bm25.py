@@ -25,6 +25,12 @@ from dataclasses import dataclass
 import numpy as np
 
 
+@dataclass(frozen=True)
+class BM25Params:
+    k1: float = 1.2
+    b: float = 0.75
+
+
 class BM25Similarity:
     def __init__(self, k1: float = 1.2, b: float = 0.75):
         self.k1 = np.float32(k1)

@@ -62,6 +62,12 @@ class DeviceField:
     max_positions_per_entry: int = 0
     _pos_pp: Optional[object] = None  # PackedPostings with (lazy) positions
 
+    @property
+    def with_position_data(self) -> bool:
+        """The field has position data, decoded or still deferred; reads
+        only what the load kept, uploads nothing."""
+        return self.pos_start is not None or self._pos_pp is not None
+
     def ensure_positions(self) -> None:
         """Decode (if still deferred) and upload the position arrays."""
         if self.pos_start is not None or self._pos_pp is None:
