@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time B6 (gather_rescore), B7 (union_rescore) and X1 (range_agg) of this
-checkout against the same wrappers of another checkout of the port, on the
-same inputs, in one process on one CUDA card.
+"""Time B6 (gather_rescore), B7 (union_rescore), X1 (range_agg) and X2
+(block_score) of this checkout against the same wrappers of another
+checkout of the port, on the same inputs, in one process on one CUDA card.
 
     python3 chip_ab.py OTHER_ROOT
 
@@ -29,9 +29,22 @@ same bits, and each is timed other, this, this, other: one call (CUDA
 events), kernel only (32 calls queued behind a device sleep) and chained
 (32 calls, one sync, host clock), us a call.
 
+X2: the block plans of or20 and chip_smoke.py's mixed boolean on the 1M
+segment and of or20 on the 10M one (``chip_smoke.block_plan``), through
+each checkout's ``block_score`` (its score form: a [Q, D] final row, or the
+tile candidates at k 10) and its ``search.engine.score_and_topk``, on the
+same tensors. Both must give the same fused rows, bit for bit; each is
+timed other, this, this, other: one call (CUDA events, wrapper), kernel
+only (20 calls queued behind a device sleep) and ``score_and_topk``, ms.
+Then this checkout's score form at each tile size (``X2_TILES``), kernel
+only, in turns. The other checkout's ``score_and_topk`` imports
+``exact_topk`` at call time, from this checkout's ``search.row_engine``.
+
 It imports nothing of JAX or of the JAX package.
 """
 
+import inspect
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -50,8 +63,10 @@ def load_other(root):
     try:
         from diagon_tpu_torch.columnar.engine import DeviceTable
         from diagon_tpu_torch.ops import _build
+        from diagon_tpu_torch.ops import block_score as bs
         from diagon_tpu_torch.ops import gather_rescore as gr
         from diagon_tpu_torch.ops import range_agg as ra
+        from diagon_tpu_torch.search import engine
 
         if Path(gr.__file__).resolve().parents[2] != root:
             raise SystemExit(f"chip_ab: {gr.__file__} is not under {root}")
@@ -61,15 +76,78 @@ def load_other(root):
         for name in [m for m in sys.modules
                      if m.split(".")[0] == "diagon_tpu_torch"]:
             del sys.modules[name]
-    return SimpleNamespace(gr=gr, ra=ra, DeviceTable=DeviceTable)
+    return SimpleNamespace(gr=gr, ra=ra, bs=bs, engine=engine,
+                           DeviceTable=DeviceTable)
 
 
 def plans_of(searcher, batch):
     return [searcher._cached_query_plans(q)[1][0] for q in batch]
 
 
-def cases():
-    """(label, wrapper name, args) at the main path's B6 and B7 shapes."""
+X2_TILES = (512, 1024, 2048)
+
+
+def x2_cases(other, smi, searcher, label, names):
+    """X2 of both checkouts on ``names``' block plans over the searcher's
+    segment (see the module doc)."""
+    from diagon_tpu_torch.bench.queries import frequent_terms
+    from diagon_tpu_torch.ops import block_score as this_bs
+    from diagon_tpu_torch.search import engine as this_engine
+
+    ex = this_engine.SegmentExecutor(searcher.device_segments[0], "body",
+                                     searcher._ctx("body").tf_lut_host)
+    queries = cs.block_queries(frequent_terms(searcher), False)
+    # the row form takes no k; the candidate form needs it
+    other_kw = ({"k": cs.K} if "k" in inspect.signature(
+        other.bs.block_score).parameters else {})
+    for name in names:
+        plan = cs.block_plan(searcher, queries[name])
+        args = cs.x2_args(ex, [plan])
+        *pa, run_end = ex._device_plan(plan)
+        kw = dict(window_words=ex.field.window_words, k=cs.K,
+                  run_end=run_end)
+        calls = {
+            "other": (lambda: other.bs.block_score(*args, **other_kw),
+                      lambda: other.engine.score_and_topk(
+                          *ex._index_args(), *pa, **kw)),
+            "this": (lambda: this_bs.block_score(*args, k=cs.K),
+                     lambda: this_engine.score_and_topk(
+                         *ex._index_args(), *pa, **kw)),
+        }
+        fused = {side: c[1]() for side, c in calls.items()}
+        torch.cuda.synchronize()
+        if not cs.bits_equal(fused["other"], fused["this"]):
+            raise AssertionError(f"X2 {label} {name}: the checkouts' fused "
+                                 "rows differ")
+        times = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other"):
+            x2, topk = calls[side]
+            times[side].append((
+                cs.cuda_ms(x2),
+                statistics.median(cs.queued_ms(x2, 20) for _ in range(3)),
+                cs.cuda_ms(topk)))
+        cs.log(f"block_score {label} {name} ({int((plan.blocks >= 0).sum())} "
+               f"blocks, D {ex.segment.num_docs_pad}): fused rows bit-equal; "
+               "one call / kernel only / score_and_topk ms, other then this, "
+               "in run order [" + smi + "]")
+        for side in ("other", "this"):
+            cs.log(f"  {side}: " + "; ".join(
+                " / ".join(f"{t:.4f}" for t in w) for w in times[side]))
+        tiles = {t: [] for t in X2_TILES}
+        for order in (X2_TILES, X2_TILES[::-1]):
+            for t in order:
+                tiles[t].append(statistics.median(cs.queued_ms(
+                    lambda: this_bs.block_score(*args, k=cs.K, tile=t), 20)
+                    for _ in range(3)))
+        cs.log(f"  this, kernel only ms by tile size (tile_for takes "
+               f"{cs.x2_tile(args)}): " + "; ".join(
+                   f"{t}: " + " / ".join(f"{v:.4f}" for v in tiles[t])
+                   for t in X2_TILES))
+
+
+def cases(other, smi):
+    """(label, wrapper name, args) at the main path's B6 and B7 shapes;
+    X2's A/B on the same searchers as they load."""
     from diagon_tpu_torch.bench.queries import (
         frequent_terms,
         mixed_query_batch,
@@ -78,6 +156,7 @@ def cases():
 
     out = []
     _, s1, _, _ = cs.load_searcher(cs.SCALE_DOCS)
+    x2_cases(other, smi, s1, "1M", ["or20", "mixed"])
     ex = s1._ctx("body").row_executors[0]
     mixed = mixed_query_batch(frequent_terms(s1), 1024, phrase_share=0)
     args = cs.main_path_args(ex, plans_of(s1, mixed))[0]
@@ -91,6 +170,7 @@ def cases():
             ("1M or20 deduped, Q 1", "gather_rescore", q1["gather_rescore"])]
     del s1, ex, args, q1
     _, s10, _, _ = cs.load_searcher(cs.SCALE10_DOCS, query_cache=False)
+    x2_cases(other, smi, s10, "10M", ["or20"])
     ex = s10._ctx("body").row_executors[0]
     mixed = mixed_query_batch(frequent_terms(s10, "body", 32), 1024,
                               phrase_share=0)
@@ -177,7 +257,7 @@ def main():
     from diagon_tpu_torch.ops import gather_rescore as this
 
     x1_cases(other, smi)
-    for label, name, args in cases():
+    for label, name, args in cases(other, smi):
         fns = {"other": getattr(other.gr, name), "this": getattr(this, name)}
         got = {side: fn(*args) for side, fn in fns.items()}
         torch.cuda.synchronize()

@@ -236,13 +236,17 @@ script exits non-zero), in the order they run:
    IndexSearcher's (the row engine) for the same query, the batch to the
    solo calls and to the batch split by the wrapper into chunks of 3
    queries; 7 samples oracle-exact (2 at 10M). (c) X2 bit-equal to its
-   plain version on the card, both forms (fused scores and the count), on
-   every plan (padding blocks, the term twice, FILTER-only) and on their
-   batch, at D 19,456, 1,003,520 and 10,002,432; the plain decode of up to
-   8,193 of each plan's blocks on the card equal to the host's. (d) X2's
-   time a call (CUDA events, wrapper), kernel only (queued_ms), the top-k
-   call, the plain version and the bound, at or20 and the mixed boolean
-   (19k, 1M) and or20 (10M).
+   plain version on the card at the kernel's tile size, both forms: the
+   candidate form at k 10 and at k 2,048 (every doc of every tile, sorted),
+   the hits of both, on every plan (padding blocks, the term twice,
+   FILTER-only) and on their batch, at D 19,456, 1,003,520 and
+   10,002,432; the plain decode of up to 8,193 of each plan's blocks on
+   the card equal to the host's. (d) X2's time a call (CUDA events,
+   wrapper), kernel only (queued_ms), the top-k call, the plain version,
+   the count form's call and kernel, beside the bounds of the row form
+   (a [Q, D] final row, X2's first form), the candidate form and the
+   count form, at or20 and the mixed
+   boolean (19k, 1M) and or20 (10M).
 
 Phases run in the order 1, 2, 3, 3b, 10, 4, 14 (19k), 11, 5, 14 (1M), 12,
 9, 8 with 14 (10M) at its end, 6, 7, 13.
@@ -3750,44 +3754,75 @@ def x2_touched(ex, plan):
     return int(seen.sum())
 
 
-def x2_bound(ex, plan, meta, touched):
-    """(bound_ms, bound_by) of one X2 call (``block_score``, score form) on
-    ``plan``, counting what this plan's data needs, over HBM: each valid
-    block's own words (its doc and freq sections, ceil(count * bits / 32)
-    each) and its five metadata columns (20 B); the plan's valid entries
-    (block, weight and three flags: 20 B), its run ends and bool_params;
-    the tf table once; a norm and a live value for each of the ``touched``
-    docs (no other doc's is needed); the final row written (4 B a doc) and
-    the hits. Its operations (a decode, a multiply and four adds a lane, 16
-    counted) at the f32 rate."""
+def x2_bound(ex, plan, meta, touched, tile):
+    """Bounds (ms, bound_by) of one X2 call on ``plan`` over HBM, counting
+    what this plan's data needs, for three forms. Each reads every valid
+    block's doc section (ceil(count * doc_bits / 32) words) and its five
+    metadata columns (20 B), the plan's run ends and bool_params, and a
+    live value for each of the ``touched`` docs (no other doc's is needed),
+    and writes the hits. The score forms also read the freq sections, the
+    plan's valid entries (block, weight and three flags: 20 B; the count
+    form reads 16 B: no weight), the tf table once and a norm for each
+    touched doc; the row form (X2's first) writes the final row (4 B a doc), the
+    candidate form its candidates (8 B each: ``candidates(D, tile, K)``).
+    Operations: a decode, a multiply and four adds a lane, 16 counted (12
+    in the count form), at the f32 rate. Returns {"row", "cand", "count"}:
+    (bound_ms, bound_by)."""
+    from diagon_tpu_torch.ops.block_score import candidates
+
     valid = plan.blocks[plan.blocks >= 0].astype(np.int64)
     cnt = meta["block_count"][valid].astype(np.int64)
-    words = int(((cnt * meta["block_doc_bits"][valid] + 31) // 32
-                 + (cnt * meta["block_freq_bits"][valid] + 31) // 32).sum())
+    dwords = int(((cnt * meta["block_doc_bits"][valid] + 31) // 32).sum())
+    fwords = int(((cnt * meta["block_freq_bits"][valid] + 31) // 32).sum())
     runs = int((plan.run_end > 0).sum())
-    byts = (4 * words + 40 * len(valid) + 4 * runs + 8
-            + 4 * ex.tf_lut.numel() + 8 * touched
-            + 4 * ex.segment.num_docs_pad + 4)
-    t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = int(cnt.sum()) * 16 / RATES["f32"] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    D = ex.segment.num_docs_pad
+    common = 4 * dwords + 20 * len(valid) + 4 * runs + 8 + 4 * touched + 4
+    score = (common + 4 * fwords + 20 * len(valid) + 4 * ex.tf_lut.numel()
+             + 4 * touched)
+    byts = {"row": score + 4 * D, "cand": score + 8 * candidates(D, tile, K),
+            "count": common + 16 * len(valid)}
+    ops = {"row": 16, "cand": 16, "count": 12}
+    out = {}
+    for form, b in byts.items():
+        t_bytes = b / HBM_BYTES_PER_S * 1e3
+        t_ops = int(cnt.sum()) * ops[form] / RATES["f32"] * 1e3
+        out[form] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def x2_tile(args):
+    """The tile size X2 takes for ``args`` on this card."""
+    from diagon_tpu_torch.ops.block_score import tile_for
+
+    return tile_for(args[6].shape[0], args[9].shape[0],
+                    torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def x2_equals_plain(bs, args, what):
-    """X2 (both forms) bit-equal to its plain version on ``args``."""
-    final, hits = bs.block_score(*args)
-    want_final, want_hits = bs.block_score_reference(*args)
-    _, count_hits = bs.block_score(*args, scores=False)
-    torch.cuda.synchronize()
-    if not bits_equal(final, want_final):
-        bad = int((final.view(torch.int32) != want_final.view(torch.int32))
-                  .sum())
-        raise AssertionError(f"X2 {what}: final rows != plain at {bad} docs")
-    if not (torch.equal(hits, want_hits) and torch.equal(count_hits, hits)):
-        raise AssertionError(f"X2 {what}: hits {hits.tolist()} count form "
-                             f"{count_hits.tolist()} plain "
-                             f"{want_hits.tolist()}")
-    return max_abs_err(final, want_final)
+    """X2 bit-equal to its plain version on ``args`` at the kernel's tile
+    size: the candidate form at k = K and at k = MAX_TILE (every doc of
+    every tile, sorted: every doc's score compared), and the count form's
+    hits equal to both."""
+    tile = x2_tile(args)
+    _, _, count_hits = bs.block_score(*args, scores=False)
+    err = 0.0
+    for k in (K, bs.MAX_TILE):
+        got = bs.block_score(*args, k=k)
+        want = bs.block_score_reference(*args, k=k, tile=tile)
+        torch.cuda.synchronize()
+        if not (bits_equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            bad = int(((got[0].view(torch.int32) != want[0].view(torch.int32))
+                       | (got[1] != want[1])).sum())
+            raise AssertionError(f"X2 {what} k {k} tile {tile}: candidates "
+                                 f"!= plain at {bad} of {got[0].numel()}")
+        if not (torch.equal(got[2], want[2])
+                and torch.equal(count_hits, got[2])):
+            raise AssertionError(f"X2 {what}: hits {got[2].tolist()} count "
+                                 f"form {count_hits.tolist()} plain "
+                                 f"{want[2].tolist()}")
+        err = max(err, max_abs_err(got[0], want[0]))
+    return err
 
 
 def decode_equals_host(ex, plan, what):
@@ -3824,30 +3859,49 @@ def executor_topdocs(res):
 
 
 def x2_times(bs, ex, plan, meta, label, smi):
-    """X2 on one solo plan: the wrapper's CUDA-event median, kernel only
-    (queued behind a device sleep), the plain version, the top-k call
-    (``score_and_topk``, X2 and the torch top-k) and the bound."""
+    """X2 on one solo plan: the score form (k = K) a call (the wrapper's
+    CUDA-event median), kernel only (queued behind a device sleep), the
+    plain version, the top-k call (``score_and_topk``: X2 and exact_topk
+    over its candidates), the count form a call and kernel only, and the
+    bounds of the row form, the candidate form and the count form."""
     from diagon_tpu_torch.search import engine
 
     args = x2_args(ex, [plan])
-    ms = cuda_ms(lambda: bs.block_score(*args))
-    kernel = statistics.median(queued_ms(lambda: bs.block_score(*args), 20)
-                               for _ in range(3))
-    plain = cuda_ms(lambda: bs.block_score_reference(*args), reps=3, warmup=1)
+    tile = x2_tile(args)
+
+    def score():
+        return bs.block_score(*args, k=K)
+
+    def count():
+        return bs.block_score(*args, scores=False)
+
+    ms = cuda_ms(score)
+    kernel = statistics.median(queued_ms(score, 20) for _ in range(3))
+    count_ms = cuda_ms(count)
+    count_kernel = statistics.median(queued_ms(count, 20) for _ in range(3))
+    plain = cuda_ms(lambda: bs.block_score_reference(*args, k=K, tile=tile),
+                    reps=3, warmup=1)
     *pa, run_end = ex._device_plan(plan)
     topk = cuda_ms(lambda: engine.score_and_topk(
         *ex._index_args(), *pa, window_words=ex.field.window_words, k=K,
         run_end=run_end))
     touched = x2_touched(ex, plan)
-    bound, by = x2_bound(ex, plan, meta, touched)
+    bounds = x2_bound(ex, plan, meta, touched, tile)
     valid = int((plan.blocks >= 0).sum())
+    (bound, by), (row, _), (cbound, cby) = (bounds["cand"], bounds["row"],
+                                            bounds["count"])
     log(f"  X2 {label} ({valid} blocks, {touched} docs reached, B_pad "
-        f"{plan.b_pad}, D {ex.segment.num_docs_pad}): {ms:.4f} ms a call "
-        f"(wrapper), kernel only {kernel:.4f} ms, score_and_topk "
-        f"{topk:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}) "
-        f"[{smi}]")
+        f"{plan.b_pad}, D {ex.segment.num_docs_pad}, tile {tile}): score "
+        f"form {ms:.4f} ms a call (wrapper), kernel only {kernel:.4f} ms, "
+        f"score_and_topk {topk:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}; row form {row:.4f}); count form "
+        f"{count_ms:.4f} ms a call, kernel only {count_kernel:.4f} ms, bound "
+        f"{cbound:.4f} ms ({cby}) [{smi}]")
     return dict(ms=ms, kernel_ms=kernel, topk_ms=topk, plain_ms=plain,
-                touched=touched, bound_ms=bound, bound_by=by, library_ms=None)
+                touched=touched, bound_ms=bound, bound_by=by,
+                row_bound_ms=row, count_ms=count_ms,
+                count_kernel_ms=count_kernel, count_bound_ms=cbound,
+                library_ms=None)
 
 
 def phase_block_engine(counts, smi, searcher, label, oracle=None,
@@ -3908,7 +3962,7 @@ def phase_block_engine(counts, smi, searcher, label, oracle=None,
 
     def chunked():
         saved = engine.query_chunk
-        engine.query_chunk = lambda D, Q, dev: min(Q, X2_CHUNK)
+        engine.query_chunk = lambda D, Q, k, dev: min(Q, X2_CHUNK)
         ex._batch_cache.clear()
         try:
             return ex.top_k_batch([plans[n] for n in names], K)
@@ -3936,8 +3990,9 @@ def phase_block_engine(counts, smi, searcher, label, oracle=None,
     err = max(err, counts.uncounted(x2_equals_plain, bs, args,
                                     f"{label} batch of {len(kernel_names)}"))
     log(f"  X2 == plain bit for bit on {len(kernel_names)} plans (padding "
-        f"blocks, a term twice, FILTER-only) and their batch, both forms; "
-        f"the plain decode of {decoded} blocks on the card == the host's")
+        f"blocks, a term twice, FILTER-only) and their batch: candidates at "
+        f"k {K} and at k {bs.MAX_TILE} (every doc), hits of both forms; the "
+        f"plain decode of {decoded} blocks on the card == the host's")
     times = {}
     for n in (["or20"] if solo_only else ["or20", "mixed"]):
         times[n] = counts.uncounted(x2_times, bs, ex, plans[n], meta,

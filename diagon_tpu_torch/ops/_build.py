@@ -48,7 +48,7 @@ _SIGNATURES = {
     "diagon_bits_hits": [_P] * 5 + [_I, _I64] + [_I] * 6 + [_P],
     "diagon_range_agg": [_P, _P],  # a pointer to X1Args, the stream
     "diagon_range_agg_grid": [_I, _I, _I64, _P],
-    "diagon_block_score": [_P, _I64] + [_P] * 17 + [_I] * 6 + [_P],
+    "diagon_block_score": [_P, _I64] + [_P] * 18 + [_I] * 7 + [_P],
 }
 
 _lib = None

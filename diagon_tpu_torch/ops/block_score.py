@@ -7,10 +7,17 @@ body). For Q plans of B entries (``blocks`` -1 is padding) it decodes every
 plan block's 128 lanes from the packed word stream, scores each valid lane
 by the BM25 tf table (``contrib = weight * tf_lut[norm * F + min(freq,
 F - 1)]``, one rounded multiply), accumulates per doc the score and the
-req / sho / neg counts, and applies the boolean and live mask: it returns
-``final`` f32 [Q, D] (the masked score, -1 where the doc does not match)
-and ``hits`` i32 [Q]. With ``scores=False`` (``count_matches``) only the
-hits. The top-k over ``final`` is torch ops in ``search/engine.py``.
+req / sho / neg counts, and applies the boolean and live mask: the final
+row is the masked score, -1 where the doc does not match. It returns no
+row: the score form gives each tile's first ``min(k, n)`` docs of the row
+in ``lax.top_k``'s order (score descending, docid ascending) as
+candidates, ``(cand_scores f32 [Q, C], cand_docs i32 [Q, C], hits i32
+[Q])``, the tiles' lists one after another (``candidates``); the count
+form (``scores=False``, ``count_matches``) gives ``(None, None, hits)``.
+The row's top k is ``exact_topk`` over the candidates
+(``search/engine.py``): a doc of the row's top k is among its own tile's
+top k in the same total order, and the candidates' positions ascend in
+docid wherever their scores tie.
 
 On CUDA tensors it launches the hand-written kernels of
 ``csrc/block_score.cu``; on CPU tensors it runs ``block_score_reference``,
@@ -37,6 +44,8 @@ from diagon_tpu_torch.ops.row_sum import _sm_count
 MAX_TILE = 2048
 MIN_TILE = 256
 MAX_QUERIES = 65535  # grid.y
+H100_SMS = 132  # an H100 SXM's SMs: the CPU path takes the card's tile size
+SMALL_CALL_BYTES = 64 << 20  # query_chunk: below this, no memory query
 
 
 _BLOCK_COLS = ("block_base", "block_count", "block_doc_bits",
@@ -103,18 +112,29 @@ def plan_runs(run_end: np.ndarray):
     return runs
 
 
+def candidates(D: int, tile: int, k: int) -> int:
+    """Candidates a query gets from a tile size: min(k, tile) a tile, the
+    last tile's first min(k, n)."""
+    tiles = -(-D // tile)
+    kk = min(k, tile)
+    return (tiles - 1) * kk + min(kk, D - (tiles - 1) * tile)
+
+
 def block_score_reference(packed, block_base, block_count, block_doc_bits,
                           block_freq_bits, block_word_off, norms, tf_lut,
                           live_mask, blocks, run_end, weight, req, sho, neg,
-                          bool_params, window_words: int, scores: bool = True):
-    """Plain PyTorch X2: (final f32 [Q, D] or None, hits i32 [Q]). Per
-    query an accumulator [D + 1, 4] (score, req, sho, neg; row D takes the
-    invalid lanes), one ``index_put_(accumulate=True)`` a run, whose docs
-    are unique."""
+                          bool_params, window_words: int, scores: bool = True,
+                          k: int = None, tile: int = MAX_TILE):
+    """Plain PyTorch X2: ``(cand_scores, cand_docs, hits)`` as
+    ``block_score`` gives them for tiles of ``tile`` docs. Per query an
+    accumulator [D + 1, 4] (score, req, sho, neg; row D takes the invalid
+    lanes), one ``index_put_(accumulate=True)`` a run, whose docs are
+    unique; the final row, then each tile's stable descending sort."""
     D, B, Q, F = _check(packed, block_base, block_count, block_doc_bits,
                         block_freq_bits, block_word_off, norms, tf_lut,
                         live_mask, blocks, run_end, weight, req, sho, neg,
                         bool_params, window_words)
+    _check_form(scores, k, tile)
     dev = packed.device
     run_end_h = run_end.cpu().numpy()
     finals, hits = [], []
@@ -147,8 +167,29 @@ def block_score_reference(packed, block_base, block_count, block_doc_bits,
         if scores:
             finals.append(torch.where(mask, acc[:, 0], -1.0))
         hits.append(mask.sum(dtype=torch.int32))
-    final = torch.stack(finals) if scores else None
-    return final, torch.stack(hits)
+    hits = torch.stack(hits)
+    if not scores:
+        return None, None, hits
+    # each tile's docs sorted (stable: docid ascending among equal scores);
+    # the last tile's padding sorts after its docs and is cut off
+    tiles = -(-D // tile)
+    final = torch.full((Q, tiles * tile), float("-inf"), device=dev)
+    final[:, :D] = torch.stack(finals)
+    vals, idx = torch.sort(final.view(Q, tiles, tile), dim=-1,
+                           descending=True, stable=True)
+    kk = min(k, tile)
+    docs = idx[..., :kk] + torch.arange(0, tiles * tile, tile,
+                                        device=dev)[:, None]
+    n = candidates(D, tile, k)
+    return (vals[..., :kk].reshape(Q, -1)[:, :n],
+            docs.to(torch.int32).reshape(Q, -1)[:, :n], hits)
+
+
+def _check_form(scores: bool, k, tile: int):
+    if scores and (k is None or k < 1):
+        raise ValueError(f"the score form needs k >= 1, got {k}")
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"tile {tile} outside [1, {MAX_TILE}]")
 
 
 def tile_for(D: int, Q: int, sms: int) -> int:
@@ -164,26 +205,38 @@ def tile_for(D: int, Q: int, sms: int) -> int:
 def block_score(packed, block_base, block_count, block_doc_bits,
                 block_freq_bits, block_word_off, norms, tf_lut, live_mask,
                 blocks, run_end, weight, req, sho, neg, bool_params,
-                window_words: int, scores: bool = True):
-    """X2: (final f32 [Q, D] or None, hits i32 [Q]) for Q plans; the
-    arguments are those of ``block_score_reference``. One launch on the
-    current stream, after zeroing hits; nothing waits."""
+                window_words: int, scores: bool = True, k: int = None,
+                tile: int = None):
+    """X2: ``(cand_scores f32 [Q, C], cand_docs i32 [Q, C], hits i32 [Q])``
+    for Q plans (``(None, None, hits)`` with ``scores=False``); the
+    arguments are those of ``block_score_reference``. ``tile`` defaults to
+    ``tile_for`` on the card's SM count (an H100's on the CPU). One launch
+    on the current stream, after zeroing hits; nothing waits."""
     D, B, Q, F = _check(packed, block_base, block_count, block_doc_bits,
                         block_freq_bits, block_word_off, norms, tf_lut,
                         live_mask, blocks, run_end, weight, req, sho, neg,
                         bool_params, window_words)
-    if packed.device.type == "cpu":
+    on_cpu = packed.device.type == "cpu"
+    if tile is None:
+        tile = tile_for(D, Q, H100_SMS if on_cpu
+                        else _sm_count(packed.get_device()))
+    _check_form(scores, k, tile)
+    if on_cpu:
         return block_score_reference(
             packed, block_base, block_count, block_doc_bits, block_freq_bits,
             block_word_off, norms, tf_lut, live_mask, blocks, run_end, weight,
-            req, sho, neg, bool_params, window_words, scores)
+            req, sho, neg, bool_params, window_words, scores, k, tile)
     if Q > MAX_QUERIES:
         raise ValueError(f"Q ({Q}) above {MAX_QUERIES}: split the batch")
     dev = packed.get_device()
-    tile = tile_for(D, Q, _sm_count(dev))
     hits = torch.zeros(Q, dtype=torch.int32, device=packed.device)
-    final = (torch.empty((Q, D), dtype=torch.float32, device=packed.device)
-             if scores else None)
+    cand_s = cand_d = None
+    if scores:
+        kk = min(k, tile)
+        cand_s = torch.empty((Q, -(-D // tile) * kk), dtype=torch.float32,
+                             device=packed.device)
+        cand_d = torch.empty(cand_s.shape, dtype=torch.int32,
+                             device=packed.device)
     rc = _build.library().diagon_block_score(
         packed.data_ptr(), packed.shape[0], block_base.data_ptr(),
         block_count.data_ptr(), block_doc_bits.data_ptr(),
@@ -191,26 +244,36 @@ def block_score(packed, block_base, block_count, block_doc_bits,
         norms.data_ptr(), tf_lut.data_ptr(), live_mask.data_ptr(),
         blocks.data_ptr(), run_end.data_ptr(), weight.data_ptr(),
         req.data_ptr(), sho.data_ptr(), neg.data_ptr(), bool_params.data_ptr(),
-        None if final is None else final.data_ptr(), hits.data_ptr(),
-        D, B, Q, F, window_words, tile,
+        None if cand_s is None else cand_s.data_ptr(),
+        None if cand_d is None else cand_d.data_ptr(), hits.data_ptr(),
+        D, B, Q, F, window_words, tile, k if scores else 0,
         torch._C._cuda_getCurrentRawStream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"diagon_block_score launch failed: cudaError {rc}")
     block_score.launches += 1
-    return final, hits
+    if not scores:
+        return None, None, hits
+    n = candidates(D, tile, k)
+    return cand_s[:, :n], cand_d[:, :n], hits
 
 
-def query_chunk(D: int, Q: int, device) -> int:
-    """Queries one X2 call takes so that its outputs and the top-k's
-    temporaries (counted as 16 bytes a doc) fit in half the free
-    device memory: the JAX batch held [Q, D + 1, 4] f32 at once. All of Q
-    on the CPU."""
+def query_chunk(D: int, Q: int, k: int, device) -> int:
+    """Queries one X2 call takes so that its candidates and the top-k's
+    temporaries over them (24 bytes a candidate) fit in half the free
+    device memory; a query has at most min(k, MIN_TILE) candidates a
+    MIN_TILE docs and at most D + MAX_TILE in all. A call of at most
+    SMALL_CALL_BYTES takes every query without asking the driver
+    (``mem_get_info`` costs about 0.1 ms of host). All of Q on the CPU."""
     device = torch.device(device)
     if device.type != "cuda":
         return Q
+    cands = min(-(-D // MIN_TILE) * min(k, MIN_TILE), D + MAX_TILE)
+    per_query = 24 * cands + 4
+    if Q * per_query <= SMALL_CALL_BYTES:
+        return min(Q, MAX_QUERIES)
     free, _ = torch.cuda.mem_get_info(device)
-    return max(1, min(Q, MAX_QUERIES, free // 2 // (20 * D + 4)))
+    return max(1, min(Q, MAX_QUERIES, free // 2 // per_query))
 
 
 # calls that launched the kernels since process start (or since a caller

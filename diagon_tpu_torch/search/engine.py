@@ -8,9 +8,10 @@
    ``csrc/block_score.cu``): decode the plan's posting blocks from the
    packed word stream, BM25 by the host tf table, per-doc score and
    must / should / must-not counts in plan order, the boolean and live
-   mask and the hit count; the top-k (score descending, docid ascending,
-   ``lax.top_k``'s order) is ``row_engine.exact_topk``, fused into one
-   ``[2k+1]`` row per query.
+   mask and the hit count, and each tile's top k (score descending, docid
+   ascending, ``lax.top_k``'s order) as candidates; the row's top k is
+   ``row_engine.exact_topk`` over the candidates, fused into one ``[2k+1]``
+   row per query.
 
 Every float op mirrors ``BM25Similarity`` bit for bit, and a doc's score
 adds in plan order (MUST, FILTER, SHOULD, MUST_NOT, each by term text), the
@@ -152,12 +153,16 @@ def make_tf_table(avgdl: np.float32, max_freq: int,
 # ---------------------------------------------------------------------------
 
 
-def _fuse(final: torch.Tensor, hits: torch.Tensor, k: int) -> torch.Tensor:
-    """[Q, 2k+1]: k scores | k docids as f32 | hits (exact below 2^24)."""
+def _fuse(cand_scores: torch.Tensor, cand_docs: torch.Tensor,
+          hits: torch.Tensor, k: int) -> torch.Tensor:
+    """[Q, 2k+1]: k scores | k docids as f32 | hits (exact below 2^24),
+    the top k over X2's candidates: their positions ascend in docid where
+    scores tie, so the stable selection keeps ``lax.top_k``'s order."""
     # imported here: row_engine imports this module
     from diagon_tpu_torch.search.row_engine import exact_topk
 
-    top_scores, top_docs = exact_topk(final, k)
+    top_scores, pos = exact_topk(cand_scores, k)
+    top_docs = torch.gather(cand_docs, 1, pos)
     return torch.cat([top_scores, top_docs.float(), hits.float()[:, None]],
                      dim=1)
 
@@ -170,19 +175,20 @@ def score_and_topk_batch(
     bool_params,  # f32 [Q, 2]: num_required, min_should
     *, window_words: int, k: int, run_end,
 ):
-    """Batched scoring -> fused f32 [Q, 2k+1] (see ``unfuse_topk``). The
-    queries go to X2 in chunks whose final rows fit the free device memory
-    (``query_chunk``); the rows are the same either way."""
+    """Batched scoring -> fused f32 [Q, 2k+1] (see ``unfuse_topk``): X2's
+    tile candidates, then ``exact_topk`` over them. The queries go to X2 in
+    chunks whose candidates fit the free device memory (``query_chunk``);
+    the rows are the same either way."""
     Q = blocks.shape[0]
-    step = query_chunk(norms.shape[0], Q, packed.device)
+    step = query_chunk(norms.shape[0], Q, k, packed.device)
+    plan = (blocks, run_end, weight, req, sho, neg, bool_params)
     out = []
     for q0 in range(0, Q, step):
-        s = slice(q0, q0 + step)
-        final, hits = block_score(
+        part = plan if step >= Q else [t[q0:q0 + step] for t in plan]
+        out.append(_fuse(*block_score(
             packed, block_base, block_count, block_doc_bits, block_freq_bits,
-            block_word_off, norms, tf_lut, live_mask, blocks[s], run_end[s],
-            weight[s], req[s], sho[s], neg[s], bool_params[s], window_words)
-        out.append(_fuse(final, hits, k))
+            block_word_off, norms, tf_lut, live_mask, *part, window_words,
+            k=k), k))
     return torch.cat(out) if len(out) > 1 else out[0]
 
 
@@ -210,7 +216,7 @@ def count_matches(
     bool_params, *, window_words: int, run_end,
 ):
     """Match count only (int32 scalar tensor): X2's count form."""
-    _, hits = block_score(
+    _, _, hits = block_score(
         packed, block_base, block_count, block_doc_bits, block_freq_bits,
         block_word_off, norms, tf_lut, live_mask, blocks[None], run_end[None],
         weight[None], req[None], sho[None], neg[None], bool_params[None],

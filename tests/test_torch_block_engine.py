@@ -314,7 +314,7 @@ def test_batch_chunks_give_the_same_rows(engines, plans, monkeypatch):
     pex = engines[4]
     pps = [plans[n][1][1] for n in QUERIES]
     whole = pex[1].top_k_batch(pps, K)
-    monkeypatch.setattr(engine, "query_chunk", lambda D, Q, dev: 2)
+    monkeypatch.setattr(engine, "query_chunk", lambda D, Q, k, dev: 2)
     pex[1]._batch_cache.clear()
     split = pex[1].top_k_batch(pps, K)
     for a, b in zip(split, whole):
@@ -330,8 +330,15 @@ def test_x2_checks_its_arguments(engines, plans):
             f.block_freq_bits, f.block_word_off, f.norms, ex.tf_lut,
             ex.live_mask, blocks[None], run_end[None], weight[None],
             req[None], sho[None], neg[None], bp[None], f.window_words]
-    final, hits = x2.block_score(*args)
-    assert final.shape == (1, ex.segment.num_docs_pad)
+    cand_s, cand_d, hits = x2.block_score(*args, k=K)
+    D = ex.segment.num_docs_pad
+    tile = x2.tile_for(D, 1, x2.H100_SMS)
+    assert cand_s.shape == cand_d.shape == (1, x2.candidates(D, tile, K))
+    assert x2.block_score(*args, scores=False)[:2] == (None, None)
+    with pytest.raises(ValueError):
+        x2.block_score(*args)  # the score form needs k
+    with pytest.raises(ValueError):
+        x2.block_score(*args, k=K, tile=4096)
     bad = list(args)
     bad[4] = f.block_freq_bits[:-1]  # one block short
     with pytest.raises(ValueError):
@@ -372,8 +379,141 @@ def test_x2_on_the_card_equals_plain(engines, plans):
         args = (f.packed, f.block_base, f.block_count, f.block_doc_bits,
                 f.block_freq_bits, f.block_word_off, f.norms, ex.tf_lut,
                 ex.live_mask, blocks, run_end, *cols, f.window_words)
-        got = x2.block_score(*args)
-        want = x2.block_score_reference(*args)
-        assert torch.equal(got[0].view(torch.int32),
-                           want[0].view(torch.int32))
-        assert torch.equal(got[1], want[1])
+        for k in (K, x2.MAX_TILE):
+            got = x2.block_score(*args, k=k)
+            tile = x2.tile_for(f.norms.shape[0], 1, torch.cuda
+                               .get_device_properties(0).multi_processor_count)
+            want = x2.block_score_reference(*args, k=k, tile=tile)
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].cuda().view(torch.int32))
+            assert torch.equal(got[1], want[1].cuda())
+            assert torch.equal(got[2], want[2].cuda())
+
+
+# X2's candidate form: each tile's first min(k, n) docs in lax.top_k's
+# order; exact_topk over them gives the JAX fused rows. (tile, k) cases:
+# k below, at and above the tile, a tile that does not divide D (384)
+CANDIDATE_CASES = [(256, K), (512, K), (384, K), (256, 256), (256, 300),
+                   (512, 512), (512, 2048)]
+
+
+@pytest.fixture(scope="module")
+def big(engines):
+    """A 3,000-doc segment with deletes (D 4,096 padded): the JAX and the
+    port's executors over it, with the JAX searcher's tf table."""
+    rng = np.random.Generator(np.random.PCG64(7))
+    seg = _segment(rng, 3000, "_3", 11)
+    jctx = JaxSearcher([seg])._ctx("body")
+    jex, lut = jctx.executors[0], jctx.tf_lut_host
+    ds = load_segment(segment_from_jax(seg), "cpu")
+    return jex, engine.SegmentExecutor(ds, "body", lut), ds
+
+
+def _batch_plans(ps, ds):
+    """QUERIES' port plans on ``ds`` (unequal B), in QUERIES' order."""
+    s = IndexSearcher([ds], device="cpu")
+    s._ctx("body")
+    return [_plans(s, query_from_jax(q))[0] for q in QUERIES.values()]
+
+
+def _x2_args(ex, args):
+    f = ex.field
+    blocks, weight, req, sho, neg, bp, run_end = args
+    return (f.packed, f.block_base, f.block_count, f.block_doc_bits,
+            f.block_freq_bits, f.block_word_off, f.norms, ex.tf_lut,
+            ex.live_mask, blocks, run_end, weight, req, sho, neg, bp,
+            f.window_words)
+
+
+@pytest.mark.parametrize("tile,k", CANDIDATE_CASES)
+def test_candidate_form_fused_rows_equal_jax(engines, plans, big, tile, k):
+    """exact_topk over the plain candidate form, at a pinned tile, gives
+    the JAX score_and_topk_batch rows bit for bit, for the whole QUERIES
+    batch (unequal B: a term twice, FILTER-only, MUST_NOT, a missing term,
+    ties in score, k above the match count) on D 2,048 and 4,096."""
+    jbig, pbig, _ = big
+    cases = [(engines[3][2], engines[4][2], [plans[n][1][2] for n in QUERIES]),
+             (jbig, pbig, None)]
+    for jex, pex, pps in cases:
+        if pps is None:
+            pps = [engine.build_segment_plan(
+                pex.field, [engine.TermPlan(pex.field.term_id(w), 1.5,
+                                            should=True)
+                            for w in ("oil", "price", "w3", "w3")], 1, 0.02)]
+            pps += _batch_plans(engines[1], pex.segment)
+        D = pex.segment.num_docs_pad
+        kq = min(k, D)
+        args = pex.batch_args(pps)
+        want = np.asarray(jengine.score_and_topk_batch(
+            *jex._index_args(), *(a.numpy() for a in args[:6]),
+            window_words=jex.field.window_words, k=kq))
+        cs, cd, hits = x2.block_score_reference(*_x2_args(pex, args),
+                                                k=kq, tile=tile)
+        assert cs.shape == cd.shape == (len(pps), x2.candidates(D, tile, kq))
+        got = engine._fuse(cs, cd, hits, kq)
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+        # the wrapper on the CPU at the same pinned tile
+        again = x2.block_score(*_x2_args(pex, args), k=kq, tile=tile)
+        for a, b in zip(again, (cs, cd, hits)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tile,k", CANDIDATE_CASES[:3])
+def test_candidate_form_solo_equals_jax(engines, plans, big, tile, k):
+    """One plan at a time against the JAX score_and_topk, and each tile's
+    list in (score desc, docid asc) order inside the tile."""
+    jbig, pbig, _ = big
+    for name in ("or20", "filter_only", "twice_must", "must_not", "missing",
+                 "term_rare"):
+        jp = plans[name][0][2]
+        pp = plans[name][1][2]
+        jex, pex = engines[3][2], engines[4][2]
+        want = np.asarray(jengine.score_and_topk(
+            *jex._index_args(), *jex._plan_args(jp),
+            window_words=jex.field.window_words, k=k))
+        args = tuple(a[None] for a in pex._device_plan(pp))
+        cs, cd, hits = x2.block_score_reference(*_x2_args(pex, args), k=k,
+                                                tile=tile)
+        got = engine._fuse(cs, cd, hits, k)[0]
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+        D = pex.segment.num_docs_pad
+        kk = min(k, tile)
+        for t0 in range(0, D, tile):
+            at = (t0 // tile) * kk
+            s = cs[0, at:at + kk].numpy()
+            d = cd[0, at:at + kk].numpy()
+            assert ((d >= t0) & (d < t0 + tile)).all()
+            assert (np.diff(s) <= 0).all()
+            tie = np.diff(s) == 0
+            assert (np.diff(d)[tie] > 0).all()
+
+
+def test_runs_are_consecutive_word_ranges(engines, plans, big):
+    """X2 stages a run's blocks that reach a tile as one word range: on
+    the port's segments (converted, flushed with deletes, and from the
+    bulk builder) every block's words start where the previous block's
+    end, ascending, and fit the decode window; so every plan run's blocks
+    hold consecutive ascending word ranges."""
+    from diagon_tpu_torch.bench.bulk_build import build_synthetic_segment
+
+    fields = [ex.field for ex in engines[4]] + [big[1].field]
+    fields.append(load_segment(build_synthetic_segment(3000), "cpu")
+                  .fields["body"])
+    for f in fields:
+        nb = f.num_blocks
+        cnt = f.block_count[:nb].long()
+        words = ((cnt * f.block_doc_bits[:nb] + 31) // 32
+                 + (cnt * f.block_freq_bits[:nb] + 31) // 32)
+        off = f.block_word_off[:nb].long()
+        assert int(off[0]) == 0
+        assert torch.equal(off[1:], off[:-1] + words[:-1])
+        assert int(words.max()) <= f.window_words
+        assert int(off[-1] + words[-1]) <= f.packed.shape[0]
+    for name in QUERIES:
+        for si, pp in enumerate(plans[name][1]):
+            f = engines[4][si].field
+            off = f.block_word_off.numpy()
+            for p0, p1 in x2.plan_runs(pp.run_end):
+                b = pp.blocks[p0:p1]
+                assert (np.diff(b) == 1).all()
+                assert (np.diff(off[b]) > 0).all()

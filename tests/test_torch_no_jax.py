@@ -1,6 +1,6 @@
 """diagon_tpu_torch imports with JAX and the JAX package unavailable, no
-module of it (nor chip_smoke.py, nor chip_ab.py) imports either, and
-chip_smoke.py refuses to run without a CUDA card."""
+module of it (nor chip_smoke.py, chip_ab.py or chip_x2_variants.py)
+imports either, and chip_smoke.py refuses to run without a CUDA card."""
 
 import ast
 import json
@@ -171,7 +171,8 @@ def _imported_modules(path):
 
 @pytest.mark.parametrize(
     "path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                              ROOT / "chip_ab.py"],
+                                              ROOT / "chip_ab.py",
+                                              ROOT / "chip_x2_variants.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_or_the_jax_package(path):
     names = _imported_modules(path)
@@ -191,7 +192,8 @@ def _string_constants(path):
             and id(n) not in docs]
 
 
-@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"],
+@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
+                                  ROOT / "chip_x2_variants.py"],
                          ids=lambda p: p.name)
 def test_smoke_runs_nothing_of_the_jax_package(path):
     """A child process steps around an import guard: no string of the
