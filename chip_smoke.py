@@ -428,26 +428,33 @@ class Oracle:
 
 
 class Counts:
-    """Launch counters of the path's kernels; ``uncounted`` runs a
+    """Launches of the path's kernels (the registry's
+    ``ops.<kernel>.launches`` for each name of ``kernels``) since the
+    process started or the last ``reset``; ``uncounted`` runs a
     comparison or a timing without adding to them."""
 
     def __init__(self, kernels):
         self.kernels = kernels
+        self.base = {name: 0 for name in kernels}
+
+    def _total(self):
+        from diagon_tpu_torch.ops import launches
+
+        return {name: launches(name) for name in self.kernels}
 
     def reset(self):
-        for fn in self.kernels.values():
-            fn.launches = 0
+        self.base = self._total()
 
     def read(self):
-        return {name: fn.launches for name, fn in self.kernels.items()}
+        return {n: v - self.base[n] for n, v in self._total().items()}
 
     def uncounted(self, fn, *args):
-        saved = self.read()
+        saved = self._total()
         try:
             return fn(*args)
         finally:
-            for name, n in saved.items():
-                self.kernels[name].launches = n
+            for name, n in self._total().items():
+                self.base[name] += n - saved[name]
 
     def require(self, before, names, what):
         """Each of ``names`` launched since the snapshot ``before``."""
@@ -479,6 +486,7 @@ def phase_device():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, str(ROOT))
     from diagon_tpu_torch.ops import _build
+    from diagon_tpu_torch.observability.metrics import registry
 
     # the plain versions' products are full f32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -504,15 +512,17 @@ def phase_device():
             f"{k} {r / 1e12:.2f} T/s" for k, r in RATES.items()))
     t0 = time.perf_counter()
     _build.library()
+    # 0.0 where every library was found built
+    nvcc_s = registry.snapshot()["ops.nvcc_seconds"]
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds} s) -> {_build.BUILD_DIR}")
+        f"(nvcc {nvcc_s} s) -> {_build.BUILD_DIR}")
     text = _build.build_log()
     for line in text.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
     found = spills(text)
     checked = {f: n for f, n in found.items() if any(k in f for k in NO_SPILL)}
-    if len(checked) < len(NO_SPILL) and _build.build_seconds is not None:
+    if len(checked) < len(NO_SPILL) and nvcc_s:
         raise AssertionError(f"ptxas reported on {sorted(checked)} only, not "
                              f"on every kernel of {NO_SPILL}")
     spilled = {f: n for f, n in checked.items() if n != (0, 0)}

@@ -105,12 +105,15 @@ def _dryrun_rank(n_devices: int, device):
     """One rank of ``dryrun_multichip``: every shard built, this rank's on
     its device, both batches searched and held against the oracle.
     Returns (exhaustive results, pruned results, kernel launches)."""
-    from diagon_tpu_torch.ops import approx_pass, gather_rescore, row_sum
+    from diagon_tpu_torch.ops import launches as launched
     from diagon_tpu_torch.parallel import ShardedSearcher
     from diagon_tpu_torch.search.oracle import OracleSearcher
 
     shards = [_tiny_corpus(40 + 10 * i, seed=100 + i)
               for i in range(n_devices)]
+    kernels = ("row_boolean", "approx_select", "approx_select_bool",
+               "approx_select_bool2", "gather_rescore", "union_rescore")
+    before = {n: launched(n) for n in kernels}
     ss = ShardedSearcher(shards, "body", device=device)
     queries, pruned = _dryrun_queries()
     oracle = OracleSearcher(shards)
@@ -126,10 +129,7 @@ def _dryrun_rank(n_devices: int, device):
                     or td.total_hits != want.total_hits):
                 raise AssertionError(f"{q!r}: sharded {td}, oracle {want}")
         results.append(got)
-    launches = {f.__name__: f.launches for f in (
-        row_sum.row_boolean, approx_pass.approx_select,
-        approx_pass.approx_select_bool, approx_pass.approx_select_bool2,
-        gather_rescore.gather_rescore, gather_rescore.union_rescore)}
+    launches = {n: launched(n) - before[n] for n in kernels}
     return results[0], results[1], launches
 
 

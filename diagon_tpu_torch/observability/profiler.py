@@ -4,9 +4,18 @@
 
 Thread-local phase timers: name -> {total, count, min, max} nanoseconds.
 Enabled explicitly (the reference gates on -DDIAGON_PROFILING; this gates
-at run time). Device traces come from ``torch.profiler``:
+at run time). A phase entered while a phase of the same name is open on
+the thread is part of the outer one: only the outermost is timed and
+counted. Device traces come from ``torch.profiler``:
 ``QueryProfiler.trace(dir)`` wraps a block in a profiler session and writes
-a Chrome trace into ``dir``.
+a Chrome trace into ``dir``. While any ``torch.profiler`` session records,
+each ``ProfileScope`` also opens a profiler range of its name, so the
+phases lie on the clock of the kernels, copies and idle gaps.
+
+A scope costs one test of two module-level flags while no profiler of
+this module was ever enabled in the process and ``torch.profiler``
+records nothing: ``ProfileScope(name)`` then returns a shared scope that
+does nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +26,17 @@ import threading
 import time
 from dataclasses import dataclass
 from typing import Dict
+
+from torch.autograd import profiler as _torch_profiler
+
+try:  # the cheapest range torch offers, where it has it
+    from torch._C._profiler import _RecordFunctionFast as _Range
+except ImportError:  # pragma: no cover - older torch
+    _Range = _torch_profiler.record_function
+
+# set once a QueryProfiler is enabled in this process, never cleared: a
+# scope looks up the thread's profiler only after that
+_phases_on = False
 
 
 @dataclass
@@ -37,9 +57,13 @@ class QueryProfiler:
     _tls = threading.local()
 
     def __init__(self, enabled: bool = True):
+        global _phases_on
         self.enabled = enabled
         self.phases: Dict[str, PhaseStats] = {}
         self._starts: Dict[str, int] = {}
+        self._nested: Dict[str, int] = {}  # re-entries of an open phase
+        if enabled:
+            _phases_on = True
 
     @classmethod
     def current(cls) -> "QueryProfiler":
@@ -56,11 +80,19 @@ class QueryProfiler:
         return p
 
     def begin_phase(self, name: str) -> None:
-        if self.enabled:
-            self._starts[name] = time.perf_counter_ns()
+        if not self.enabled:
+            return
+        if name in self._starts:
+            self._nested[name] = self._nested.get(name, 0) + 1
+            return
+        self._starts[name] = time.perf_counter_ns()
 
     def end_phase(self, name: str) -> None:
         if not self.enabled:
+            return
+        inner = self._nested.get(name)
+        if inner:
+            self._nested[name] = inner - 1
             return
         t0 = self._starts.pop(name, None)
         if t0 is None:
@@ -109,15 +141,34 @@ class QueryProfiler:
 
 
 class ProfileScope:
-    """RAII phase scope (reference SearchProfiler.h ProfileScope)."""
+    """RAII phase scope (reference SearchProfiler.h ProfileScope): a phase
+    of the thread's ``QueryProfiler`` (or of ``profiler``), and a range of
+    the same name while ``torch.profiler`` records."""
+
+    def __new__(cls, name: str, profiler: QueryProfiler = None):
+        if (profiler is None and not _phases_on
+                and not _torch_profiler._is_profiler_enabled):
+            return _OFF
+        return super().__new__(cls)
 
     def __init__(self, name: str, profiler: QueryProfiler = None):
         self.name = name
         self.profiler = profiler or QueryProfiler.current()
+        self._range = None
 
     def __enter__(self):
+        if _torch_profiler._is_profiler_enabled:
+            self._range = _Range(self.name)
+            self._range.__enter__()
         self.profiler.begin_phase(self.name)
         return self
 
     def __exit__(self, *exc):
         self.profiler.end_phase(self.name)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+
+
+# the scope of a process that profiles nothing: one shared object
+_OFF = contextlib.nullcontext()

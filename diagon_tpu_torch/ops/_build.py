@@ -23,6 +23,8 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
+from diagon_tpu_torch.observability.metrics import registry
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -52,7 +54,9 @@ _SIGNATURES = {
 }
 
 _lib = None
-build_seconds = None  # wall time of the build this process ran (None: reused)
+_NVCC_SECONDS = registry.gauge(
+    "ops.nvcc_seconds",
+    "wall time of the kernel build this process ran (0.0: none ran)")
 
 
 def _nvcc() -> str:
@@ -99,7 +103,6 @@ def build_log() -> str:
 def _build_missing():
     """Start one nvcc per source whose library is missing, all at once,
     and wait for every one; raise with the output of any that failed."""
-    global build_seconds
     todo = [(s, library_path(s)) for s in _sources()
             if not library_path(s).exists()]
     if not todo:
@@ -124,7 +127,7 @@ def _build_missing():
         os.replace(tmp, so)  # atomic: concurrent builders never see half a file
     if failed:
         raise RuntimeError("\n".join(failed))
-    build_seconds = time.perf_counter() - t0
+    _NVCC_SECONDS.set(time.perf_counter() - t0)
 
 
 def library() -> SimpleNamespace:

@@ -106,7 +106,11 @@ from __future__ import annotations
 
 import torch
 
-from diagon_tpu_torch.ops import _build
+from diagon_tpu_torch.ops import _build, launch_counter
+
+_LAUNCHES_B3 = launch_counter("approx_select")
+_LAUNCHES_B4 = launch_counter("approx_select_bool")
+_LAUNCHES_B5 = launch_counter("approx_select_bool2")
 
 LANE = 128  # docs per tile
 MAX_ROWS = 896  # the kernels stage a [U8, 128] bf16 tile in shared memory
@@ -318,7 +322,7 @@ def approx_select(a_t, bank, live):
         return approx_select_reference(a_t, bank, live)
     out = _tensor_core_select("diagon_approx_select", [a_t], bank, None, live,
                               U8, Q, D, MMA_CHUNK_Q)
-    approx_select.launches += 1
+    _LAUNCHES_B3.increment()
     return out
 
 
@@ -334,7 +338,7 @@ def approx_select_bool(a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank, params_t,
             a_sc_t, a_rq_t, a_sh_t, a_ng_t, bank, params_t, live)
     out = _tensor_core_select("diagon_approx_select_bool", list(mats.values()),
                               bank, params_t, live, U8, Q, D, MMA_FRAG_Q)
-    approx_select_bool.launches += 1
+    _LAUNCHES_B4.increment()
     return out
 
 
@@ -348,12 +352,5 @@ def approx_select_bool2(a_sc_t, a_cb_t, bank, params_t, live):
                                              live)
     out = _tensor_core_select("diagon_approx_select_bool2", [a_sc_t, a_cb_t],
                               bank, params_t, live, U8, Q, D, MMA_FRAG_Q)
-    approx_select_bool2.launches += 1
+    _LAUNCHES_B5.increment()
     return out
-
-
-# kernel launches since process start (or since a caller reset them); the
-# CPU path never counts
-approx_select.launches = 0
-approx_select_bool.launches = 0
-approx_select_bool2.launches = 0

@@ -34,8 +34,10 @@ import functools
 
 import torch
 
-from diagon_tpu_torch.ops import _build
+from diagon_tpu_torch.ops import _build, launch_counter
 from diagon_tpu_torch.ops.row_sum import _sm_count
+
+_LAUNCHES = launch_counter("bits_hits")
 
 # per-query mode word bits (the JAX module's values)
 MODE_REQ = 1  # query has required clauses (all present): AND them
@@ -180,10 +182,5 @@ def bits_hits(bits, cidx, cflags, qmode):
     )
     if rc != 0:
         raise RuntimeError(f"diagon_bits_hits launch failed: cudaError {rc}")
-    bits_hits.launches += 1
+    _LAUNCHES.increment()
     return out
-
-
-# kernel launches since process start (or since a caller reset them); the
-# CPU path never counts
-bits_hits.launches = 0

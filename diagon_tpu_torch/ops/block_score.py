@@ -36,9 +36,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from diagon_tpu_torch.ops import _build
+from diagon_tpu_torch.ops import _build, launch_counter
 from diagon_tpu_torch.ops.bitpack_ops import decode_doc_blocks
 from diagon_tpu_torch.ops.row_sum import _sm_count
+
+_LAUNCHES = launch_counter("block_score")
 
 # csrc/block_score.cu: a block owns at most MAX_TILE docs of one query
 MAX_TILE = 2048
@@ -251,7 +253,7 @@ def block_score(packed, block_base, block_count, block_doc_bits,
     )
     if rc != 0:
         raise RuntimeError(f"diagon_block_score launch failed: cudaError {rc}")
-    block_score.launches += 1
+    _LAUNCHES.increment()
     if not scores:
         return None, None, hits
     n = candidates(D, tile, k)
@@ -274,8 +276,3 @@ def query_chunk(D: int, Q: int, k: int, device) -> int:
         return min(Q, MAX_QUERIES)
     free, _ = torch.cuda.mem_get_info(device)
     return max(1, min(Q, MAX_QUERIES, free // 2 // per_query))
-
-
-# calls that launched the kernels since process start (or since a caller
-# reset them); the CPU path never counts
-block_score.launches = 0

@@ -44,8 +44,11 @@ import functools
 
 import torch
 
-from diagon_tpu_torch.ops import _build
+from diagon_tpu_torch.ops import _build, launch_counter
 from diagon_tpu_torch.ops.row_sum import _sm_count
+
+_LAUNCHES_B6 = launch_counter("gather_rescore")
+_LAUNCHES_B7 = launch_counter("union_rescore")
 
 LANE = 128
 # the JAX package's union-kernel limits (its SMEM scalar-prefetch budget and
@@ -197,7 +200,7 @@ def gather_rescore(compact_t, cidx, tsel, flags=None):
     )
     if rc != 0:
         raise RuntimeError(f"diagon_gather_rescore launch failed: cudaError {rc}")
-    gather_rescore.launches += 1
+    _LAUNCHES_B6.increment()
     return out[0] if flags is None else out.unbind(0)
 
 
@@ -279,11 +282,5 @@ def union_rescore(compact_t, cidx, tsel, flags=None):
     )
     if rc != 0:
         raise RuntimeError(f"diagon_union_rescore launch failed: cudaError {rc}")
-    union_rescore.launches += 1
+    _LAUNCHES_B7.increment()
     return out[0] if flags is None else out.unbind(0)
-
-
-# kernel launches since process start (or since a caller reset them); the
-# CPU path never counts
-gather_rescore.launches = 0
-union_rescore.launches = 0

@@ -48,7 +48,9 @@ import ctypes
 import numpy as np
 import torch
 
-from diagon_tpu_torch.ops import _build
+from diagon_tpu_torch.ops import _build, launch_counter
+
+_LAUNCHES = launch_counter("range_agg")
 
 _PLANE = 16
 _PMASK = (1 << _PLANE) - 1
@@ -338,7 +340,7 @@ class RangeAggPlan:
         rc = self._launch(ctypes.byref(a), self.stream)
         if rc != 0:
             raise RuntimeError(f"diagon_range_agg launch failed: cudaError {rc}")
-        range_agg.launches += 1
+        _LAUNCHES.increment()
         if not ng:
             return out
         return out[:6], (out[6:6 + ng], out[6 + ng:])
@@ -353,8 +355,3 @@ def range_agg(filt, agg, valid, gmin, gmax, blo, bhi, groups=None,
     return RangeAggPlan(filt, agg, valid, gmin, gmax, groups, goff, cap=cap,
                         filt_is_int=filt_is_int, agg_is_int=agg_is_int,
                         num_groups=num_groups)(blo, bhi)
-
-
-# calls that launched the kernel since process start (or since a caller
-# reset the count); the CPU path never counts
-range_agg.launches = 0

@@ -19,7 +19,10 @@ import functools
 
 import torch
 
-from diagon_tpu_torch.ops import _build
+from diagon_tpu_torch.ops import _build, launch_counter
+
+_LAUNCHES_B1 = launch_counter("row_sum")
+_LAUNCHES_B2 = launch_counter("row_boolean")
 
 TILE = 1024  # D must be a multiple of this (float4 rows, 16-byte aligned)
 MAX_GRID_Y = 65535
@@ -167,7 +170,7 @@ def row_sum(heavy, light, hidx, lidx):
     )
     if rc != 0:
         raise RuntimeError(f"diagon_row_sum launch failed: cudaError {rc}")
-    row_sum.launches += 1
+    _LAUNCHES_B1.increment()
     return out
 
 
@@ -189,11 +192,5 @@ def row_boolean(heavy, light, hidx, lidx, flags):
     )
     if rc != 0:
         raise RuntimeError(f"diagon_row_boolean launch failed: cudaError {rc}")
-    row_boolean.launches += 1
+    _LAUNCHES_B2.increment()
     return out.unbind(0)
-
-
-# kernel launches since process start (or since a caller reset them); the
-# CPU path never counts
-row_sum.launches = 0
-row_boolean.launches = 0

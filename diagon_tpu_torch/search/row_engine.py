@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from diagon_tpu_torch.observability.metrics import registry
+from diagon_tpu_torch.observability.profiler import ProfileScope
 from diagon_tpu_torch.ops.approx_pass import (
     approx_select,
     approx_select_bool,
@@ -1117,6 +1118,11 @@ class RowExecutor:
                 "search.escalations",
                 "queries re-run exhaustively after a certificate failure",
             ),
+            "escalated_plans": registry.counter(
+                "search.escalated_plans",
+                "distinct plans among the queries a finalize re-ran "
+                "exhaustively",
+            ),
             "compact_fallbacks": registry.counter(
                 "search.compact_fallbacks",
                 "batches that could not build a compact bank",
@@ -1761,29 +1767,39 @@ class RowExecutor:
         (scores f32 [Q, k], docs i32 [Q, k], hits i32 [Q]); queries whose
         exactness certificate failed are rescored exhaustively (B1/B2), in
         query chunks that bound the [Q, D] accumulators."""
+        with ProfileScope("finalize"):
+            return self._finalize(plans, fused, k)
+
+    def _finalize(self, plans: Sequence[RowPlan], fused, k: int):
         if isinstance(fused, torch.Tensor):
-            fused = fused.cpu().numpy()
+            with ProfileScope("copy"):
+                fused = fused.cpu().numpy()
         if fused.shape[-1] == 2 * k + 1:  # exhaustive layout
             return unfuse_topk(fused, k)
         scores, docs, hits = (a.copy() for a in unfuse_topk(fused, k))
         unsafe = np.nonzero(fused[:, 2 * k + 1] == 0.0)[0]
         if len(unsafe):
             self.metrics["escalations"].increment(len(unsafe))
+            self.metrics["escalated_plans"].increment(
+                len({id(plans[int(i)]) for i in unsafe}))
             chunk = max(1, self.EXHAUSTIVE_CHUNK_BYTES
                         // (4 * self.index.num_docs_pad))
-            for c0 in range(0, len(unsafe), chunk):
-                grp = unsafe[c0 : c0 + chunk]
-                sub = [plans[int(i)] for i in grp]
-                s2, d2, h2 = unfuse_topk(
-                    self._exhaustive_fused(sub, k).cpu().numpy(), k
-                )
-                scores[grp] = s2
-                docs[grp] = d2
-                hits[grp] = h2
+            with ProfileScope("escalate"):
+                for c0 in range(0, len(unsafe), chunk):
+                    grp = unsafe[c0 : c0 + chunk]
+                    sub = [plans[int(i)] for i in grp]
+                    s2, d2, h2 = unfuse_topk(
+                        self._exhaustive_fused(sub, k).cpu().numpy(), k
+                    )
+                    scores[grp] = s2
+                    docs[grp] = d2
+                    hits[grp] = h2
         return scores, docs, hits
 
     def top_k_batch(self, plans: Sequence[RowPlan], k: int):
-        return self.finalize(plans, self.dispatch(plans, k), k)
+        with ProfileScope("route"):
+            fused = self.dispatch(plans, k)
+        return self.finalize(plans, fused, k)
 
     def top_k(self, plan: RowPlan, k: int):
         scores, docs, hits = self.top_k_batch([plan], k)

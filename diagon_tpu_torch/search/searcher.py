@@ -12,7 +12,11 @@ reference's ``TopScoreDocCollector``. Queries the row planner rejects
 package. Queries are the port's own classes (``search/query.py``); a JAX
 package query raises TypeError (``convert.query_from_jax`` carries one
 across). ``search`` times its phases ("phrase", "plan", "execute",
-"merge") into the thread's ``QueryProfiler`` when one is enabled.
+"merge") into the thread's ``QueryProfiler`` when one is enabled, with
+"topdocs" once a segment; ``dispatch_batch`` times "plan" and "route" and
+``collect_many`` "copy" and "topdocs", once a call; the row engine times
+"route" (solo), "copy", "finalize" and "escalate" once a segment
+(``row_engine.py``).
 """
 
 from __future__ import annotations
@@ -575,7 +579,8 @@ class IndexSearcher:
                     continue
                 kk = min(k, self.device_segments[si].num_docs_pad)
                 scores, docs, hits = ctx.row_executors[si].top_k(plan, kk)
-                parts.append(self._to_topdocs(si, scores, docs, hits))
+                with ProfileScope("topdocs"):
+                    parts.append(self._to_topdocs(si, scores, docs, hits))
         with ProfileScope("merge"):
             return merge_top_docs(parts, k)
 
@@ -629,21 +634,23 @@ class IndexSearcher:
                 "the device budget is too small for these segments"
             )
         flat = []
-        for q in queries:
-            qp = self._cached_query_plans(q)
-            if qp is None:
-                raise ValueError(f"dispatch_batch: unsupported query {q!r}")
-            flat.append(qp)
+        with ProfileScope("plan"):
+            for q in queries:
+                qp = self._cached_query_plans(q)
+                if qp is None:
+                    raise ValueError(f"dispatch_batch: unsupported query {q!r}")
+                flat.append(qp)
         field = flat[0][0]
         ctx = self._ctx(field)
         handles = []
-        for si, ds in enumerate(self.device_segments):
-            ex = ctx.row_executors[si]
-            if ex is None:
-                continue
-            plans = [seg_plans[si] for _, seg_plans in flat]
-            kk = min(k, ds.num_docs_pad)
-            handles.append((si, kk, ex.dispatch(plans, kk), ex, plans))
+        with ProfileScope("route"):
+            for si, ds in enumerate(self.device_segments):
+                ex = ctx.row_executors[si]
+                if ex is None:
+                    continue
+                plans = [seg_plans[si] for _, seg_plans in flat]
+                kk = min(k, ds.num_docs_pad)
+                handles.append((si, kk, ex.dispatch(plans, kk), ex, plans))
         return (len(queries), k, handles)
 
     def collect_many(self, handles) -> List[List[TopDocs]]:
@@ -652,21 +659,24 @@ class IndexSearcher:
         all_fused = [f for _, _, parts in handles for _, _, f, _, _ in parts]
         if not all_fused:
             return [self.collect_batch(h) for h in handles]
-        stacked = torch.cat([f.reshape(-1) for f in all_fused]).cpu().numpy()
+        with ProfileScope("copy"):
+            stacked = torch.cat([f.reshape(-1) for f in all_fused]).cpu().numpy()
         out: List[List[TopDocs]] = []
         pos = 0
         for nq, k, parts in handles:
-            results: List[List[TopDocs]] = [[] for _ in range(nq)]
+            decoded = []
             for si, kk, f, ex, plans in parts:
                 n = f.numel()
                 flat = stacked[pos : pos + n].reshape(tuple(f.shape))
                 pos += n
-                scores, docs, hits = ex.finalize(plans, flat, kk)
-                for qi in range(nq):
-                    results[qi].append(
-                        self._to_topdocs(si, scores[qi], docs[qi], hits[qi])
-                    )
-            out.append([merge_top_docs(parts_q, k) for parts_q in results])
+                decoded.append((si, ex.finalize(plans, flat, kk)))
+            with ProfileScope("topdocs"):
+                results: List[List[TopDocs]] = [[] for _ in range(nq)]
+                for si, (scores, docs, hits) in decoded:
+                    for qi in range(nq):
+                        results[qi].append(self._to_topdocs(
+                            si, scores[qi], docs[qi], hits[qi]))
+                out.append([merge_top_docs(parts_q, k) for parts_q in results])
         return out
 
     def collect_batch(self, handle) -> List[TopDocs]:

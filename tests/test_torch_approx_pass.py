@@ -14,6 +14,7 @@ from diagon_tpu.ops.pallas.approx_pass import (
     pallas_approx_select_bool,
     pallas_approx_select_bool2,
 )
+from diagon_tpu_torch.ops import launches
 from diagon_tpu_torch.ops import approx_pass as ap
 
 REL = 2.0 ** -8
@@ -160,8 +161,8 @@ def test_tile_bound_is_sound():
 
 def test_cpu_wrappers_use_plain_versions_without_launching():
     bank, live, a, params = _batch(7, 8, 1024, seed=7)
-    before = (ap.approx_select.launches, ap.approx_select_bool.launches,
-              ap.approx_select_bool2.launches)
+    names = ("approx_select", "approx_select_bool", "approx_select_bool2")
+    before = tuple(map(launches, names))
     t = lambda r: _th(a[r], True)  # noqa: E731
     b, p, lv = _th(bank, True), _th(params), _th(live)
     pairs = [
@@ -175,8 +176,7 @@ def test_cpu_wrappers_use_plain_versions_without_launching():
     ]
     for got, want in pairs:
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert before == (ap.approx_select.launches, ap.approx_select_bool.launches,
-                      ap.approx_select_bool2.launches)
+    assert before == tuple(map(launches, names))
 
 
 @pytest.mark.parametrize("case", [

@@ -14,6 +14,7 @@ from diagon_tpu.ops.pallas.gather_rescore import (
     pallas_union_rescore,
     union_rescore_supported,
 )
+from diagon_tpu_torch.ops import launches
 from diagon_tpu_torch.ops import gather_rescore as gr
 
 # (G, U8, Q, Tq, B): one query, every tile selected, many queries over
@@ -288,26 +289,26 @@ def test_union_rescore_supported_matches_jax(Q, B):
 def test_union_cpu_wrapper_uses_plain_version_without_launching(boolean):
     _, targs, fl = _both(SHAPES[2], boolean)
     fl = None if fl is None else torch.from_numpy(fl)
-    before = gr.union_rescore.launches
+    before = launches("union_rescore")
     got = gr.union_rescore(*targs, fl)
     want = gr.union_rescore_reference(*targs, fl)
     if not boolean:
         got, want = (got,), (want,)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert gr.union_rescore.launches == before
+    assert launches("union_rescore") == before
 
 
 @pytest.mark.parametrize("boolean", [False, True])
 def test_cpu_wrapper_uses_plain_version_without_launching(boolean):
     _, targs, fl = _both(SHAPES[1], boolean)
     fl = None if fl is None else torch.from_numpy(fl)
-    before = gr.gather_rescore.launches
+    before = launches("gather_rescore")
     got = gr.gather_rescore(*targs, fl)
     want = gr.gather_rescore_reference(*targs, fl)
     if not boolean:
         got, want = (got,), (want,)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert gr.gather_rescore.launches == before
+    assert launches("gather_rescore") == before
 
 
 @pytest.mark.parametrize("case", ["bank_2d", "lane_64", "tsel_rows",

@@ -20,6 +20,7 @@ from diagon_tpu_torch.columnar import (
     Float64Column,
     Int64Column,
 )
+from diagon_tpu_torch.ops import launches
 from diagon_tpu_torch.ops import range_agg as ra
 
 CU = Path(ra.__file__).resolve().parents[1] / "csrc" / "range_agg.cu"
@@ -180,17 +181,15 @@ def test_threads_sharing_a_plan_launch_their_own_bounds_and_output():
         made[threading.get_ident()] = (ra._value48(blo), ra._value48(bhi),
                                        out)
 
-    launches = ra.range_agg.launches
-    try:
-        threads = [threading.Thread(target=call, args=b)
-                   for b in ((1000, 400000), (5000, 900000))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-    finally:
-        ra.range_agg.launches = launches
+    before = launches("range_agg")
+    threads = [threading.Thread(target=call, args=b)
+               for b in ((1000, 400000), (5000, 900000))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     assert len(seen) == len(made) == 2
+    assert launches("range_agg") - before == 2  # one a call
     for ident, (lo, hi, out) in made.items():
         assert seen[ident] == (lo, hi, out.data_ptr(), plan.args.f0,
                                plan.args.parts)

@@ -10,6 +10,7 @@ import torch
 import jax.numpy as jnp
 
 from diagon_tpu.ops.pallas.row_sum import pallas_row_boolean, pallas_row_sum
+from diagon_tpu_torch.ops import launches
 from diagon_tpu_torch.ops import row_sum as rs
 
 # (Q, Tq, D, H, L): single query, light-only clauses, odd batch sizes,
@@ -72,13 +73,13 @@ def test_row_boolean_reference_matches_pallas(shape):
 @pytest.mark.parametrize("shape", SHAPES[:2])
 def test_cpu_wrappers_use_plain_versions_without_launching(shape):
     heavy, light, hidx, lidx, flags = _torch(*_inputs(*shape))
-    n_sum, n_bool = rs.row_sum.launches, rs.row_boolean.launches
+    n_sum, n_bool = launches("row_sum"), launches("row_boolean")
     assert torch.equal(rs.row_sum(heavy, light, hidx, lidx),
                        rs.row_sum_reference(heavy, light, hidx, lidx))
     for g, w in zip(rs.row_boolean(heavy, light, hidx, lidx, flags),
                     rs.row_boolean_reference(heavy, light, hidx, lidx, flags)):
         assert torch.equal(g, w)
-    assert (rs.row_sum.launches, rs.row_boolean.launches) == (n_sum, n_bool)
+    assert (launches("row_sum"), launches("row_boolean")) == (n_sum, n_bool)
 
 
 def _bad_inputs(case):

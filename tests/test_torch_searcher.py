@@ -234,11 +234,11 @@ def test_phrase_parity(searchers, query):
 
 
 def test_kernel_launch_counters_stay_zero_on_cpu(searchers):
-    from diagon_tpu_torch.ops import row_sum as rs
+    from diagon_tpu_torch.ops import launches
 
-    before = (rs.row_sum.launches, rs.row_boolean.launches)
+    before = (launches("row_sum"), launches("row_boolean"))
     searchers[0].search_batch([PORT["or"], PORT["and"]], 10)
-    assert (rs.row_sum.launches, rs.row_boolean.launches) == before
+    assert (launches("row_sum"), launches("row_boolean")) == before
 
 
 @pytest.mark.parametrize("name", ["term", "nested_boolean"])
