@@ -82,7 +82,7 @@ from diagon_tpu_torch.search.row_engine import (
     row_score_topk_pallas,
     row_score_topk_pruned_batch,
 )
-from diagon_tpu_torch.search.topdocs import ScoreDoc, TopDocs
+from diagon_tpu_torch.search.topdocs import TopDocs, top_docs_batch
 
 
 def merge_topk(scores: torch.Tensor, docs: torch.Tensor, k: int):
@@ -658,18 +658,8 @@ class ShardedSearcher:
                 "search.sharded_escalations",
                 "sharded (query, shard) pairs escalated to exhaustive",
             ).increment(n_esc)
-        scores = m_scores.cpu().numpy()
-        docs = m_docs.cpu().numpy()
-        hits = total.cpu().numpy()
-        out = []
-        for qi in range(len(queries)):
-            n = int(hits[qi])
-            sds = [
-                ScoreDoc(int(d), float(s))
-                for s, d in zip(scores[qi], docs[qi])
-                if s >= 0.0
-            ][:n]
-            out.append(TopDocs(n, sds))
+        out = top_docs_batch([(m_scores.cpu().numpy(), m_docs.cpu().numpy(),
+                               total.cpu().numpy(), 0)], k)
         self.last_split = (t1 - t0, t2 - t1, time.perf_counter() - t2)
         return out
 

@@ -14,7 +14,8 @@ package query raises TypeError (``convert.query_from_jax`` carries one
 across). ``search`` times its phases ("phrase", "plan", "execute",
 "merge") into the thread's ``QueryProfiler`` when one is enabled, with
 "topdocs" once a segment; ``dispatch_batch`` times "plan" and "route" and
-``collect_many`` "copy" and "topdocs", once a call; the row engine times
+``collect_many`` "copy" and "topdocs", once a call (the batch paths build
+a batch's TopDocs in one ``top_docs_batch``); the row engine times
 "route" (solo), "copy", "finalize" and "escalate" once a segment
 (``row_engine.py``).
 """
@@ -60,7 +61,8 @@ from diagon_tpu_torch.search.row_engine import (
     RowExecutor,
     RowFieldIndex,
 )
-from diagon_tpu_torch.search.topdocs import ScoreDoc, TopDocs, merge_top_docs
+from diagon_tpu_torch.search.topdocs import (ScoreDoc, TopDocs, merge_top_docs,
+                                             top_docs_batch)
 
 _RANGEABLE = (NumericRangeQuery, PointRangeQuery, DoubleRangeQuery,
               MatchAllDocsQuery)
@@ -609,18 +611,15 @@ class IndexSearcher:
             self._row_plans(field, clauses, min_should)
             for _, clauses, min_should in flat
         ]
-        results: List[List[TopDocs]] = [[] for _ in queries]
+        rows = []
         for si, ds in enumerate(self.device_segments):
             if field not in ds.fields:
                 continue
             plans = [pp[si] for pp in per_seg_plans]
             kk = min(k, ds.num_docs_pad)
-            scores, docs, hits = ctx.row_executors[si].top_k_batch(plans, kk)
-            for qi in range(len(queries)):
-                results[qi].append(
-                    self._to_topdocs(si, scores[qi], docs[qi], hits[qi])
-                )
-        return [merge_top_docs(parts, k) for parts in results]
+            rows.append((*ctx.row_executors[si].top_k_batch(plans, kk),
+                         self.doc_bases[si]))
+        return self._batch_topdocs(len(queries), rows, k)
 
     def dispatch_batch(self, queries: Sequence[Query], k: int = 10):
         """Launch a batch without waiting for it: returns an opaque handle
@@ -664,32 +663,22 @@ class IndexSearcher:
         out: List[List[TopDocs]] = []
         pos = 0
         for nq, k, parts in handles:
-            decoded = []
+            rows = []
             for si, kk, f, ex, plans in parts:
                 n = f.numel()
                 flat = stacked[pos : pos + n].reshape(tuple(f.shape))
                 pos += n
-                decoded.append((si, ex.finalize(plans, flat, kk)))
+                rows.append((*ex.finalize(plans, flat, kk), self.doc_bases[si]))
             with ProfileScope("topdocs"):
-                results: List[List[TopDocs]] = [[] for _ in range(nq)]
-                for si, (scores, docs, hits) in decoded:
-                    for qi in range(nq):
-                        results[qi].append(self._to_topdocs(
-                            si, scores[qi], docs[qi], hits[qi]))
-                out.append([merge_top_docs(parts_q, k) for parts_q in results])
+                out.append(self._batch_topdocs(nq, rows, k))
         return out
 
     def collect_batch(self, handle) -> List[TopDocs]:
         """Resolve one dispatch_batch handle into per-query TopDocs."""
         nq, k, parts_h = handle
-        results: List[List[TopDocs]] = [[] for _ in range(nq)]
-        for si, kk, fused, ex, plans in parts_h:
-            scores, docs, hits = ex.finalize(plans, fused, kk)
-            for qi in range(nq):
-                results[qi].append(
-                    self._to_topdocs(si, scores[qi], docs[qi], hits[qi])
-                )
-        return [merge_top_docs(parts, k) for parts in results]
+        rows = [(*ex.finalize(plans, fused, kk), self.doc_bases[si])
+                for si, kk, fused, ex, plans in parts_h]
+        return self._batch_topdocs(nq, rows, k)
 
     def count(self, query: Query) -> int:
         self._ensure_resident()
@@ -783,6 +772,15 @@ class IndexSearcher:
         return OracleSearcher(self._host_segments()).count(query)
 
     # -- helpers -----------------------------------------------------------
+    @staticmethod
+    def _batch_topdocs(nq: int, rows, k: int) -> List[TopDocs]:
+        """The batch paths' TopDocs: ``top_docs_batch`` over one
+        ``(scores, docs, hits, doc_base)`` a segment; none where no
+        segment holds the batch's field."""
+        if not rows:
+            return [TopDocs(0, []) for _ in range(nq)]
+        return top_docs_batch(rows, k)
+
     def _to_topdocs(self, si: int, scores, docs, hits) -> TopDocs:
         hits = int(hits)
         base = self.doc_bases[si]

@@ -164,6 +164,52 @@ def test_dispatch_collect_many_matches_oracle(searchers):
         _assert_same(r, oracle.search(q, 10), repr(q))
 
 
+BATCH_PATHS = {
+    "collect_many": lambda ts, qs, k: ts.collect_many(
+        [ts.dispatch_batch(qs, k)])[0],
+    "collect_batch": lambda ts, qs, k: ts.collect_batch(
+        ts.dispatch_batch(qs, k)),
+    "search_batch": lambda ts, qs, k: ts.search_batch(qs, k),
+}
+
+
+@pytest.mark.parametrize("path", list(BATCH_PATHS))
+def test_batch_paths_equal_search_over_two_segments(searchers, path):
+    """The batch paths build a batch's TopDocs with ``top_docs_batch``
+    over both segments (deletes in the first, the second at a doc base of
+    700): the same TopDocs as per-query ``search``, and the oracle's
+    answers, at k below and at the segments' top-k width."""
+    ts, _, oracle = searchers
+    assert len(ts.device_segments) == 2 and ts.doc_bases[1] > 0
+    for k in (3, 10):
+        got = BATCH_PATHS[path](ts, [PORT[n] for n in BATCHABLE], k)
+        assert len(got) == len(BATCHABLE)
+        for name, g in zip(BATCHABLE, got):
+            solo = ts.search(PORT[name], k)
+            assert g == solo and repr(g) == repr(solo), (path, name, k)
+            _assert_same(g, oracle.search(QUERIES[name], k), (path, name, k))
+            assert all(type(sd.doc) is int and type(sd.score) is float
+                       for sd in g.score_docs)
+
+
+@pytest.mark.parametrize("path", [*BATCH_PATHS, "search"])
+def test_topdocs_batched_counter(searchers, path):
+    """``search.topdocs_batched`` counts the queries whose TopDocs the
+    batch builder built: every query of a batch path, none of ``search``."""
+    from diagon_tpu_torch.observability.metrics import registry
+
+    ts = searchers[0]
+    queries = [PORT[n] for n in BATCHABLE]
+    counter = registry.counter("search.topdocs_batched")
+    before = counter.value()
+    if path == "search":
+        for q in queries:
+            ts.search(q, 10)
+    else:
+        BATCH_PATHS[path](ts, queries, 10)
+    assert counter.value() - before == (0 if path == "search" else len(queries))
+
+
 def test_exhaustive_chunks_equal_one_launch(searchers, monkeypatch):
     """Query chunking of exhaustive scoring changes nothing."""
     ts, _, oracle = searchers
