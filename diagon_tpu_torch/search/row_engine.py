@@ -723,15 +723,16 @@ def _decode_term_numpy(pp, tid: int):
 
 
 def _block_meta(pp, bsel, rowid, scale):
-    return {
-        "woff": pp.block_word_off[bsel].astype(np.int32),
-        "dbits": pp.block_doc_bits[bsel].astype(np.int32),
-        "fbits": pp.block_freq_bits[bsel].astype(np.int32),
-        "base": pp.block_base[bsel].astype(np.int32),
-        "count": pp.block_count[bsel].astype(np.int32),
-        "rowid": rowid.astype(np.int32),
-        "idf": scale.astype(np.float32),
-    }
+    """(cols i32 [6, n]: word offset, doc bits, freq bits, base, count and
+    bank row of each selected block; scale f32 [n]), the columns in one
+    array so that a chunk of them uploads in one copy."""
+    cols = np.empty((6, len(bsel)), np.int32)
+    for i, a in enumerate((pp.block_word_off, pp.block_doc_bits,
+                           pp.block_freq_bits, pp.block_base,
+                           pp.block_count)):
+        cols[i] = a[bsel]
+    cols[5] = rowid
+    return cols, np.asarray(scale, np.float32)
 
 
 def _build_bank_chunk(bank, packed, woff, dbits, fbits, base, count, rowid,
@@ -772,40 +773,39 @@ def _build_bank_chunk(bank, packed, woff, dbits, fbits, base, count, rowid,
 
 
 def _scatter_bank_rows(bank, meta, packed_dev, norms_dev, lut_dev, F):
-    """Chunked in-place decode of per-block ``meta`` (woff/dbits/fbits/
-    base/count/rowid/idf) into ``bank`` ([rows+1, D], last row = dump).
-    ``idf`` is the row scale: the collection idf for heavy rows, the
-    clause weight for light rows; one IEEE multiply either way, bit-equal
-    to host_row."""
+    """Chunked in-place decode of ``_block_meta``'s (cols, scale) into
+    ``bank`` ([rows+1, D], last row = dump), a chunk's columns and scales
+    uploaded in two copies. The scale is the row's: the collection idf
+    for heavy rows, the clause weight for light rows; one IEEE multiply
+    either way, bit-equal to host_row."""
+    cols, scale = meta
     dev = bank.device
-    n = len(meta["woff"])
-    for c0 in range(0, n, _BANK_BUILD_CHUNK):
+    for c0 in range(0, cols.shape[1], _BANK_BUILD_CHUNK):
         sl = slice(c0, c0 + _BANK_BUILD_CHUNK)
-
-        def t(key, dtype=torch.int64):
-            return torch.from_numpy(meta[key][sl]).to(dev, dtype)
-
+        woff, dbits, fbits, base, count, rowid = torch.from_numpy(
+            np.ascontiguousarray(cols[:, sl])).to(dev).long()
         _build_bank_chunk(
-            bank, packed_dev, t("woff"), t("dbits"), t("fbits"), t("base"),
-            t("count"), t("rowid"), t("idf", torch.float32),
-            norms_dev, lut_dev, F,
+            bank, packed_dev, woff, dbits, fbits, base, count, rowid,
+            torch.from_numpy(scale[sl]).to(dev), norms_dev, lut_dev, F,
         )
 
 
 def _term_block_meta(pp, specs):
-    """Block metadata for (row, tid, scale) specs; None when no blocks."""
-    bs, rid, sc = [], [], []
-    for r, tid, w in specs:
-        b0, b1 = int(pp.block_start[tid]), int(pp.block_start[tid + 1])
-        if b1 > b0:
-            bs.append(np.arange(b0, b1, dtype=np.int64))
-            rid.append(np.full(b1 - b0, r, np.int32))
-            sc.append(np.full(b1 - b0, np.float32(w), np.float32))
-    if not bs:
+    """Block metadata for (row, tid, scale) specs, each term's blocks in
+    spec order; None when no blocks."""
+    if not specs:
         return None
-    return _block_meta(
-        pp, np.concatenate(bs), np.concatenate(rid), np.concatenate(sc)
-    )
+    rows, tids, scales = zip(*specs)
+    tids = np.asarray(tids, np.int64)
+    b0 = pp.block_start[tids].astype(np.int64)
+    n = pp.block_start[tids + 1] - b0
+    total = int(n.sum())
+    if total == 0:
+        return None
+    # block ids b0 .. b0 + n - 1 of each spec, laid end to end
+    bsel = np.repeat(b0 - (np.cumsum(n) - n), n) + np.arange(total)
+    return _block_meta(pp, bsel, np.repeat(np.asarray(rows, np.int32), n),
+                       np.repeat(np.asarray(scales, np.float32), n))
 
 
 class RowFieldIndex:
@@ -1140,6 +1140,14 @@ class RowExecutor:
                 "on-demand batches routed to phase 1 with use_phase0 set "
                 "(a plan has min_should >= 2)",
             ),
+            "light_rows": registry.counter(
+                "search.light_rows",
+                "term rows decoded into batch light banks",
+            ),
+            "compact_groups": registry.counter(
+                "search.compact_groups",
+                "query groups of the partitioned batches",
+            ),
         }
 
     def build_plan(self, term_plans, min_should: int, idf_of_tid) -> RowPlan:
@@ -1205,10 +1213,13 @@ class RowExecutor:
     def _build_light_bank(self, total, specs, host_rows) -> torch.Tensor:
         """The batch light bank, f32 [total+1, D], row 0 zero: term specs
         (row, tid, weight) decode on the device from the packed stream;
-        host rows (range / nested indicators) upload one by one."""
-        bank = self.index.build_rows(specs, total + 1)
-        for r, arr in host_rows:
-            bank[r].copy_(torch.from_numpy(arr))
+        host rows (range / nested indicators) upload one by one. Span
+        ``light``; counter ``search.light_rows``, the term rows decoded."""
+        with ProfileScope("light"):
+            self.metrics["light_rows"].increment(len(specs))
+            bank = self.index.build_rows(specs, total + 1)
+            for r, arr in host_rows:
+                bank[r].copy_(torch.from_numpy(arr))
         return bank
 
     def _stack(self, plans: Sequence[RowPlan]) -> _BatchEntry:
@@ -1405,15 +1416,7 @@ class RowExecutor:
         vocab = set()
         for p in plans:
             vocab |= _plan_row_keys(p)
-        # bytes per doc and row: on an on-demand segment the estimate
-        # tracks the real entry closely (f32 tile-major + bf16, or the
-        # phase-0 banks), so the cached split entries do not evict each
-        # other; elsewhere it covers the light bank too
-        if self.index.bank_on_demand:
-            per_row = 5 if self.use_phase0 else 7
-        else:
-            per_row = 12
-        est = per_row * self.index.num_docs_pad * (len(vocab) + 9)
+        est = self._entry_estimate(len(vocab))
         budget = self._cache_budget()
         while self._batch_bytes + est > budget and self._batch_cache:
             self._batch_bytes -= self._batch_cache.popitem(last=False)[1].nbytes
@@ -1422,6 +1425,18 @@ class RowExecutor:
         self._batch_cache[ck] = entry
         self._evict()
         return entry
+
+    def _entry_estimate(self, n_keys: int) -> int:
+        """Device bytes a batch entry of ``n_keys`` distinct clause rows is
+        taken to need. Bytes per doc and row: on an on-demand segment the
+        estimate tracks the real entry closely (f32 tile-major + bf16, or
+        the phase-0 banks), so the cached split entries do not evict each
+        other; elsewhere it covers the light bank too."""
+        if self.index.bank_on_demand:
+            per_row = 5 if self.use_phase0 else 7
+        else:
+            per_row = 12
+        return per_row * self.index.num_docs_pad * (n_keys + 9)
 
     def _cache_budget(self) -> int:
         if self.index.bank_on_demand:
@@ -1434,6 +1449,11 @@ class RowExecutor:
         budget = self._cache_budget()
         while self._batch_bytes > budget and len(self._batch_cache) > 1:
             self._batch_bytes -= self._batch_cache.popitem(last=False)[1].nbytes
+
+    def _drop_entries_except(self, held: set) -> None:
+        """Drop the cached entries whose keys are not in ``held``."""
+        for ck in [c for c in self._batch_cache if c not in held]:
+            self._batch_bytes -= self._batch_cache.pop(ck).nbytes
 
     def _compact(self, plans: Sequence[RowPlan]) -> Optional[CompactBatch]:
         """The batch's compact bank (None when too many rows), built on the
@@ -1502,10 +1522,10 @@ class RowExecutor:
                    max(32, self.COMPACT_GROUP_BYTES // (10 * D)))
 
     def _partition_plans(self, plans: Sequence[RowPlan]):
-        """Contiguous query groups whose deduped clause-row vocabulary each
-        fits the compact cap; None when the whole batch fits. A plan that
-        alone exceeds the cap gets its own group (which then takes the
-        exhaustive fallback)."""
+        """(contiguous query groups whose deduped clause-row vocabulary each
+        fits the compact cap, the vocabulary size of each group); None
+        when the whole batch fits. A plan that alone exceeds the cap gets
+        its own group (which then takes the exhaustive fallback)."""
         cap = self._compact_row_cap()
         per_plan = [_plan_row_keys(p) for p in plans]
         # the cap must admit the largest single plan, or a batch of wide
@@ -1513,33 +1533,45 @@ class RowExecutor:
         cap = max(cap, max(len(ks) for ks in per_plan) + 1)
         if len(set().union(*per_plan)) + 1 <= cap:
             return None
-        groups = []
+        groups, sizes = [], []
         cur: set = set()
         start = 0
         for i, keys in enumerate(per_plan):
             merged = cur | keys
             if cur and len(merged) + 1 > cap:
                 groups.append((start, i))
+                sizes.append(len(cur))
                 start = i
                 cur = set(keys)
             else:
                 cur = merged
         groups.append((start, len(plans)))
-        return groups
+        sizes.append(len(cur))
+        return groups, sizes
 
     def _cached_partition(self, plans: Sequence[RowPlan]):
-        """Partition decision for a batch, cached by plan identity."""
+        """(groups, keep) for a batch, cached by plan identity: its
+        partition (None when it needs none), and whether the groups'
+        entries together fit the entry cache's budget. When they do not,
+        a re-issued batch, which walks its groups in the same order, would
+        find each group's entry evicted by the groups after it, so
+        ``dispatch`` drops them as each group is done."""
         if len(plans) < 2:
-            return None
+            return None, True
         ck = tuple(id(p) for p in plans)
         hit = self._part_cache.get(ck)
         if hit is not None:
-            return hit[1]
-        groups = self._partition_plans(plans)
+            return hit[1:]
+        part = self._partition_plans(plans)
+        groups, keep = None, True
+        if part is not None:
+            groups, sizes = part
+            keep = (sum(self._entry_estimate(n) for n in sizes)
+                    <= self._cache_budget())
         if len(self._part_cache) > 256:
             self._part_cache.clear()
-        self._part_cache[ck] = (list(plans), groups)  # pin plan ids
-        return groups
+        self._part_cache[ck] = (list(plans), groups, keep)  # pin plan ids
+        return groups, keep
 
     def _batch_mode(self, plans: Sequence[RowPlan]) -> bool:
         """The JAX package's rule for the compact batch route (in its
@@ -1726,13 +1758,17 @@ class RowExecutor:
                 p_or, p_bool, inv = sp
                 return _merge_split(self.dispatch(p_or, k),
                                     self.dispatch(p_bool, k), inv, k)
-            groups = self._cached_partition(plans)
+            groups, keep = self._cached_partition(plans)
             if groups is not None:
                 self.metrics["partitions"].increment()
-                return torch.cat([
-                    _widen(self.dispatch(list(plans[a:b]), k), k)
-                    for a, b in groups
-                ])
+                self.metrics["compact_groups"].increment(len(groups))
+                parts = []
+                for a, b in groups:
+                    held = None if keep else set(self._batch_cache)
+                    parts.append(_widen(self.dispatch(list(plans[a:b]), k), k))
+                    if held is not None:
+                        self._drop_entries_except(held)
+                return torch.cat(parts)
             fused = self._dispatch_pruned(plans, k)
             if fused is not None:
                 self.metrics["pruned"].increment()

@@ -32,6 +32,7 @@ from diagon_tpu_torch.codecs.postings import (
     decode_block_numpy,
 )
 from diagon_tpu_torch.index.segment import SegmentData, SegmentFieldData
+from diagon_tpu_torch.observability.profiler import ProfileScope
 from diagon_tpu_torch.search.engine import TermPlan
 from diagon_tpu_torch.search.row_engine import (
     RowExecutor,
@@ -60,36 +61,60 @@ class SparseIndex:
     @staticmethod
     def build(vectors: Sequence[SparseVector],
               name: str = "_sparse") -> "SparseIndex":
-        """Vectorised CSR build: one stable sort groups the postings by
-        term, in the string order of the term keys (the JAX package's
-        ``build_packed_postings`` sorts its keys as strings), so the packed
-        blocks are the JAX package's; per-term scales and bins are
-        segmented numpy reductions with the JAX per-term loop's
-        arithmetic."""
+        """The index of one document a vector: their CSR, built by
+        ``from_csr``."""
         n = len(vectors)
         counts = np.fromiter(
             (len(v.ids) for v in vectors), dtype=np.int64, count=n
         )
-        terms = (
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        ids = (
             np.concatenate([np.asarray(v.ids, np.int64) for v in vectors])
             if n else np.zeros(0, np.int64)
         )
-        weights = (
+        values = (
             np.concatenate([np.asarray(v.values, np.float32)
                             for v in vectors])
             if n else np.zeros(0, np.float32)
         )
-        doc_ids = np.repeat(np.arange(n, dtype=np.int64), counts)
-        uniq, term_of = np.unique(terms, return_inverse=True)
+        return SparseIndex.from_csr(indptr, ids, values, name)
+
+    @staticmethod
+    def from_csr(indptr, ids, values, name: str = "_sparse") -> "SparseIndex":
+        """Vectorised build from a document-major CSR: document d holds the
+        term ids ``ids[indptr[d]:indptr[d + 1]]`` (unique within the
+        document) with f32 weights ``values``. One stable sort groups the
+        postings by term, in the string order of the term keys (the JAX
+        package's ``build_packed_postings`` sorts its keys as strings), so
+        the packed blocks are the JAX package's; per-term scales and bins
+        are segmented numpy reductions with the JAX per-term loop's
+        arithmetic."""
+        indptr = np.asarray(indptr, np.int64)
+        terms = np.asarray(ids, np.int64)
+        weights = np.asarray(values, np.float32)
+        n = len(indptr) - 1
+        doc_ids = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+        if len(terms) and terms.min() >= 0 and terms.max() < 1 << 24:
+            # np.unique's result without its sort of every posting
+            present = np.zeros(int(terms.max()) + 1, bool)
+            present[terms] = True
+            uniq = np.flatnonzero(present)
+            term_of = (np.cumsum(present) - 1)[terms]
+        else:
+            uniq, term_of = np.unique(terms, return_inverse=True)
         keys = [str(int(t)) for t in uniq]
         by_key = sorted(range(len(keys)), key=keys.__getitem__)
         rank = np.empty(len(keys), np.int64)
         rank[by_key] = np.arange(len(keys))
         ent_term = rank[term_of]
-        order = np.argsort(ent_term, kind="stable")  # doc order per term
+        T = len(keys)
+        # doc order per term; 16-bit keys take numpy's radix sort
+        order = np.argsort(
+            ent_term.astype(np.uint16) if T <= 1 << 16 else ent_term,
+            kind="stable")
         ent_term = ent_term[order]
         docs, ws = doc_ids[order], weights[order]
-        T = len(keys)
         entry_start = np.zeros(T + 1, np.int64)
         np.cumsum(np.bincount(ent_term, minlength=T), out=entry_start[1:])
 
@@ -349,11 +374,16 @@ class SparseSearcher:
     def dispatch_batch(self, queries: Sequence[SparseVector], k: int = 10):
         """Launch a batch without waiting for it; returns a handle for
         collect_batch (a serving loop chains batches with no device->host
-        round trip between them)."""
-        plans = self._plan_batch(queries)
+        round trip between them). Spans: ``plan`` (the row plans) and
+        ``route`` (the row engine's dispatch)."""
+        with ProfileScope("plan"):
+            plans = self._plan_batch(queries)
         live = [p for p in plans if p is not None]
         kk = min(k, self.num_docs_pad)
-        fused = self.executor.dispatch(live, kk) if live else None
+        fused = None
+        if live:
+            with ProfileScope("route"):
+                fused = self.executor.dispatch(live, kk)
         return (plans, live, fused, k, kk)
 
     def collect_batch(self, handle):

@@ -191,9 +191,11 @@ def _hooks(api, tmp_path, **kw):
     return hits, {n: r["count"] for n, r in p.report().items()}
 
 
-# the port's spans inside the row engine and the answers, which the JAX
-# package lacks: one each for a term search over one segment
-PORT_SPANS = {"route": 1, "copy": 1, "finalize": 1, "topdocs": 1}
+# the port's spans inside the row engine (the batch entry's light bank
+# among them) and the answers, which the JAX package lacks: one each for a
+# term search over one segment
+PORT_SPANS = {"route": 1, "copy": 1, "finalize": 1, "topdocs": 1,
+              "light": 1}
 
 
 def test_profiler_hooks(tmp_path):

@@ -69,33 +69,36 @@ def OR(*terms):
 @pytest.mark.parametrize("n_segments", [1, 2])
 def test_term_search_span_counts(segments, phases, n_segments):
     """A term search: the JAX package's phases once, the row engine's
-    spans and the answers once a segment."""
+    spans (the batch entry's ``light`` bank among them) and the answers
+    once a segment."""
     s = IndexSearcher(segments[:n_segments], device="cpu")
     s.search(TermQuery("body", "oil"), K)
     n = n_segments
     assert _counts(phases) == {"plan": 1, "execute": 1, "merge": 1,
                                "route": n, "finalize": n, "copy": n,
-                               "topdocs": n}
+                               "topdocs": n, "light": n}
 
 
 @pytest.mark.parametrize("n_segments", [1, 2])
 def test_dispatch_and_collect_span_counts(segments, phases, n_segments):
     """A batch: ``plan``, ``route``, the one copy and the answers once a
-    call; ``finalize`` once a segment. Nothing escalates below the pruned
-    route's size."""
+    call; ``finalize`` and the batch entry's ``light`` bank once a
+    segment. Nothing escalates below the pruned route's size."""
     s = IndexSearcher(segments[:n_segments], device="cpu")
     qs = [TermQuery("body", "oil"), OR("w1", "price"), OR("w2", "w3")] * 4
     h = s.dispatch_batch(qs, K)
     (res,) = s.collect_many([h])
     assert len(res) == len(qs)
     assert _counts(phases) == {"plan": 1, "route": 1, "copy": 1,
-                               "finalize": n_segments, "topdocs": 1}
+                               "finalize": n_segments, "topdocs": 1,
+                               "light": n_segments}
 
 
 def test_escalating_batch_counts_its_distinct_plans(segments, phases):
     """A starved tile budget fails the certificates of a batch that
     repeats two queries: every row escalates, ``search.escalated_plans``
-    counts the two plans, the answers stay exact."""
+    counts the two plans, the answers stay exact; a ``light`` bank for
+    the batch's entry and one for the escalated rows' entry."""
     s = IndexSearcher(segments[:1], device="cpu")
     ex = s._ctx("body").row_executors[0]
     ex.prune_min_docs = ex.prune_solo_min_docs = 0
@@ -112,7 +115,8 @@ def test_escalating_batch_counts_its_distinct_plans(segments, phases):
     assert delta == {"search.escalations": 8, "search.escalated_plans": 2,
                      "search.pruned_dispatches": 1}
     assert _counts(phases) == {"plan": 1, "route": 1, "copy": 1,
-                               "finalize": 1, "escalate": 1, "topdocs": 1}
+                               "finalize": 1, "escalate": 1, "topdocs": 1,
+                               "light": 2}
     oracle = OracleSearcher(segments[:1])
     for q, td in zip(qs, res):
         want = oracle.search(q, K)
