@@ -13,7 +13,7 @@ script exits non-zero), in the order they run:
 1. Device: card name and power limit, SM count and top SM clock (the
    CUDA-core rates of the bounds); build the CUDA kernels from
    ``diagon_tpu_torch/csrc`` (one nvcc per source, all at once) and time
-   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1-B8,
+   the build; fail if ``ptxas -v`` reports a spill in a kernel of B1-B9,
    X1 or X2.
 2. Kernels B1 (row_sum) and B2 (row_boolean) against their plain PyTorch
    versions on the card, bit for bit (D = 19,456; Q in {1, 3, 7, 19,
@@ -248,8 +248,18 @@ script exits non-zero), in the order they run:
    count form, at or20 and the mixed
    boolean (19k, 1M) and or20 (10M).
 
-Phases run in the order 1, 2, 3, 3b, 10, 4, 14 (19k), 11, 5, 14 (1M), 12,
-9, 8 with 14 (10M) at its end, 6, 7, 13.
+15. Kernel B9 (bank_decode: posting blocks into bank rows, the row
+   engine's every bank build) against its plain version, bit for bit, on
+   the cases of ``tests/test_torch_bank_decode.py`` (postings packed by
+   hand: no freq section, 32-bit and straddling fields, tail blocks,
+   freqs past the LUT, a block ending on the stream's last word, terms
+   without blocks, one term twice, no specs) and on its random bank of 163
+   rows over 1,105,920 docs; each ``build_rows`` one launch. B9's time
+   (wrapper, kernel only), ``build_rows``'s, the plain version's and the
+   bound by bytes at the random bank.
+
+Phases run in the order 1, 2, 3, 3b, 15, 10, 4, 14 (19k), 11, 5, 14 (1M),
+12, 9, 8 with 14 (10M) at its end, 6, 7, 13.
 Launch counters are set to 0 just before each main-path phase (10 at each
 table size, 4, 11, 5, 12, 9, each route of 8, each run of 14, and each
 rank of 13, which starts with its counters at 0) and read just after it;
@@ -273,6 +283,7 @@ import atexit  # noqa: E402
 import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
+import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import statistics  # noqa: E402
@@ -296,8 +307,9 @@ SPARSE_DOCS = 1_000_000
 SPARSE_VOCAB = 30000
 # what the sparse batch must launch: every plan is padded to one clause
 # bucket with zero-weight clauses, so none is pure OR (B5), and its
-# partition groups hold fewer than 64 queries (B6)
-SPARSE_NEED = ["approx_select_bool2", "gather_rescore"]
+# partition groups hold fewer than 64 queries (B6); each group's light
+# bank is one B9 launch
+SPARSE_NEED = ["approx_select_bool2", "gather_rescore", "bank_decode"]
 # columnar_bench.py's table at its default size, and ClickBench's ~100M-row
 # hits table cut to 10M for the time limit
 COLUMNAR_ROWS = (1_000_000, 10_000_000)
@@ -327,10 +339,11 @@ PORT_KERNELS = ("row_sum_kernel", "row_boolean_kernel", "approx_or_mma_kernel",
                 "approx_bool_mma_kernel", "approx_bool2_mma_kernel",
                 "pack_indicator_kernel", "gather_rescore_kernel",
                 "union_rescore_kernel", "bits_hits_kernel",
-                "range_agg_kernel", "block_score_kernel")
+                "range_agg_kernel", "block_score_kernel",
+                "bank_decode_kernel")
 # B4's kernel: a batch without MUST_NOT must not launch it (B5 takes those)
 B4_KERNELS = ("approx_bool_mma_kernel",)
-# the kernels of B1-B8, X1 and X2: ptxas must report no spill
+# the kernels of B1-B9, X1 and X2: ptxas must report no spill
 NO_SPILL = PORT_KERNELS
 # the card's published peaks (H100 SXM datasheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -527,8 +540,8 @@ def phase_device():
                              f"on every kernel of {NO_SPILL}")
     spilled = {f: n for f, n in checked.items() if n != (0, 0)}
     if spilled:
-        raise AssertionError(f"ptxas spills in B1-B8, X1 or X2 kernels: {spilled}")
-    log(f"  ptxas: no spill in {len(checked)} B1-B8, X1 and X2 kernel(s)")
+        raise AssertionError(f"ptxas spills in B1-B9, X1 or X2 kernels: {spilled}")
+    log(f"  ptxas: no spill in {len(checked)} B1-B9, X1 and X2 kernel(s)")
     x1_sass_atomics(_build)
     return smi
 
@@ -1038,6 +1051,88 @@ def phase_bits_kernel(bh, counts):
         log(f"  D={D}: B8 == plain at every shape, every mode word; "
             f"ms kernel/plain: {'; '.join(line)}")
     return {"bits_hits": 0.0}
+
+
+def bank_decode_bytes(pp, specs, D, F):
+    """Bytes B9 must move for ``pack_specs``'s ``specs``, each once: the
+    blocks' words, 11 bytes of block table a block, a 4-byte store a
+    posting, the norms (a byte a doc), the LUT and the spec array; and the
+    postings."""
+    bs = pp.block_start
+    blocks = np.concatenate([np.arange(bs[t], bs[t + 1])
+                             for t in specs[1, :-1]] or [np.zeros(0, int)])
+    cnt = pp.block_count[blocks].astype(np.int64)
+    words = ((cnt * pp.block_doc_bits[blocks] + 31) // 32
+             + (cnt * pp.block_freq_bits[blocks] + 31) // 32).sum()
+    postings = int(cnt.sum())
+    return (4 * int(words) + 11 * len(blocks) + 4 * postings + D
+            + 4 * 128 * F + specs.nbytes), postings
+
+
+def phase_bank_decode(smi):
+    """B9 (bank_decode) against its plain version, bit for bit: every case
+    of tests/test_torch_bank_decode.py (postings packed by hand: no freq
+    section, 32-bit and straddling fields, tail blocks, freqs past the LUT,
+    a block ending on the stream's last word, terms without blocks, one
+    term twice, no specs), and its random bank of 163 rows over 1,105,920
+    docs (one light bank of the SPLADE shard's size); each ``build_rows``
+    one launch (none without blocks). Times at the random bank: B9 (CUDA
+    events, wrapper), kernel only (queued behind a device sleep),
+    ``build_rows`` (zero fill, spec upload, B9), the plain version, and the
+    bound by bytes. Returns B9's record."""
+    from diagon_tpu_torch.ops import bank_decode, launches
+
+    log("phase 15: B9 (bank_decode) vs plain on the card, bit-equal")
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_bank_decode", ROOT / "tests" / "test_torch_bank_decode.py")
+    t = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(t)
+
+    def check(idx, specs, label):
+        n = t._nrows(specs)
+        l0 = launches("bank_decode")
+        got = idx.build_rows(specs, n)
+        torch.cuda.synchronize()
+        packed = bank_decode.pack_specs(specs, idx.pp.block_start, n)
+        want_launches = 1 if bank_decode.spec_blocks(packed) else 0
+        if launches("bank_decode") - l0 != want_launches:
+            raise AssertionError(f"B9 {label}: {launches('bank_decode') - l0} "
+                                 f"launches for one build_rows")
+        if not bits_equal(got, t.reference_bank(idx, specs, n)):
+            raise AssertionError(f"B9 != plain on {label}")
+        return packed
+
+    pp, norms, lut, D = t.crafted()
+    idx = t.index_for(pp, norms, lut, D, DEVICE)
+    for case, specs in sorted(t.CASES.items()):
+        check(idx, [(r, tid, np.float32(w)) for r, tid, w in specs], case)
+    log(f"  B9 == plain, one launch a build_rows, on {len(t.CASES)} crafted "
+        f"cases: {', '.join(sorted(t.CASES))}")
+    t0 = time.perf_counter()
+    pp, norms, lut, D, specs = t.random_bank(9)
+    log(f"  random bank: {len(specs)} rows, {pp.num_blocks} blocks over "
+        f"{D} docs ({time.perf_counter() - t0:.1f} s on the host)")
+    idx = t.index_for(pp, norms, lut, D, DEVICE)
+    packed = check(idx, specs, "the random bank")
+    tables = idx.device_decode_state()
+    n = t._nrows(specs)
+    bank = torch.zeros((n, D), dtype=torch.float32, device=DEVICE)
+    ms = cuda_ms(lambda: bank_decode.bank_decode(bank, packed, tables))
+    kernel = queued_ms(lambda: bank_decode.bank_decode(bank, packed, tables),
+                       10)
+    build = cuda_ms(lambda: idx.build_rows(specs, n), reps=10)
+    plain = cuda_ms(lambda: bank_decode.bank_decode_reference(
+        bank, packed, tables), reps=3, warmup=1)
+    nbytes, postings = bank_decode_bytes(pp, packed, D, tables.F)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    zero = 4 * n * D / HBM_BYTES_PER_S * 1e3
+    log(f"  B9 at {n} rows x {D} docs, {bank_decode.spec_blocks(packed)} "
+        f"blocks, {postings} postings: {ms:.4f} ms ({kernel:.4f} kernel "
+        f"only), bound {bound:.4f} ms by bytes ({nbytes} B); build_rows "
+        f"{build:.4f} ms (bound with the zero fill {bound + zero:.4f}); "
+        f"plain {plain:.4f} ms [{smi}]")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0}
 
 
 # ---------------------------------------------------------------------------
@@ -4028,6 +4123,7 @@ SHARD_NEED = ["row_boolean", "approx_select", "approx_select_bool",
 def kernel_wrappers():
     """The main path's kernel wrappers by name; each counts its launches."""
     from diagon_tpu_torch.ops import approx_pass as ap
+    from diagon_tpu_torch.ops import bank_decode as bd
     from diagon_tpu_torch.ops import bits_hits as bh
     from diagon_tpu_torch.ops import block_score as bs
     from diagon_tpu_torch.ops import gather_rescore as gr
@@ -4044,6 +4140,7 @@ def kernel_wrappers():
         "bits_hits": bh.bits_hits,
         "range_agg": ra.range_agg,
         "block_score": bs.block_score,
+        "bank_decode": bd.bank_decode,
     }
 
 
@@ -4398,6 +4495,7 @@ def main():
     err = phase(phase_row_kernels, rs)
     err.update(phase(phase_pruned_kernels, rs, ap, gr, counts))
     err.update(phase(phase_bits_kernel, bh, counts))
+    b9 = phase(phase_bank_decode, smi)
     launches_col, err["range_agg"], x1_record = phase(phase_columnar, ra,
                                                       counts, smi)
     searcher19, batches19, sent19, launches19 = phase(phase_serve, counts, smi)
@@ -4443,6 +4541,7 @@ def main():
     times["block_score"] = dict(x2["1M"][2]["or20"],
                                 max_abs_err=max(r[1] for r in x2.values()))
     err["block_score"] = 0.0
+    times["bank_decode"], err["bank_decode"] = b9, 0.0
     log(f"main-path launches at 19k {launches19}; the ingested 19k index "
         f"{launches_ing}; at 1M {launches1m}; the API (phase 12) "
         f"{launches_api}; "
@@ -4466,6 +4565,7 @@ def main():
         "bits_hits": "diagon_tpu_torch/csrc/bits_hits.cu",
         "range_agg": "diagon_tpu_torch/csrc/range_agg.cu",
         "block_score": "diagon_tpu_torch/csrc/block_score.cu",
+        "bank_decode": "diagon_tpu_torch/csrc/bank_decode.cu",
     }
     # the Pallas kernel bodies (B6: the resident form; _mk_kernel :45 too)
     replaces = {
@@ -4481,6 +4581,8 @@ def main():
         "range_agg": "diagon_tpu/columnar/engine.py:159",
         # no Pallas body: the jitted XLA program of the JAX SegmentExecutor
         "block_score": "diagon_tpu/search/engine.py:205",
+        # no Pallas body: the JAX row engine's XLA gathers and scatter
+        "bank_decode": "diagon_tpu/search/row_engine.py:1004",
     }
     record = {"kernels": [
         {

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "diagon_range_agg": [_P, _P],  # a pointer to X1Args, the stream
     "diagon_range_agg_grid": [_I, _I, _I64, _P],
     "diagon_block_score": [_P, _I64] + [_P] * 18 + [_I] * 7 + [_P],
+    "diagon_bank_decode": [_P, _P, _I, _I] + [_P] * 7
+    + [_I64, _P, _P, _I, _I64, _I, _P],
 }
 
 _lib = None

@@ -6,7 +6,7 @@ exact BM25 contribution of that term to every doc, idf folded in):
 
 - heavy terms (df >= num_docs_pad / HEAVY_FRACTION) live in a device bank
   ``[H, D]`` built once per searcher, decoded on the device from the
-  packed postings;
+  packed postings (kernel B9, ``diagon_tpu_torch.ops.bank_decode``);
 - light terms, boosted clauses and host rows (ranges, nested booleans)
   form a small per-batch light bank whose row 0 is all zero.
 
@@ -62,6 +62,7 @@ import torch
 
 from diagon_tpu_torch.observability.metrics import registry
 from diagon_tpu_torch.observability.profiler import ProfileScope
+from diagon_tpu_torch.ops import bank_decode
 from diagon_tpu_torch.ops.approx_pass import (
     approx_select,
     approx_select_bool,
@@ -105,14 +106,10 @@ _APPROX_RELEPS = np.float32(2.0 ** -7)
 # Segments at least this large hold no resident heavy bank (on-demand
 # mode): compact banks are built per batch from the packed postings
 BANK_ON_DEMAND_MIN_DOCS = 4 << 20
-# rows per on-demand row group (build_rows_grouped): one group's [rows+1,
-# D] f32 transient is 2.6 GB at 10M docs (patchable in tests to force
+# rows per on-demand row group (build_rows_grouped): one group's [rows, D]
+# f32 transient is 2.6 GB at 10M docs (patchable in tests to force
 # several groups)
 _ROW_GROUP_ROWS = 64
-
-# posting blocks per bank-build step: bounds the decode temporaries
-# ([chunk, 128] int64 values, a few of them live at once)
-_BANK_BUILD_CHUNK = 1 << 16
 
 
 def _bucket_tq(n: int) -> int:
@@ -722,92 +719,6 @@ def _decode_term_numpy(pp, tid: int):
     )
 
 
-def _block_meta(pp, bsel, rowid, scale):
-    """(cols i32 [6, n]: word offset, doc bits, freq bits, base, count and
-    bank row of each selected block; scale f32 [n]), the columns in one
-    array so that a chunk of them uploads in one copy."""
-    cols = np.empty((6, len(bsel)), np.int32)
-    for i, a in enumerate((pp.block_word_off, pp.block_doc_bits,
-                           pp.block_freq_bits, pp.block_base,
-                           pp.block_count)):
-        cols[i] = a[bsel]
-    cols[5] = rowid
-    return cols, np.asarray(scale, np.float32)
-
-
-def _build_bank_chunk(bank, packed, woff, dbits, fbits, base, count, rowid,
-                      idf, norms, lut, F: int):
-    """Decode one chunk of posting blocks into ``bank`` in place.
-
-    ``bank`` is f32 [R+1, D]; its last row is the dump row where invalid
-    lanes land (duplicate targets there are harmless: no plan reads it).
-    ``packed`` holds the u32 word stream as int64 values; a 64-bit window
-    over two words is shifted and masked, the same per-element arithmetic
-    as the JAX decode. The one f32 multiply ``idf * tf`` is a plain IEEE
-    product, and valid (row, doc) targets are unique, so the flat
-    ``index_put_`` is exact."""
-    H1, D = bank.shape
-    last = packed.shape[0] - 1
-    lane = torch.arange(LANE, device=bank.device, dtype=torch.int64)[None, :]
-
-    def extract(bits, base_word):
-        bitpos = lane * bits[:, None]
-        widx = base_word[:, None] + (bitpos >> 5)
-        shift = bitpos & 31
-        lo = packed[widx.clamp(max=last)]
-        hi = packed[(widx + 1).clamp(max=last)]
-        mask = (1 << bits[:, None]) - 1
-        return ((lo | (hi << 32)) >> shift) & mask
-
-    deltas = extract(dbits, woff)
-    dwords = (count * dbits + 31) >> 5
-    freqs = extract(fbits, woff + dwords)
-    freqs = torch.where(fbits[:, None] == 0, 1, freqs)  # no freq section
-    docs = base[:, None] + torch.cumsum(deltas, dim=1)
-    valid = lane < count[:, None]
-    docs = torch.where(valid, docs, 0)
-    tf = lut[norms[docs] * F + freqs.clamp(0, F - 1)]
-    vals = idf[:, None] * tf
-    r = torch.where(valid, rowid[:, None], H1 - 1)
-    bank.view(-1).index_put_(((r * D + docs).reshape(-1),), vals.reshape(-1))
-
-
-def _scatter_bank_rows(bank, meta, packed_dev, norms_dev, lut_dev, F):
-    """Chunked in-place decode of ``_block_meta``'s (cols, scale) into
-    ``bank`` ([rows+1, D], last row = dump), a chunk's columns and scales
-    uploaded in two copies. The scale is the row's: the collection idf
-    for heavy rows, the clause weight for light rows; one IEEE multiply
-    either way, bit-equal to host_row."""
-    cols, scale = meta
-    dev = bank.device
-    for c0 in range(0, cols.shape[1], _BANK_BUILD_CHUNK):
-        sl = slice(c0, c0 + _BANK_BUILD_CHUNK)
-        woff, dbits, fbits, base, count, rowid = torch.from_numpy(
-            np.ascontiguousarray(cols[:, sl])).to(dev).long()
-        _build_bank_chunk(
-            bank, packed_dev, woff, dbits, fbits, base, count, rowid,
-            torch.from_numpy(scale[sl]).to(dev), norms_dev, lut_dev, F,
-        )
-
-
-def _term_block_meta(pp, specs):
-    """Block metadata for (row, tid, scale) specs, each term's blocks in
-    spec order; None when no blocks."""
-    if not specs:
-        return None
-    rows, tids, scales = zip(*specs)
-    tids = np.asarray(tids, np.int64)
-    b0 = pp.block_start[tids].astype(np.int64)
-    n = pp.block_start[tids + 1] - b0
-    total = int(n.sum())
-    if total == 0:
-        return None
-    # block ids b0 .. b0 + n - 1 of each spec, laid end to end
-    bsel = np.repeat(b0 - (np.cumsum(n) - n), n) + np.arange(total)
-    return _block_meta(pp, bsel, np.repeat(np.asarray(rows, np.int32), n),
-                       np.repeat(np.asarray(scales, np.float32), n))
-
-
 class RowFieldIndex:
     """Host + device state producing one field's dense score rows on one
     device: a resident heavy bank, or, at ON_DEMAND_MIN_DOCS padded docs
@@ -851,17 +762,13 @@ class RowFieldIndex:
         self.bank_on_demand = False
         self._decode_state = None
 
-    def device_decode_state(self):
-        """(packed i64, norms i64, lut f32) device copies for on-device row
-        builds, uploaded once and shared by the heavy bank and light rows."""
+    def device_decode_state(self) -> bank_decode.DecodeTables:
+        """The postings' decode tables on the device (B9's inputs), uploaded
+        once and shared by the heavy bank and light rows."""
         if self._decode_state is None:
-            norms = np.zeros(self.num_docs_pad, dtype=np.int64)
-            norms[: len(self.norms)] = self.norms
-            packed = self.pp.packed.view(np.uint32).astype(np.int64)
-            self._decode_state = tuple(
-                torch.from_numpy(a).to(self.device)
-                for a in (packed, norms, self.tf_lut_host)
-            )
+            self._decode_state = bank_decode.decode_tables(
+                self.pp, self.norms, self.num_docs_pad, self.tf_lut_host,
+                self.device)
         return self._decode_state
 
     def host_row(self, tid: int, weight: np.float32) -> np.ndarray:
@@ -878,15 +785,18 @@ class RowFieldIndex:
     def build_rows(self, specs, nrows: int) -> torch.Tensor:
         """f32 [nrows, D] bank with row r = w-scaled score row of tid for
         each (r, tid, w) in ``specs``, decoded on the device; other rows
-        zero. Built with a trailing dump row, returned as a view without
-        it (the first nrows rows of a row-major tensor are contiguous)."""
-        D = self.num_docs_pad
-        bank = torch.zeros((nrows + 1, D), dtype=torch.float32,
+        zero."""
+        return self.decode_rows(
+            bank_decode.pack_specs(specs, self.pp.block_start, nrows), nrows)
+
+    def decode_rows(self, specs: np.ndarray, nrows: int) -> torch.Tensor:
+        """``build_rows`` from specs already packed by
+        ``bank_decode.pack_specs``: one B9 launch on the card."""
+        bank = torch.zeros((nrows, self.num_docs_pad), dtype=torch.float32,
                            device=self.device)
-        meta = _term_block_meta(self.pp, specs)
-        if meta is not None:
-            _scatter_bank_rows(bank, meta, *self.device_decode_state(), self.F)
-        return bank[:nrows]
+        if bank_decode.spec_blocks(specs):
+            bank_decode.bank_decode(bank, specs, self.device_decode_state())
+        return bank
 
     def build_heavy_bank(self, idf_of_tid, heavy_tids=None) -> None:
         """Classify the frequent terms and materialize their device rows,
@@ -944,10 +854,9 @@ class RowFieldIndex:
 
     def build_rows_grouped(self, tids, weights):
         """Yield ``(g0, rows)`` for the given term ids in groups of at most
-        ``_ROW_GROUP_ROWS``: ``rows`` is an f32 [n, D] view of a [n+1, D]
-        group built like ``build_rows`` (its trailing dump row dropped),
-        row j the weights[g0+j]-scaled score row of tids[g0+j] (tid < 0:
-        a zero row). The on-demand form of the heavy-bank build: one group
+        ``_ROW_GROUP_ROWS``: ``rows`` is an f32 [n, D] group built by
+        ``build_rows``, row j the weights[g0+j]-scaled score row of
+        tids[g0+j] (tid < 0: a zero row). The on-demand form of the heavy-bank build: one group
         is the only transient, so a batch's compact bank is assembled
         group by group. Bit-equal to ``host_row`` (same LUT, same single
         IEEE multiply)."""
@@ -1144,6 +1053,10 @@ class RowExecutor:
                 "search.light_rows",
                 "term rows decoded into batch light banks",
             ),
+            "light_blocks": registry.counter(
+                "search.light_blocks",
+                "posting blocks decoded into batch light banks",
+            ),
             "compact_groups": registry.counter(
                 "search.compact_groups",
                 "query groups of the partitioned batches",
@@ -1214,10 +1127,16 @@ class RowExecutor:
         """The batch light bank, f32 [total+1, D], row 0 zero: term specs
         (row, tid, weight) decode on the device from the packed stream;
         host rows (range / nested indicators) upload one by one. Span
-        ``light``; counter ``search.light_rows``, the term rows decoded."""
+        ``light``; counters ``search.light_rows``, the term rows decoded,
+        and ``search.light_blocks``, their posting blocks."""
         with ProfileScope("light"):
+            idx = self.index
+            packed = bank_decode.pack_specs(specs, idx.pp.block_start,
+                                            total + 1)
             self.metrics["light_rows"].increment(len(specs))
-            bank = self.index.build_rows(specs, total + 1)
+            self.metrics["light_blocks"].increment(
+                bank_decode.spec_blocks(packed))
+            bank = idx.decode_rows(packed, total + 1)
             for r, arr in host_rows:
                 bank[r].copy_(torch.from_numpy(arr))
         return bank

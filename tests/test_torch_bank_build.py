@@ -12,6 +12,7 @@ from diagon_tpu.index.memory_index import MemoryIndex
 from diagon_tpu.index.segment import flush_memory_index
 from diagon_tpu.search.query import BooleanClause, BooleanQuery, Occur, TermQuery
 from diagon_tpu.search.searcher import IndexSearcher as JaxSearcher
+from diagon_tpu_torch.ops import bank_decode
 from diagon_tpu_torch.search import IndexSearcher, row_engine as tre
 from diagon_tpu_torch.search.convert import (
     query_from_jax,
@@ -127,7 +128,7 @@ def test_light_bank_equals_jax_and_host_rows(pair, seg, chunk, monkeypatch):
     """Device-decoded light rows equal the JAX light bank and host_row;
     chunk=7 forces the chunked decode over many steps."""
     if chunk is not None:
-        monkeypatch.setattr(tre, "_BANK_BUILD_CHUNK", chunk)
+        monkeypatch.setattr(bank_decode, "_REFERENCE_CHUNK_BLOCKS", chunk)
     jex, tex = pair
     specs, host_rows = _light_specs(seg, tex.index.num_docs_pad)
     want = np.asarray(jex._build_light_bank(4, specs, host_rows))
@@ -142,7 +143,7 @@ def test_light_bank_equals_jax_and_host_rows(pair, seg, chunk, monkeypatch):
 
 
 def test_chunked_heavy_bank_build_equal(seg, pair, monkeypatch):
-    monkeypatch.setattr(tre, "_BANK_BUILD_CHUNK", 5)
+    monkeypatch.setattr(bank_decode, "_REFERENCE_CHUNK_BLOCKS", 5)
     ts = IndexSearcher([segment_from_jax(seg)], device="cpu")
     bank = ts._ctx("body").row_executors[0].index.heavy_bank
     np.testing.assert_array_equal(
