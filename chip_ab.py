@@ -81,7 +81,7 @@ def load_other(root):
 
 
 def plans_of(searcher, batch):
-    return [searcher._cached_query_plans(q)[1][0] for q in batch]
+    return [searcher._query_plans(q)[1][0] for q in batch]
 
 
 X2_TILES = (512, 1024, 2048)

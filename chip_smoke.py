@@ -1201,7 +1201,7 @@ def serve_batch(searcher, oracle, counts, batch, label, sample, need, smi,
         f"{dm['pruned']}, escalations {dm['escalations']}, compact "
         f"fallbacks {dm['compact_fallbacks']}; {len(sample)} sampled "
         f"oracle-exact")
-    plans = [searcher._cached_query_plans(q)[1][0] for q in batch]
+    plans = [searcher._query_plans(q)[1][0] for q in batch]
     return plans, dm
 
 
@@ -1404,7 +1404,7 @@ def phrase_plan_split(searcher, batch, label, smi):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for q in batch:
-            searcher._cached_query_plans(q)
+            searcher._query_plans(q)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = sum(e.self_device_time_total for e in prof.key_averages()
@@ -1839,7 +1839,7 @@ def solo_route(searcher, oracle, counts, pool, or20, smi):
         f"B1); launched {launched}")
 
     def plans_of(qs):
-        return [searcher._cached_query_plans(q)[1][0] for q in qs]
+        return [searcher._query_plans(q)[1][0] for q in qs]
 
     cases = [(f"solo {n}", plans_of([q])) for n, q in solos.items()]
     cases.append(("pure-OR batch of 3", plans_of(batch)))

@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from diagon_tpu_torch.codecs.postings import decode_block_numpy
+from diagon_tpu_torch.codecs.postings import decode_blocks_numpy
 from diagon_tpu_torch.search.device_index import DeviceSegment
 from diagon_tpu_torch.search.row_engine import exact_topk
 
@@ -135,17 +135,9 @@ class PhraseExecutor:
         got = self._term_docs.get(tid)
         if got is None:
             pp = self._host_pp
-            parts = [
-                decode_block_numpy(pp, b)[0]
-                for b in range(
-                    int(pp.block_start[tid]), int(pp.block_start[tid + 1])
-                )
-            ]
-            got = (
-                np.concatenate(parts)
-                if parts
-                else np.zeros(0, dtype=np.int32)
-            )
+            got = decode_blocks_numpy(
+                pp, int(pp.block_start[tid]), int(pp.block_start[tid + 1])
+            )[0]
             if len(self._term_docs) < 4096:
                 self._term_docs[tid] = got
         return got

@@ -60,6 +60,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from diagon_tpu_torch.codecs.postings import decode_blocks_numpy
 from diagon_tpu_torch.observability.metrics import registry
 from diagon_tpu_torch.observability.profiler import ProfileScope
 from diagon_tpu_torch.ops import bank_decode
@@ -682,43 +683,6 @@ def _merge_split(f1, f2, inv, k: int):
 # ---------------------------------------------------------------------------
 
 
-def _decode_term_numpy(pp, tid: int):
-    """Vectorized host decode of all of one term's posting blocks ->
-    (docids i32 asc, freqs i32); the oracle's per-element arithmetic."""
-    b0, b1 = int(pp.block_start[tid]), int(pp.block_start[tid + 1])
-    if b1 == b0:
-        return (np.zeros(0, np.int32), np.zeros(0, np.int32))
-    packed = pp.packed
-    lane = np.arange(LANE, dtype=np.int64)[None, :]
-    dbits = pp.block_doc_bits[b0:b1].astype(np.int64)[:, None]
-    fbits = pp.block_freq_bits[b0:b1].astype(np.int64)[:, None]
-    woff = pp.block_word_off[b0:b1].astype(np.int64)[:, None]
-    count = pp.block_count[b0:b1].astype(np.int64)
-    base = pp.block_base[b0:b1].astype(np.int64)
-    last = len(packed) - 1
-
-    def extract(bits, base_word):
-        bitpos = lane * bits
-        widx = base_word + (bitpos >> 5)
-        shift = (bitpos & 31).astype(np.uint64)
-        lo = packed[np.minimum(widx, last)].astype(np.uint64)
-        hi = packed[np.minimum(widx + 1, last)].astype(np.uint64)
-        val = (lo | (hi << np.uint64(32))) >> shift
-        mask = (np.uint64(1) << bits.astype(np.uint64)) - np.uint64(1)
-        return (val & mask).astype(np.int64)
-
-    deltas = extract(dbits, woff)
-    dwords = (count[:, None] * dbits + 31) >> 5
-    freqs = extract(fbits, woff + dwords)
-    freqs = np.where(fbits == 0, np.int64(1), freqs)
-    docs = base[:, None] + np.cumsum(deltas, axis=1)
-    valid = lane < count[:, None]
-    return (
-        docs[valid].astype(np.int32),
-        freqs[valid].astype(np.int32),
-    )
-
-
 class RowFieldIndex:
     """Host + device state producing one field's dense score rows on one
     device: a resident heavy bank, or, at ON_DEMAND_MIN_DOCS padded docs
@@ -775,7 +739,9 @@ class RowFieldIndex:
         """Dense f32 score row for one term, decoded on the host with the
         oracle's arithmetic."""
         row = np.zeros(self.num_docs_pad, dtype=np.float32)
-        docs, freqs = _decode_term_numpy(self.pp, tid)
+        docs, freqs = decode_blocks_numpy(
+            self.pp, int(self.pp.block_start[tid]),
+            int(self.pp.block_start[tid + 1]))
         if len(docs):
             row[docs] = np.float32(weight) * self.tf_lut_host[
                 self.norms[docs] * self.F + np.minimum(freqs, self.F - 1)

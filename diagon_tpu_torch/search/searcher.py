@@ -147,6 +147,9 @@ class IndexSearcher:
     ``leaves()``. A segment read from disk keeps its positions undecoded
     until the first phrase query needs them.
 
+    The batch paths (``search_batch``, ``dispatch_batch``) take the
+    queries of one field: a batch that spans two fields raises ValueError.
+
     ``query_cache``: replay the phase-1 state of a re-issued identical batch
     on segments of ``batch_only_min_docs`` or more (the JAX searcher's
     option and default; benchmarks pass False so each batch is rescored).
@@ -182,8 +185,6 @@ class IndexSearcher:
         self._plan_cache: "OrderedDict[tuple, list]" = OrderedDict()
         self._plan_cache_max = 512
         self._oracle: Optional[OracleSearcher] = None
-        self._query_cache: Dict[int, tuple] = {}
-        self._query_cache_refs: List[Query] = []
         self._tier: Optional[TierManager] = None
         if hbm_budget_bytes is not None:
             # tier-managed residency: segments load onto the device lazily
@@ -518,20 +519,15 @@ class IndexSearcher:
             out.append(tps)
         return out
 
-    def _cached_query_plans(self, query: Query):
-        """(field, row plans) for a query, cached by object identity."""
-        hit = self._query_cache.get(id(query))
-        if hit is not None:
-            return hit
+    def _query_plans(self, query: Query):
+        """(field, per-segment row plans) for a query, or None where
+        ``_term_clauses`` gives none; the plans come from ``_row_plans``'
+        content-keyed LRU."""
         tc = self._term_clauses(query)
-        out = None
-        if tc is not None:
-            field, clauses, min_should = tc
-            out = (field, self._row_plans(field, clauses, min_should))
-        if len(self._query_cache) < 4096:
-            self._query_cache[id(query)] = out
-            self._query_cache_refs.append(query)  # keep ids stable
-        return out
+        if tc is None:
+            return None
+        field, clauses, min_should = tc
+        return field, self._row_plans(field, clauses, min_should)
 
     def _row_plans(self, field: str, clauses, min_should: int):
         cache_key = (
@@ -564,13 +560,12 @@ class IndexSearcher:
             # share a row build with)
             with ProfileScope("phrase"):
                 return self._search_phrase(query, k)
-        tc = self._term_clauses(query)
-        if tc is None:
-            return self._fallback_search(query, k)
-        field, clauses, min_should = tc
-        ctx = self._ctx(field)
         with ProfileScope("plan"):
-            plans = self._row_plans(field, clauses, min_should)
+            qp = self._query_plans(query)
+        if qp is None:
+            return self._fallback_search(query, k)
+        field, plans = qp
+        ctx = self._ctx(field)
         parts: List[TopDocs] = []
         with ProfileScope("execute"):
             for si, plan in enumerate(plans):
@@ -587,45 +582,25 @@ class IndexSearcher:
             return merge_top_docs(parts, k)
 
     def search_batch(self, queries: Sequence[Query], k: int = 10) -> List[TopDocs]:
-        """A batch of term/boolean queries, one kernel launch per segment
-        (and query chunk); results equal per-query ``search``."""
+        """A batch of queries of one field, one kernel launch per segment
+        (and query chunk); results equal per-query ``search``. It is
+        ``collect_batch(dispatch_batch(...))``, or per-query ``search``
+        where a segment is HOST-tier."""
         self._ensure_resident()
         if any(self._is_host(si) for si in range(len(self.device_segments))):
             # the working set exceeds the device budget: the per-query
             # path serves the HOST-tier segments
             return [self.search(q, k) for q in queries]
-        flat = []
-        for q in queries:
-            tc = self._term_clauses(q)
-            if tc is None:
-                raise ValueError(
-                    f"search_batch supports term/boolean-of-term queries; got {q!r}"
-                )
-            flat.append(tc)
-        fields = {f for f, _, _ in flat}
-        if len(fields) != 1:
-            raise ValueError("search_batch requires a single field per batch")
-        field = fields.pop()
-        ctx = self._ctx(field)
-        per_seg_plans = [
-            self._row_plans(field, clauses, min_should)
-            for _, clauses, min_should in flat
-        ]
-        rows = []
-        for si, ds in enumerate(self.device_segments):
-            if field not in ds.fields:
-                continue
-            plans = [pp[si] for pp in per_seg_plans]
-            kk = min(k, ds.num_docs_pad)
-            rows.append((*ctx.row_executors[si].top_k_batch(plans, kk),
-                         self.doc_bases[si]))
-        return self._batch_topdocs(len(queries), rows, k)
+        return self.collect_batch(self.dispatch_batch(queries, k))
 
     def dispatch_batch(self, queries: Sequence[Query], k: int = 10):
         """Launch a batch without waiting for it: returns an opaque handle
         for ``collect_many`` / ``collect_batch``. The fused rows stay on
         the device and nothing synchronises here. A tier-managed searcher
-        whose segments do not all fit its budget raises MemoryError."""
+        whose segments do not all fit its budget raises MemoryError; an
+        empty batch, an unsupported query or a batch of more than one
+        field raises ValueError (deliberate deviation: the JAX package
+        scores every query of a batch against its first query's field)."""
         self._ensure_resident()
         if any(self._is_host(si) for si in range(len(self.device_segments))):
             raise MemoryError(
@@ -635,12 +610,14 @@ class IndexSearcher:
         flat = []
         with ProfileScope("plan"):
             for q in queries:
-                qp = self._cached_query_plans(q)
+                qp = self._query_plans(q)
                 if qp is None:
                     raise ValueError(f"dispatch_batch: unsupported query {q!r}")
                 flat.append(qp)
-        field = flat[0][0]
-        ctx = self._ctx(field)
+        fields = {f for f, _ in flat}
+        if len(fields) != 1:
+            raise ValueError("dispatch_batch requires a single field per batch")
+        ctx = self._ctx(fields.pop())
         handles = []
         with ProfileScope("route"):
             for si, ds in enumerate(self.device_segments):
@@ -689,12 +666,11 @@ class IndexSearcher:
                 return self.term_doc_freq(query.term.field, query.term.text)
             if isinstance(query, MatchAllDocsQuery):
                 return self.max_doc
-        tc = self._term_clauses(query)
-        if tc is None:
+        qp = self._query_plans(query)
+        if qp is None:
             return self._fallback_count(query)
-        field, clauses, min_should = tc
+        field, plans = qp
         ctx = self._ctx(field)
-        plans = self._row_plans(field, clauses, min_should)
         total = 0
         for si, plan in enumerate(plans):
             if plan is None:

@@ -162,9 +162,7 @@ class SparseSearcher:
     routes on, as in the JAX searcher: batches take the batch route, and a
     solo query (its plan is pure OR: no padding clauses) on a segment of
     ``prune_solo_min_docs`` padded docs or more takes the small-batch
-    tile-UB route. Deliberate deviation, no result change:
-    ``_plan_batch``'s cache pins each query, so an id stays unique while it
-    is cached."""
+    tile-UB route."""
 
     def __init__(self, index: SparseIndex, device="cuda"):
         self.index = index
@@ -189,7 +187,6 @@ class SparseSearcher:
         self.executor = RowExecutor(ridx)
         self.pp = pp
         self.num_docs_pad = num_docs_pad
-        self._plan_cache: dict = {}
 
     def _plan(self, query: SparseVector, pad_to: int = 0,
               alpha: float = 1.0):
@@ -354,22 +351,9 @@ class SparseSearcher:
         )
 
     def _plan_batch(self, queries: Sequence[SparseVector]):
-        """Per-query plans padded to a common clause bucket, cached by
-        query object identity (each query pinned) so re-dispatching a
-        serving batch skips plan building and hits the executor's batch
-        entry cache."""
+        """Per-query plans padded to a common clause bucket."""
         pad_to = _bucket_tq(max(max(len(q), 1) for q in queries))
-        plans = []
-        for q in queries:
-            key = (id(q), pad_to)
-            hit = self._plan_cache.get(key)
-            if hit is None:
-                hit = (q, self._plan(q, pad_to=pad_to))
-                if len(self._plan_cache) > 8192:
-                    self._plan_cache.clear()
-                self._plan_cache[key] = hit
-            plans.append(hit[1])
-        return plans
+        return [self._plan(q, pad_to=pad_to) for q in queries]
 
     def dispatch_batch(self, queries: Sequence[SparseVector], k: int = 10):
         """Launch a batch without waiting for it; returns a handle for

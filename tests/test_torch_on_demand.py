@@ -163,9 +163,9 @@ def test_solo_pure_or_takes_the_batch_route(od):
         _ex(s).approx_min_q = 8
     q = OR("oil", "price", "w3")
     widths = []
-    for s, qq in ((port, query_from_jax(q)), (jax_s, q)):
-        plans = [s._cached_query_plans(qq)[1][0]]
-        widths.append(_ex(s).dispatch(plans, K).shape[-1])
+    for s, plan in ((port, port._query_plans(query_from_jax(q))[1][0]),
+                    (jax_s, jax_s._cached_query_plans(q)[1][0])):
+        widths.append(_ex(s).dispatch([plan], K).shape[-1])
     assert widths == [2 * K + 2, 2 * K + 2]
 
 
@@ -266,7 +266,7 @@ def test_p1_replay_skips_phase1(od, oracle, monkeypatch):
     monkeypatch.setattr(tre, "_pruned_batch_phase1", spy)
     ex = _ex(port)
     queries = [query_from_jax(q) for q in BATCH]
-    plans = [port._cached_query_plans(q)[1][0] for q in queries]
+    plans = [port._query_plans(q)[1][0] for q in queries]
     first = ex.dispatch(plans, K)
     n_first = len(calls)
     assert n_first > 0
@@ -285,14 +285,14 @@ def test_compact_banks_equal_resident_build(seg):
     resident = IndexSearcher([segment_from_jax(seg)], device="cpu")
     rex = _ex(resident)
     queries = [query_from_jax(q) for q in BATCH + PHASE0_BATCH]
-    plans_r = [resident._cached_query_plans(q)[1][0] for q in queries]
+    plans_r = [resident._query_plans(q)[1][0] for q in queries]
     want = rex._build_compact(rex._entry(plans_r))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tre.RowFieldIndex, "ON_DEMAND_MIN_DOCS", 512)
         mp.setattr(tre, "_ROW_GROUP_ROWS", 3)
         od = IndexSearcher([segment_from_jax(seg)], device="cpu")
         oex = _ex(od)
-        plans_o = [od._cached_query_plans(q)[1][0] for q in queries]
+        plans_o = [od._query_plans(q)[1][0] for q in queries]
         got = oex._build_compact(oex._entry(plans_o))
     assert torch.equal(got.compact_t.view(torch.int32),
                        want.compact_t.view(torch.int32))

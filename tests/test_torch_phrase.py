@@ -347,7 +347,7 @@ def test_phrase_batches_pruned(batch_corpus, kind):
     before = ex.metrics["pruned"].value()
     (got,) = ts.collect_many([ts.dispatch_batch(got_q, K)])
     assert ex.metrics["pruned"].value() > before, "pruned route not taken"
-    plans = [ts._cached_query_plans(q)[1][0] for q in got_q]
+    plans = [ts._query_plans(q)[1][0] for q in got_q]
     pruned = ex.finalize(plans, ex.dispatch(plans, K), K)
     exhaustive = ex.finalize(plans, ex._exhaustive_chunked(plans, K), K)
     for a, b in zip(pruned, exhaustive):

@@ -54,7 +54,7 @@ def _port(seg):
 
 def _plans(port, queries):
     """The port's plans (segment 0) for JAX package queries."""
-    return [port._cached_query_plans(query_from_jax(q))[1][0] for q in queries]
+    return [port._query_plans(query_from_jax(q))[1][0] for q in queries]
 
 
 def _force_pruned(searcher, b0, approx_min_q=1):

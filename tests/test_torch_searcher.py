@@ -237,7 +237,7 @@ def test_entry_points_match_jax(searchers, name):
     ts = searchers[0]
     pure = name.endswith(("pure_or", "pure_or_pallas"))
     names = ["term", "or", "or_boosted_light", "term_missing"] if pure else BATCHABLE
-    plans = [ts._cached_query_plans(PORT[n])[1][1] for n in names]
+    plans = [ts._query_plans(PORT[n])[1][1] for n in names]
     ex = ts._ctx("body").row_executors[1]
     args = ex._args(plans)
     if pure:
@@ -256,11 +256,14 @@ def test_entry_points_match_jax(searchers, name):
         np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
-@pytest.mark.parametrize("query", [
+PHRASES = [
     PhraseQuery("body", ["oil", "price"]),
     B((PhraseQuery("body", ["oil", "price"]), S), (T("w1"), S)),
     B((T("w1"), M), (B((PhraseQuery("body", ["w2", "w3"]), S),), N)),
-])
+]
+
+
+@pytest.mark.parametrize("query", PHRASES)
 def test_phrase_parity(searchers, query):
     """A solo phrase, a phrase SHOULD clause and a phrase in a MUST_NOT
     subtree, through search, count, search_batch and dispatch_batch +
@@ -277,6 +280,47 @@ def test_phrase_parity(searchers, query):
     (got,) = ts.collect_many([ts.dispatch_batch([p, p], 10)])
     for g in got:
         _assert_same(g, want, "collect_many")
+
+
+@pytest.mark.parametrize("batch", ["batchable", "phrases"])
+def test_search_batch_is_dispatch_then_collect(searchers, batch):
+    """``search_batch`` on a resident searcher is ``collect_batch`` of
+    ``dispatch_batch``: the same TopDocs, query for query."""
+    ts = searchers[0]
+    qs = ([PORT[n] for n in BATCHABLE] if batch == "batchable"
+          else [query_from_jax(q) for q in PHRASES])
+    got = ts.search_batch(qs, 10)
+    want = ts.collect_batch(ts.dispatch_batch(qs, 10))
+    assert got == want and repr(got) == repr(want)
+
+
+@pytest.mark.parametrize("batch", ["two_fields", "empty"])
+def test_dispatch_batch_takes_one_field(searchers, batch):
+    """A batch spans exactly one field: a body and a title query together,
+    or no query at all, raise ValueError from both batch paths instead of
+    scoring a query against another field's rows."""
+    ts = searchers[0]
+    qs = ([PORT["term"], query_from_jax(T("w2", field="title"))]
+          if batch == "two_fields" else [])
+    for call in (ts.dispatch_batch, ts.search_batch):
+        with pytest.raises(ValueError, match="single field"):
+            call(qs, 10)
+
+
+def test_dispatch_and_collect_keep_no_query_alive(searchers):
+    """The searcher keeps nothing of a batch's query objects once the
+    caller drops them: the plans are cached by content, not by query."""
+    import gc
+    import weakref
+
+    ts = searchers[0]
+    qs = [query_from_jax(QUERIES[n]) for n in BATCHABLE]
+    refs = [weakref.ref(q) for q in qs]
+    (got,) = ts.collect_many([ts.dispatch_batch(qs, 10)])
+    assert len(got) == len(BATCHABLE)
+    del qs
+    gc.collect()
+    assert [r() for r in refs] == [None] * len(refs)
 
 
 def test_kernel_launch_counters_stay_zero_on_cpu(searchers):

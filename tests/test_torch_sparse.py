@@ -165,12 +165,31 @@ def test_search_batch_matches_single():
         _same(b, searcher.search(q, 10), "batch vs single")
         _same(b, w, "batch vs jax")
     # dispatch_batch + collect_batch is the same call in two halves, and
-    # a re-issued batch reuses its cached plans
-    handle = searcher.dispatch_batch(qs, 10)
-    for b, c in zip(batch, searcher.collect_batch(handle)):
-        _same(c, b, "collect_batch")
-    again = searcher.dispatch_batch(qs, 10)[0]
-    assert all(a is b for a, b in zip(handle[0], again))
+    # a re-issued batch gives the same answers
+    for _ in range(2):
+        handle = searcher.dispatch_batch(qs, 10)
+        for b, c in zip(batch, searcher.collect_batch(handle)):
+            _same(c, b, "collect_batch")
+
+
+def test_dispatch_and_collect_keep_no_query_alive():
+    """The searcher keeps nothing of a batch's query objects once the
+    caller drops them: plans are built from each query's content."""
+    import gc
+    import weakref
+
+    pairs = _random_pairs(np.random.Generator(np.random.PCG64(13)), 200)
+    searcher = SparseSearcher(
+        SparseIndex.build([SparseVector(i, v) for i, v in pairs]),
+        device="cpu")
+    qp = _random_pairs(np.random.Generator(np.random.PCG64(14)), 4, nnz=15)
+    qs = [SparseVector(i, v) for i, v in qp]
+    refs = [weakref.ref(q) for q in qs]
+    got = searcher.collect_batch(searcher.dispatch_batch(qs, 10))
+    assert len(got) == len(qs) and all(h > 0 for _, _, h in got)
+    del qs
+    gc.collect()
+    assert [r() for r in refs] == [None] * len(refs)
 
 
 def test_alpha_clause_pruning():

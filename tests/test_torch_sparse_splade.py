@@ -202,22 +202,25 @@ def test_counters_and_spans_equal_hand_counts(phases):
 
 @pytest.mark.parametrize("budget, kept", [(1, False), (1 << 30, True)])
 def test_partition_keeps_its_entries_only_where_they_all_fit(budget, kept):
-    """The 3-group batch of the hand counts, issued twice with the same
-    query objects. Where the groups' entries together overrun the entry
-    cache's budget, none stays cached after the batch, and the re-issued
-    batch decodes its 80 rows again (in the same group order an LRU would
-    have evicted each entry before its turn); where they fit, all three
-    stay and the re-issued batch decodes none. Exact answers either way."""
+    """The 3-group batch of the hand counts, its plans issued twice to the
+    executor (the entry cache is keyed by plan identity; the searcher
+    builds new plans for every batch). Where the groups' entries together
+    overrun the entry cache's budget, none stays cached after the batch,
+    and the re-issued batch decodes its 80 rows again (in the same group
+    order an LRU would have evicted each entry before its turn); where
+    they fit, all three stay and the re-issued batch decodes none. Exact
+    answers either way."""
     corpus, system, ref = _tiny(SEEDS[0])
     ex = _forced(system, 1)
     ex.BATCH_CACHE_BUDGET = budget
     specs = _disjoint_specs()
-    qs = System.queries(specs, "splade")
+    plans = system.searcher._plan_batch(System.queries(specs, "splade"))
     names = ("search.compact_groups", "search.light_rows")
     for rows in (80, 0 if kept else 80):
         before = registry.snapshot()
-        got = [System.answer(r)
-               for r in system.collect(system.dispatch(qs, K))]
+        scores, docs, hits = ex.finalize(plans, ex.dispatch(plans, K), K)
+        got = [System.answer((s[:min(h, K)], d[:min(h, K)], h))
+               for s, d, h in zip(scores, docs, hits)]
         assert _delta(before, names) == {"search.compact_groups": 3,
                                          "search.light_rows": rows}
         _assert_equal(got, ref.answer(specs, K))

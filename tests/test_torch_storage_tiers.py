@@ -218,6 +218,32 @@ def test_dispatch_batch_raises_memory_error(tiered):
         ts.dispatch_batch([_queries(tq)["term"]], 10)
 
 
+@pytest.mark.parametrize("budget", ["host_tier", "resident"])
+def test_search_batch_is_dispatch_then_collect_or_search(segs, tiered,
+                                                         budget):
+    """Where the budget leaves a segment HOST-tier, ``search_batch`` is
+    per-query ``search`` (``dispatch_batch`` raises MemoryError); where
+    every segment is resident, it is ``collect_batch`` of
+    ``dispatch_batch``. The oracle's answers either way."""
+    _, tsegs = segs
+    _, ts, oracle, est = tiered
+    if budget == "resident":
+        ts = IndexSearcher(tsegs, device="cpu", hbm_budget_bytes=est * 10)
+    qs = [q for n, q in _queries(tq).items() if n not in ("phrase", "match_all")]
+    got = ts.search_batch(qs, 10)
+    if budget == "host_tier":
+        assert any(ds is None for ds in ts.device_segments)
+        with pytest.raises(MemoryError):
+            ts.dispatch_batch(qs, 10)
+        want = [ts.search(q, 10) for q in qs]
+    else:
+        assert all(ds is not None for ds in ts.device_segments)
+        want = ts.collect_batch(ts.dispatch_batch(qs, 10))
+    assert got == want and repr(got) == repr(want)
+    for g, q in zip(got, qs):
+        _same(g, oracle.search(q, 10))
+
+
 def test_a_generous_budget_makes_all_resident(segs, tiered):
     jsegs, tsegs = segs
     _, _, oracle, est = tiered

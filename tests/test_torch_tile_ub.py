@@ -243,7 +243,7 @@ def test_solo_parity_with_jax_and_oracle(b0):
         want = oracle.search(q, K)
         _same(port.search(query_from_jax(q), K), want, ("port", terms))
         _same(jax_s.search(q, K), want, ("jax", terms))
-        plan = port._cached_query_plans(query_from_jax(q))[1][0]
+        plan = port._query_plans(query_from_jax(q))[1][0]
         assert ex.dispatch([plan], K).shape == (1, 2 * K + 2), terms
         assert not ex._entry([plan]).compact_built, terms
     assert ex.metrics["pruned"].value() - before >= 2 * len(QUERIES)
@@ -259,7 +259,7 @@ def test_batch_and_async_paths(b0):
     oracle = OracleSearcher([seg])
     queries = [_or_query(t) for t in QUERIES]
     pq = [query_from_jax(q) for q in queries]
-    plans = [port._cached_query_plans(q)[1][0] for q in pq]
+    plans = [port._query_plans(q)[1][0] for q in pq]
     assert ex.dispatch(plans, K).shape == (len(plans), 2 * K + 2)
     got_batch = port.search_batch(pq, K)
     got_async = port.collect_batch(port.dispatch_batch(pq, K))
@@ -281,7 +281,7 @@ def test_escalation_and_certificate_honest():
     port, ex, _ = _pair(seg, 2)
     oracle = OracleSearcher([seg])
     q = _or_query(["oil", "price", "trade"])
-    plan = port._cached_query_plans(query_from_jax(q))[1][0]
+    plan = port._query_plans(query_from_jax(q))[1][0]
     fused = ex.dispatch([plan], K)
     assert fused.shape[-1] == 2 * K + 2
     before = ex.metrics["escalations"].value()
@@ -313,7 +313,7 @@ def test_default_knobs_route_solo_to_tile_ub():
     assert (pe.approx_min_q, pe.prune_solo_min_docs, pe.batch_only_min_docs) \
         == (je.approx_min_q, je.prune_solo_min_docs, je.batch_only_min_docs)
     q = _or_query(["oil", "price"])
-    plan = port._cached_query_plans(query_from_jax(q))[1][0]
+    plan = port._query_plans(query_from_jax(q))[1][0]
     assert pe.dispatch([plan], K).shape[-1] == 2 * K + 1  # below the floor
     # the segment as the route sees it at the floor: only its size moves
     for ex in (pe, je):
