@@ -32,16 +32,21 @@ from diagon_tpu_torch.codecs.postings import (
     decode_block_numpy,
 )
 from diagon_tpu_torch.index.segment import SegmentData, SegmentFieldData
+from diagon_tpu_torch.observability.metrics import registry
 from diagon_tpu_torch.observability.profiler import ProfileScope
-from diagon_tpu_torch.search.engine import TermPlan
 from diagon_tpu_torch.search.row_engine import (
     RowExecutor,
     RowFieldIndex,
+    RowPlan,
     _bucket_tq,
 )
 from diagon_tpu_torch.sparse.vector import SparseVector
 
 NUM_BINS = 255
+
+_PLANNED = registry.counter("search.sparse_plans_batched",
+                            "queries whose row plans the sparse batch pass "
+                            "built")
 
 
 class SparseIndex:
@@ -162,7 +167,10 @@ class SparseSearcher:
     routes on, as in the JAX searcher: batches take the batch route, and a
     solo query (its plan is pure OR: no padding clauses) on a segment of
     ``prune_solo_min_docs`` padded docs or more takes the small-batch
-    tile-UB route."""
+    tile-UB route.
+
+    Counter: ``search.sparse_plans_batched``, the queries whose plans
+    ``_plan_batch`` built (a batch's queries, or 1 a solo search)."""
 
     def __init__(self, index: SparseIndex, device="cuda"):
         self.index = index
@@ -187,42 +195,37 @@ class SparseSearcher:
         self.executor = RowExecutor(ridx)
         self.pp = pp
         self.num_docs_pad = num_docs_pad
+        # clause lookup (every key is str(int)): a dense table from id to
+        # term id over the ids in [0, 2**24), -1 where no term has the id,
+        # and a dict for any other key; each term's scale in f32
+        key_ids = np.asarray([int(t) for t in pp.terms], np.int64)
+        dense = (key_ids >= 0) & (key_ids < 1 << 24)
+        self._tid_of_id = np.full(int(key_ids[dense].max(initial=0)) + 1,
+                                  -1, np.int32)
+        self._tid_of_id[key_ids[dense]] = np.flatnonzero(dense)
+        self._tid_of_other = {int(key_ids[t]): int(t)
+                              for t in np.flatnonzero(~dense)}
+        self._scale_f32 = np.asarray(
+            [index.scales[t] for t in pp.terms], np.float64
+        ).astype(np.float32)
 
-    def _plan(self, query: SparseVector, pad_to: int = 0,
-              alpha: float = 1.0):
-        """alpha < 1 enables QBlock-style gain selection (reference
-        ``QBlockIndex.h:20-48``): clauses sort by their score upper bound
-        (q_w * scale * 255 = q_w * max stored weight) and only the prefix
-        covering ``alpha`` of the total upper-bound mass is scored, a
-        documented approximation on top of the quantization."""
-        cands = []
-        for t, w in zip(query.ids, query.values):
-            key = str(int(t))
-            tid = self.pp.term_id(key)
-            if tid < 0:
-                continue
-            scale = np.float32(self.index.scales[key])
-            weight = np.float32(np.float32(w) * scale)
-            ub = float(weight) * NUM_BINS  # max contribution of this clause
-            cands.append((ub, tid, float(weight)))
-        if alpha < 1.0 and cands:
-            cands.sort(key=lambda c: -c[0])
-            total = sum(c[0] for c in cands)
-            acc, cut = 0.0, len(cands)
-            for i, c in enumerate(cands):
-                acc += c[0]
-                if acc >= alpha * total:
-                    cut = i + 1
-                    break
-            cands = cands[:cut]
-        tps = [TermPlan(tid, w, should=True) for _, tid, w in cands]
-        while len(tps) < pad_to:
-            tps.append(TermPlan(-1, 0.0, should=True))
-        if not tps:
-            return None
-        return self.executor.build_plan(
-            tps, min_should=1, idf_of_tid=lambda tid: np.float32(np.nan)
-        )
+    def _term_ids(self, ids: np.ndarray) -> np.ndarray:
+        """Term id of each id, -1 where no term has it: the
+        ``pp.term_id(str(int(t)))`` of each, by table lookup."""
+        size = len(self._tid_of_id)
+        tid = self._tid_of_id[np.clip(ids, 0, size - 1)]
+        outside = (ids < 0) | (ids >= size)
+        tid[outside] = -1
+        if self._tid_of_other:
+            for j in np.flatnonzero(outside).tolist():
+                tid[j] = self._tid_of_other.get(int(ids[j]), -1)
+        return tid
+
+    def _plan(self, query: SparseVector, alpha: float = 1.0):
+        """The solo plan: ``_plan_batch`` of the one query, unpadded (its
+        clauses fill a ``_bucket_tq`` of their count, and it is pure OR
+        unless a clause weight is 0); None if no id is in the index."""
+        return self._plan_batch([query], pad=False, alpha=alpha)[0]
 
     def search(self, query: SparseVector, k: int = 10, alpha: float = 1.0):
         """Top-k docs by quantized dot product -> (scores, docids, hits).
@@ -350,10 +353,87 @@ class SparseSearcher:
             int(matched.sum()),
         )
 
-    def _plan_batch(self, queries: Sequence[SparseVector]):
-        """Per-query plans padded to a common clause bucket."""
-        pad_to = _bucket_tq(max(max(len(q), 1) for q in queries))
-        return [self._plan(q, pad_to=pad_to) for q in queries]
+    def _plan_batch(self, queries: Sequence[SparseVector], pad: bool = True,
+                    alpha: float = 1.0):
+        """The queries' row plans, built from whole-batch arrays.
+
+        Each query's ids go through one table lookup (``_term_ids``);
+        an id that no term has is dropped. A clause's weight is
+        ``f32(q_w) * f32(scale)``, one f32 multiply; it scores where it is
+        not 0, and its light entry is ``(tid, weight)``, or ``(tid, 1.0)``
+        for a weight of 0. Clauses keep the query's id order, one light
+        row each (no heavy row: the bank is zero), all SHOULD, with
+        ``num_required`` 0 and ``min_should`` 1.
+
+        Padding: with ``pad``, every plan is ``pad_to`` =
+        ``_bucket_tq(longest query)`` clauses wide, its slots past its
+        present clauses padding (no row, no role); a plan is pure OR only
+        where it needs no padding slot and no weight is 0. Without ``pad``
+        a plan is ``_bucket_tq`` of its present clauses wide and pure OR
+        unless a weight is 0; a query with no present clause has no plan
+        (None).
+
+        alpha < 1 enables QBlock-style gain selection (reference
+        ``QBlockIndex.h:20-48``), query by query: clauses sort stably by
+        their score upper bound (q_w * scale * 255 = q_w * max stored
+        weight), descending, and only the shortest prefix whose bound,
+        summed in that order, reaches ``alpha`` of the total is scored, a
+        documented approximation on top of the quantization."""
+        nq = len(queries)
+        lens = np.fromiter((len(q) for q in queries), np.int64, nq)
+        pad_to = _bucket_tq(max(int(lens.max(initial=0)), 1)) if pad else 0
+        _PLANNED.increment(nq)
+        tid = self._term_ids(np.concatenate([q.ids for q in queries]))
+        present = tid >= 0
+        tid = tid[present]
+        qof = np.repeat(np.arange(nq), lens)[present]
+        weight = (np.concatenate([q.values for q in queries])[present]
+                  * self._scale_f32[tid])
+        n = np.bincount(qof, minlength=nq)
+        start = np.zeros(nq + 1, np.int64)
+        np.cumsum(n, out=start[1:])
+        if alpha < 1.0:
+            sel = []
+            for s, e in zip(start[:-1].tolist(), start[1:].tolist()):
+                if s == e:
+                    continue
+                ub = weight[s:e].astype(np.float64) * NUM_BINS
+                order = np.argsort(-ub, kind="stable")
+                acc = np.cumsum(ub[order])
+                reach = np.flatnonzero(acc >= alpha * acc[-1])
+                sel.append(s + order[: reach[0] + 1 if len(reach) else e - s])
+            sel = np.concatenate(sel) if sel else np.zeros(0, np.int64)
+            tid, qof, weight = tid[sel], qof[sel], weight[sel]
+            n = np.bincount(qof, minlength=nq)
+            np.cumsum(n, out=start[1:])
+        slot = np.arange(len(tid)) - start[qof]
+        widths = [_bucket_tq(max(c, pad_to)) for c in n.tolist()]
+        tq = max(widths)
+        hidx = np.full((nq, tq), -1, np.int32)
+        lidx = np.zeros((nq, tq), np.int32)
+        scoring = np.zeros((nq, tq), bool)
+        req = np.zeros((nq, tq), np.float32)
+        sho = np.zeros((nq, tq), np.float32)
+        neg = np.zeros((nq, tq), np.float32)
+        lidx[qof, slot] = slot + 1
+        nonzero = weight != 0
+        scoring[qof, slot] = nonzero
+        sho[qof, slot] = 1.0
+        zero_w = np.bincount(qof[~nonzero], minlength=nq)
+        pure_or = ((n >= pad_to) & (zero_w == 0)).tolist()
+        entries = list(zip(tid.tolist(),
+                           np.where(nonzero, weight, np.float32(1.0))))
+        plans = []
+        for q, (s, e, w) in enumerate(zip(start[:-1].tolist(),
+                                          start[1:].tolist(), widths)):
+            if s == e and not pad_to:
+                plans.append(None)
+                continue
+            plans.append(RowPlan(
+                hidx[q, :w], entries[s:e], lidx[q, :w], scoring[q, :w],
+                req[q, :w], sho[q, :w], neg[q, :w], 0, 1, pure_or[q],
+            ))
+        return plans
 
     def dispatch_batch(self, queries: Sequence[SparseVector], k: int = 10):
         """Launch a batch without waiting for it; returns a handle for

@@ -3,16 +3,24 @@ JAX package's (``diagon_tpu.sparse``, Pallas in interpret mode where it
 reaches a kernel) and the oracles: the same packed blocks, scales and
 exact CSR from one build, and the same docids, f32 score bits and hits
 from every search method. Mirrors the cases of
-``tests/unit/test_sparse.py``."""
+``tests/unit/test_sparse.py``. The searcher's vectorised row plans are
+held field for field against the per-clause construction (``TermPlan``s
+through ``RowExecutor.build_plan``)."""
 
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
+import pytest
 
 from diagon_tpu.sparse import SparseIndex as JaxIndex
 from diagon_tpu.sparse import SparseSearcher as JaxSearcher
 from diagon_tpu.sparse import SparseVector as JaxVector
 from diagon_tpu_torch.codecs.postings import PackedPostings, decode_block_numpy
+from diagon_tpu_torch.observability.metrics import registry
+from diagon_tpu_torch.search.engine import TermPlan
+from diagon_tpu_torch.search.row_engine import _bucket_tq
 from diagon_tpu_torch.search.convert import (
     sparse_index_from_jax,
     sparse_vector_from_jax,
@@ -329,3 +337,184 @@ def test_searcher_places_everything_on_its_device():
                        device="cpu")
     assert s.executor.index.heavy_bank.device.type == "cpu"
     assert s.executor.index.live.device.type == "cpu"
+
+
+SPLADE_TABLE = (Path(__file__).resolve().parents[1] / "gpubench" / "traffic"
+                / "splade-dev-b256.json")
+
+
+def _table_queries(n):
+    """The first ``n`` queries of the SPLADE cell's committed table, read as
+    its adapter reads them (``np.float32(float(text))``)."""
+    out = []
+    for e in json.loads(SPLADE_TABLE.read_text())["table"][:n]:
+        ids, ws = zip(*(c.split("^") for c in e["should"]))
+        out.append(SparseVector([int(t) for t in ids],
+                                [np.float32(float(w)) for w in ws]))
+    return out
+
+
+def _splade_shaped_index(n_docs=500, nnz=100, extra=(), flat=False):
+    """A small index over BERT's 30,522 WordPiece ids from
+    ``SparseIndex.from_csr``; ``extra`` ids go into the first document;
+    ``flat`` weights are all 1, so every term has the same scale."""
+    rng = np.random.Generator(np.random.PCG64(41))
+    rows = [np.sort(rng.choice(30522, nnz, replace=False))
+            for _ in range(n_docs)]
+    rows[0] = np.unique(np.concatenate([rows[0], np.asarray(extra, int)]))
+    indptr = np.zeros(n_docs + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=indptr[1:])
+    ids = np.concatenate(rows)
+    vals = (np.ones(len(ids), np.float32) if flat
+            else (rng.random(len(ids)) * 3 + 0.01).astype(np.float32))
+    return SparseIndex.from_csr(indptr, ids, vals)
+
+
+def _oracle_plan(s, query, pad_to=0, alpha=1.0):
+    """The per-clause construction: a ``TermPlan`` a present id (its key's
+    bisection, ``f32(f32(w) * f32(scale))``), QBlock selection, padding
+    clauses, then ``RowExecutor.build_plan``."""
+    cands = []
+    for t, w in zip(query.ids, query.values):
+        key = str(int(t))
+        tid = s.pp.term_id(key)
+        if tid < 0:
+            continue
+        weight = np.float32(
+            np.float32(w) * np.float32(s.index.scales[key]))
+        cands.append((float(weight) * 255, tid, float(weight)))
+    if alpha < 1.0 and cands:
+        cands.sort(key=lambda c: -c[0])
+        total = sum(c[0] for c in cands)
+        acc, cut = 0.0, len(cands)
+        for i, c in enumerate(cands):
+            acc += c[0]
+            if acc >= alpha * total:
+                cut = i + 1
+                break
+        cands = cands[:cut]
+    tps = [TermPlan(tid, w, should=True) for _, tid, w in cands]
+    tps += [TermPlan(-1, 0.0, should=True)] * (pad_to - len(tps))
+    if not tps:
+        return None
+    return s.executor.build_plan(
+        tps, min_should=1, idf_of_tid=lambda tid: np.float32(np.nan))
+
+
+def _oracle_batch(s, queries):
+    pad_to = _bucket_tq(max(max(len(q), 1) for q in queries))
+    return [_oracle_plan(s, q, pad_to) for q in queries]
+
+
+def _assert_same_plan(got, want, what):
+    if want is None:
+        assert got is None, what
+        return
+    for name in ("hidx", "lidx", "scoring", "req", "sho", "neg"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        np.testing.assert_array_equal(g, w, err_msg=f"{what} {name}")
+    assert (got.num_required, got.min_should, got.pure_or) == (
+        want.num_required, want.min_should, want.pure_or), what
+    assert len(got.light_entries) == len(want.light_entries), what
+    for (gt, gw), (wt, ww) in zip(got.light_entries, want.light_entries):
+        assert type(gt) is int and type(gw) is np.float32, what
+        assert gt == wt, what
+        assert gw.view(np.uint32) == np.float32(ww).view(np.uint32), what
+
+
+def _q(ids, vals=None):
+    return SparseVector(ids, np.ones(len(ids), np.float32)
+                        if vals is None else vals)
+
+
+def _plan_case(name):
+    """(index, queries, how): ``how`` is "batch" (``_plan_batch`` against
+    the padded oracle) or ("solo", alpha) (``_plan`` a query, or
+    ``_plan_batch`` unpadded, against the unpadded oracle)."""
+    if name == "outside_table":
+        # keys a dense id table cannot hold: negative, and 2**24 and over
+        idx = _splade_shaped_index(50, 20, extra=(-7, -1, 1 << 24, 1 << 30))
+        qs = [_q([-7, -3, -1, 5, 1 << 24, (1 << 24) + 1, 1 << 30]),
+              _q([-2, (1 << 31) - 1])]
+        return idx, qs, "batch"
+    idx = _splade_shaped_index()
+    table = _table_queries(256)
+    present = idx.segment.fields["_sparse"].postings.terms
+    hits = sorted(int(t) for t in present)
+    if name == "splade_table":
+        return idx, table, "batch"
+    if name == "absent_ids":
+        absent = sorted(set(range(30522)) - set(hits))[:3]
+        qs = [_q(list(q.ids) + absent + [-5, 30522, 999999],
+                 np.concatenate([q.values, np.full(6, 0.75, np.float32)]))
+              for q in table[:6]]
+        return idx, qs, "batch"
+    if name == "all_absent":
+        absent = sorted(set(range(30522)) - set(hits))[:4]
+        return idx, [table[0], _q(absent + [-1, 40000]), table[1]], "batch"
+    if name == "fills_bucket":
+        # the longest query's 8 ids are all present: its plan fills the
+        # bucket of 8 and is pure OR; the others are padded to it
+        qs = [_q(hits[:8], np.linspace(0.5, 2, 8).astype(np.float32)),
+              _q(hits[8:13]), _q(hits[13:14] + [30522])]
+        return idx, qs, "batch"
+    if name == "zero_weight":
+        return idx, [_q(hits[:5], np.asarray([1, 0, 2, 0, 3], np.float32)),
+                     _q(hits[5:7], np.zeros(2, np.float32))], "batch"
+    if name == "solo":
+        return idx, table[:1], ("solo", 1.0)
+    # "alpha_0.5", "alpha_1.0": equal scales, so clauses of equal query
+    # weight tie on their bound and keep their id order
+    alpha = float(name.split("_")[1])
+    idx = _splade_shaped_index(flat=True)
+    ties = _q(hits[:40], np.resize(np.float32([1, 2, 1, 3]), 40))
+    return idx, table[:64] + [ties, _q([30522])], ("solo", alpha)
+
+
+@pytest.mark.parametrize("case", [
+    "splade_table", "absent_ids", "all_absent", "fills_bucket",
+    "zero_weight", "outside_table", "solo", "alpha_0.5", "alpha_1.0"])
+def test_plan_batch_matches_per_clause_oracle(case):
+    """The vectorised plans equal the per-clause construction's field for
+    field and entry for entry (light weights to the f32 bit)."""
+    idx, qs, how = _plan_case(case)
+    s = SparseSearcher(idx, device="cpu")
+    if how == "batch":
+        got, want = s._plan_batch(qs), _oracle_batch(s, qs)
+        assert len({len(p.hidx) for p in got}) == 1
+    elif len(qs) == 1:
+        got = [s._plan(qs[0], alpha=how[1])]
+        want = [_oracle_plan(s, qs[0], alpha=how[1])]
+    else:
+        got = s._plan_batch(qs, pad=False, alpha=how[1])
+        want = [_oracle_plan(s, q, alpha=how[1]) for q in qs]
+    assert len(got) == len(want) == len(qs)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_same_plan(g, w, (case, i))
+    if case == "fills_bucket":
+        assert [p.pure_or for p in got] == [True, False, False]
+    if case == "solo":
+        assert got[0].pure_or and len(got[0].hidx) == _bucket_tq(
+            len(got[0].light_entries))
+    if case == "alpha_0.5":
+        assert sum(len(p.light_entries) for p in got if p) < sum(
+            len(p.light_entries) for p in s._plan_batch(qs, pad=False) if p)
+
+
+def test_sparse_plans_batched_counter():
+    """``search.sparse_plans_batched`` counts the queries the vectorised
+    pass planned: a batch's size a ``dispatch_batch``, 1 a ``search``."""
+    pairs = _random_pairs(np.random.Generator(np.random.PCG64(42)), 200)
+    s = SparseSearcher(
+        SparseIndex.build([SparseVector(i, v) for i, v in pairs]),
+        device="cpu")
+    qs = [SparseVector(i, v) for i, v in _random_pairs(
+        np.random.Generator(np.random.PCG64(43)), 5, nnz=15)]
+    counter = registry.counter("search.sparse_plans_batched")
+    before = counter.value()
+    s.collect_batch(s.dispatch_batch(qs, 10))
+    assert counter.value() - before == len(qs)
+    before = counter.value()
+    s.search(qs[0], 10)
+    assert counter.value() - before == 1
